@@ -1,0 +1,920 @@
+"""The batched discrete-event engine in PyTorch: the main-path slice.
+
+The port of `madsim_tpu/tpu/engine.py` for the legacy-chaos, fused-handler
+path: one step advances every lane to its next conservative-DES window,
+picks each node's earliest in-window event (message or timer), runs the
+spec's fused handler, applies crash/restart and bipartition chaos, rolls
+loss and latency for every send and places survivors in the node-pooled
+message ring, checks invariants and rebases lanes whose clock offset
+crossed REBASE_US. Same state fields, same draws, same order: a seed's
+final state is leaf-for-leaf the JAX engine's (tests/test_torch_engine.py).
+
+State layout differs only in storage width: node leaves are stored wide
+(the JAX face's u8/i8/u16 narrowing is a storage choice, not a value one)
+and u32 values are int64 tensors (prng.py). The bool planes rest packed,
+as on the JAX face (`alive_p`, `link_ok_p`, `member_p`, `msgs.valid_p`).
+
+Configurations the slice does not carry (nemesis clauses, the straggler
+pool, triage / coverage / lineage / device-loop planes, two-handler specs)
+are refused at construction with the ROADMAP item that will port them.
+Every entry point runs on the CUDA card unless the caller passes
+`device="cpu"`; without a card it raises rather than fall back.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import bitpack, prng
+from ..nemesis import FIRE_INDEX, FIRE_KINDS
+from .spec import (
+    INF_GUARD, INF_US, REBASE_US, HardCap, ProtocolSpec, RateFloor, SimConfig,
+    derate_horizon, expand_to, tree_map,
+)
+
+DEFAULT_DISPATCH_STEPS = 10_000
+# steps launched between two host reads of the all-done flag. Steps past the
+# point where every lane is done are no-ops (see BatchedSim._step), so the
+# check only bounds wasted work; it never changes a result.
+DONE_CHECK_STEPS = 32
+
+
+class MsgPool(NamedTuple):
+    """In-flight messages: per-destination validity + per-slot ring.
+
+    Node n owns the SK contiguous ring slots [n*SK, (n+1)*SK); a slot holds
+    one (deliver time, kind, payload), and validity is one bit per
+    (destination, slot), packed along the slot axis."""
+
+    valid_p: Any  # u32-in-int64 [L,N,ceil(CK/32)]
+    deliver: Any  # int32 [L,CK] (offset us)
+    kind: Any  # int32 [L,CK]
+    payload: Any  # int32 [L,CK,P]
+    sent_eid: Any = None  # lineage stamp (not ported: always None)
+
+    @property
+    def valid(self):
+        """bool [L,N,CK] validity view."""
+        return bitpack.unpack_bits(self.valid_p, self.deliver.shape[-1])
+
+
+class SimState(NamedTuple):
+    """The full per-lane state; the JAX face's field names. Fields of planes
+    this slice does not carry are None."""
+
+    clock: Any  # int32 [L] (offset us; see epoch)
+    epoch: Any  # int32 [L]
+    key: Any  # u32 [L] hash-chain key
+    key0: Any  # u32 [L] the lane's base key
+    done: Any  # bool [L]
+    violated: Any  # bool [L]
+    violation_at: Any  # int32 [L]
+    violation_epoch: Any  # int32 [L]
+    violation_step: Any  # int32 [L] first violating step (-1 = none)
+    deadlocked: Any  # bool [L]
+    steps: Any  # int32 [L]
+    events: Any  # int32 [L]
+    overflow: Any  # int32 [L] sends dropped: pool full
+    dead_drops: Any  # int32 [L] sends dropped: destination down
+    nonmember_drops: Any  # int32 [L] (reconfig clause; zero here)
+    unsynced_loss: Any  # int32 [L] (disk clause; zero here)
+    fires: Any  # int32 [L, len(FIRE_KINDS)]
+    occ_fired: Any  # None (nemesis schedule clauses)
+    alive_p: Any  # u32 [L,1] packed liveness bits
+    crashed: Any  # int32 [L] node currently down, -1 = none
+    chaos_at: Any  # int32 [L] next crash/restart event
+    member_p: Any  # u32 [L,1] packed membership bits (all ones here)
+    member_epoch: Any  # int32 [L]
+    link_ok_p: Any  # u32 [L,N,1] packed directed-link bits, row = src
+    partitioned: Any  # bool [L]
+    part_at: Any  # int32 [L] next partition split/heal event
+    timer: Any  # int32 [L,N]
+    node: Any  # protocol NamedTuple, leaves [L,N,...]
+    dur: Any  # None (durability plane)
+    msgs: MsgPool
+    strag: Any  # None (straggler pool)
+    nem: Any  # None (nemesis state)
+    ctl: Any  # None (triage controls)
+    cov: Any  # None (coverage)
+    lin: Any  # None (lineage)
+    queue: Any  # None (refill queue)
+    refill: Any  # None (refill log)
+    loop: Any = None  # None (device-loop carry)
+
+    @property
+    def alive(self):
+        return bitpack.unpack_bits(self.alive_p, self.timer.shape[1])
+
+    @property
+    def link_ok(self):
+        return bitpack.unpack_bits(self.link_ok_p, self.timer.shape[1])
+
+    @property
+    def member(self):
+        return bitpack.unpack_bits(self.member_p, self.timer.shape[1])
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device: CUDA unless the caller asks for the CPU. A CUDA
+    request without a card raises; it never falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "engine on the CPU"
+        )
+    return dev
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to madsim_tpu_torch yet "
+        f"(ROADMAP.md queue 1, {item})"
+    )
+
+
+class BatchedSim:
+    """Vectorized multi-lane simulator for one ProtocolSpec."""
+
+    def __init__(
+        self, spec: ProtocolSpec, config: Optional[SimConfig] = None,
+        triage: bool = False, coverage: bool = False,
+        lineage: bool = False, devloop: Any = None, device="cuda",
+    ) -> None:
+        self.spec = spec
+        self.config = config or SimConfig()
+        cfg = self.config
+        N = spec.n_nodes
+        # -- the JAX face's construction checks that apply to this slice,
+        # with the same messages, so both faces accept the same configs
+        if devloop is not None and not (triage and coverage):
+            raise ValueError(
+                "devloop needs BatchedSim(..., triage=True, coverage=True) "
+                "— the device loop mutates ctl genomes and ranks coverage "
+                "novelty in-jit"
+            )
+        if N < 2:
+            raise ValueError(f"spec.n_nodes must be >= 2, got {N}")
+        if N > 32:
+            raise ValueError(
+                f"spec.n_nodes must be <= 32 (packed bool planes), got {N}"
+            )
+        if spec.msg_kind_names is not None and len(spec.msg_kind_names) > 256:
+            raise ValueError(
+                "message kinds must fit u8 (pool `kind` is stored narrow): "
+                f"got {len(spec.msg_kind_names)} named kinds"
+            )
+        narrow = dict(spec.narrow_fields or {})
+        bad = set(narrow) & set(spec.time_fields)
+        if bad:
+            raise ValueError(
+                "time_fields hold absolute epoch-rebased times and must "
+                f"stay i32 — remove {sorted(bad)} from narrow_fields"
+            )
+        for fname, entry in (spec.rate_floors or {}).items():
+            if not isinstance(entry, (RateFloor, HardCap)):
+                raise ValueError(
+                    f"rate_floors[{fname!r}] must be a RateFloor or "
+                    f"HardCap, got {type(entry).__name__}"
+                )
+        if narrow and spec.narrow_horizon_us is not None:
+            # the JAX face stores these fields narrow and would wrap them
+            # past this horizon: refuse the same configs it refuses
+            cap = derate_horizon(
+                spec.narrow_horizon_us,
+                cfg.nem_skew_max_ppm if cfg.nem_skew_enabled else 0,
+            )
+            if cfg.horizon_us > cap:
+                raise ValueError(
+                    f"horizon_us={cfg.horizon_us} exceeds this spec's "
+                    f"narrow-dtype safe horizon ({cap} us"
+                    + (" after clock-skew derating"
+                       if cfg.nem_skew_enabled else "")
+                    + "): strip spec.narrow_fields (dataclasses.replace("
+                    "spec, narrow_fields=None)) for long soaks, or "
+                    "shorten the horizon"
+                )
+        if spec.payload_width < 1 or spec.max_out < 1 or spec.max_out_msg < 1:
+            raise ValueError(
+                "spec payload_width / max_out / max_out_msg must be >= 1 "
+                f"(got {spec.payload_width}/{spec.max_out}/{spec.max_out_msg})"
+            )
+        if cfg.latency_lo_us < 0 or cfg.latency_hi_us < cfg.latency_lo_us:
+            raise ValueError(
+                f"latency range [{cfg.latency_lo_us}, {cfg.latency_hi_us}] "
+                "must satisfy 0 <= lo <= hi"
+            )
+        if not (0.0 <= cfg.loss_rate < 1.0):
+            raise ValueError(f"loss_rate must be in [0, 1), got {cfg.loss_rate}")
+        if cfg.horizon_us <= 0:
+            raise ValueError(f"horizon_us must be positive, got {cfg.horizon_us}")
+        for name in ("msg_depth_msg", "msg_depth_timer"):
+            v = getattr(cfg, name)
+            if v is not None and v < 1:
+                raise ValueError(f"{name} must be >= 1, got {v}")
+        if cfg.msg_spare_slots < 0:
+            raise ValueError(
+                f"msg_spare_slots must be >= 0, got {cfg.msg_spare_slots}"
+            )
+        if spec.on_event is None and cfg.msg_spare_slots > 0:
+            raise ValueError(
+                "msg_spare_slots only applies to fused (on_event) specs — "
+                "the two-handler path places per-candidate rings; use "
+                "msg_depth_msg/msg_depth_timer there"
+            )
+        for name in (
+            "nem_loss_rate", "nem_dup_rate", "nem_reorder_rate",
+            "nem_crash_wipe_rate", "nem_disk_torn_rate",
+        ):
+            v = getattr(cfg, name)
+            if not (0.0 <= v < 1.0):
+                raise ValueError(f"{name} must be in [0, 1), got {v}")
+        if cfg.nem_crash_enabled and cfg.chaos_enabled:
+            raise ValueError(
+                "nem_crash_* and crash_interval_* cannot both be enabled — "
+                "one crash machinery, one time source (use the FaultPlan)"
+            )
+        if cfg.nem_partition_enabled and cfg.partition_enabled:
+            raise ValueError(
+                "nem_partition_* and partition_interval_* cannot both be "
+                "enabled — one partition machinery, one time source"
+            )
+        for prefix, parts in (
+            ("nem_crash", ("interval", "down")),
+            ("nem_partition", ("interval", "heal")),
+            ("nem_clog", ("interval", "heal")),
+            ("nem_spike", ("interval", "duration")),
+            ("nem_reconfig", ("interval", "down")),
+            ("nem_disk", ("interval", "slow", "down")),
+        ):
+            if getattr(cfg, f"{prefix}_interval_hi_us") <= 0:
+                continue
+            for part in parts:
+                lo = getattr(cfg, f"{prefix}_{part}_lo_us")
+                hi = getattr(cfg, f"{prefix}_{part}_hi_us")
+                if lo < 0 or hi < lo or hi <= 0:
+                    raise ValueError(
+                        f"{prefix}_{part} range [{lo}, {hi}] must satisfy "
+                        "0 <= lo <= hi and hi > 0"
+                    )
+        if cfg.nem_reorder_rate > 0 and cfg.nem_reorder_window_us <= 0:
+            raise ValueError(
+                "nem_reorder_rate needs nem_reorder_window_us > 0, got "
+                f"{cfg.nem_reorder_window_us}"
+            )
+        if cfg.nem_spike_enabled and cfg.nem_spike_extra_us <= 0:
+            raise ValueError(
+                f"nem_spike_extra_us must be > 0, got {cfg.nem_spike_extra_us}"
+            )
+        if not (0 <= cfg.nem_skew_max_ppm < 1_000_000):
+            raise ValueError(
+                "nem_skew_max_ppm must be in [0, 1e6) (the timer rate "
+                f"1 + ppm*1e-6 must stay positive), got {cfg.nem_skew_max_ppm}"
+            )
+        if (
+            cfg.latency_hi_us + cfg.nem_spike_extra_us
+            + cfg.nem_reorder_window_us
+        ) >= INF_GUARD // 4:
+            raise ValueError(
+                "latency_hi + nem_spike_extra + nem_reorder_window must stay "
+                f"below {INF_GUARD // 4} us"
+            )
+        if spec.on_event is not None and cfg.msg_depth_timer is not None and (
+            cfg.msg_depth_timer != cfg.msg_depth_msg
+        ):
+            raise ValueError(
+                "fused (on_event) specs have ONE candidate class: "
+                "msg_depth_timer has no effect and must equal msg_depth_msg "
+                f"(got {cfg.msg_depth_timer} vs {cfg.msg_depth_msg}); tune "
+                "msg_depth_msg and msg_spare_slots instead"
+            )
+        if spec.on_recover is not None and not spec.durable_fields:
+            raise ValueError(
+                "spec.on_recover requires spec.durable_fields — the hook "
+                "receives the durable watermark, and without declared "
+                "durable fields there is nothing durable to recover from"
+            )
+        if spec.durable_fields and spec.sync_field is None:
+            raise ValueError(
+                "spec.durable_fields requires spec.sync_field — the i32 "
+                "node-state counter the spec's handlers bump at their "
+                "fsync points; without it the watermark could never "
+                "advance past boot"
+            )
+        if spec.durable_fields and spec.sync_field in spec.durable_fields:
+            raise ValueError(
+                "spec.sync_field must not itself be durable: the watermark "
+                "advance compares its live value against the PREVIOUS "
+                "step's, not against the snapshot"
+            )
+        bad_dur = set(spec.durable_fields) & set(spec.time_fields)
+        if bad_dur:
+            raise ValueError(
+                "durable_fields cannot include time_fields (the watermark "
+                "snapshot is not epoch-rebased; an absolute time in it "
+                f"would go stale): remove {sorted(bad_dur)}"
+            )
+        # -- valid configurations this slice does not carry yet
+        if triage:
+            raise _not_ported("BatchedSim(triage=True)", "item 10")
+        if coverage:
+            raise _not_ported("BatchedSim(coverage=True)", "item 9")
+        if lineage:
+            raise _not_ported("BatchedSim(lineage=True)", "item 9")
+        if devloop is not None:
+            raise _not_ported("BatchedSim(devloop=...)", "item 12")
+        if spec.on_event is None:
+            raise _not_ported(
+                "a two-handler spec (on_event=None)", "item 4, two-handler path"
+            )
+        if cfg.buggify_delay_rate > 0:
+            raise _not_ported(
+                "buggify_delay_rate > 0 (the straggler pool)",
+                "item 4, straggler pool",
+            )
+        for clause, enabled, item in (
+            ("nem_crash", cfg.nem_crash_enabled, "item 6"),
+            ("nem_partition", cfg.nem_partition_enabled, "item 6"),
+            ("nem_clog", cfg.nem_clog_enabled, "item 6"),
+            ("nem_spike", cfg.nem_spike_enabled, "item 6"),
+            ("nem_loss", cfg.nem_loss_rate > 0, "item 6"),
+            ("nem_dup", cfg.nem_dup_rate > 0, "item 6"),
+            ("nem_reorder", cfg.nem_reorder_rate > 0, "item 6"),
+            ("nem_skew", cfg.nem_skew_enabled, "item 6"),
+            ("nem_reconfig", cfg.nem_reconfig_enabled, "item 8"),
+            ("nem_disk", cfg.nem_disk_enabled, "item 8"),
+        ):
+            if enabled:
+                raise _not_ported(f"the {clause}_* clause", item)
+
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # every op of the step has a deterministic CUDA implementation;
+            # this turns any future nondeterministic one into an error
+            torch.use_deterministic_algorithms(True)
+        dev = self.device
+        # node-pooled placement: node n owns SK = E*K (+ spare) contiguous
+        # ring slots, shared by all its sends (the JAX face's fused layout)
+        self._C = N * spec.max_out
+        self._Km = cfg.msg_depth_msg or max(1, cfg.msg_capacity // self._C)
+        self._E_pack = spec.max_out
+        self._SK = self._E_pack * self._Km + cfg.msg_spare_slots
+        self._CK = N * self._SK
+        self._src_of_c = torch.arange(
+            self._C, device=dev
+        ) // spec.max_out  # int64 [C]
+        self._narange = torch.arange(N, dtype=torch.int32, device=dev)
+        self._slot_idx = torch.arange(self._CK, device=dev)
+        self._cidx = torch.arange(self._C, device=dev)
+        self.step = self._step
+
+    # ------------------------------------------------------------------ init
+
+    def _seeds_tensor(self, seeds) -> torch.Tensor:
+        """Seeds (any int sequence or array) as u32-in-int64 on the device."""
+        if isinstance(seeds, torch.Tensor):
+            return prng.u32(seeds.to(self.device))
+        arr = np.asarray(list(seeds) if isinstance(seeds, range) else seeds)
+        return torch.as_tensor(
+            arr.astype(np.uint32).astype(np.int64), device=self.device
+        )
+
+    def init(self, seeds) -> SimState:
+        """Build lane state for a batch of seeds."""
+        spec, cfg, dev = self.spec, self.config, self.device
+        seeds = self._seeds_tensor(seeds)
+        L, N, CK = seeds.shape[0], spec.n_nodes, self._CK
+
+        key = prng.key_from(seeds)  # u32 [L]
+        node_keys = prng.fold(key[:, None], self._narange)
+        node_state, timer = spec.init(node_keys, self._narange)
+        timer = timer.to(torch.int32)
+
+        def full(shape, v, dtype=torch.int32):
+            return torch.full(shape, v, dtype=dtype, device=dev)
+
+        if cfg.chaos_enabled:
+            chaos_at = prng.randint(
+                key, 11, cfg.crash_interval_lo_us, cfg.crash_interval_hi_us
+            )
+        else:
+            chaos_at = full((L,), INF_US)
+        if cfg.partition_enabled:
+            part_at = prng.randint(
+                key, 12, cfg.partition_interval_lo_us,
+                cfg.partition_interval_hi_us,
+            )
+        else:
+            part_at = full((L,), INF_US)
+        zi = full((L,), 0)
+        zb = full((L,), False, torch.bool)
+        all_n = bitpack.full_mask_word(N)
+        return SimState(
+            clock=zi, epoch=zi, key=key, key0=key, done=zb, violated=zb,
+            violation_at=full((L,), INF_US), violation_epoch=zi,
+            violation_step=full((L,), -1), deadlocked=zb, steps=zi,
+            events=zi, overflow=zi, dead_drops=zi, nonmember_drops=zi,
+            unsynced_loss=zi, fires=full((L, len(FIRE_KINDS)), 0),
+            occ_fired=None,
+            alive_p=full((L, 1), all_n, torch.int64),
+            crashed=full((L,), -1), chaos_at=chaos_at,
+            member_p=full((L, 1), all_n, torch.int64), member_epoch=zi,
+            link_ok_p=full((L, N, 1), all_n, torch.int64),
+            partitioned=zb, part_at=part_at, timer=timer, node=node_state,
+            dur=None,
+            msgs=MsgPool(
+                valid_p=full((L, N, bitpack.packed_words(CK)), 0, torch.int64),
+                deliver=full((L, CK), INF_US),
+                kind=full((L, CK), 0),
+                payload=full((L, CK, spec.payload_width), 0),
+            ),
+            strag=None, nem=None, ctl=None, cov=None, lin=None, queue=None,
+            refill=None,
+        )
+
+    # ------------------------------------------------------------------ step
+
+    def _step(self, state: SimState, gate_key: bool = False) -> SimState:
+        """One engine step. With `gate_key`, a step taken when every lane is
+        already done is a no-op: done lanes freeze every leaf but `key`, and
+        the gate holds `key` too, so a sweep may run past its last live step
+        without changing the result (the JAX loop stops at that step)."""
+        spec, cfg = self.spec, self.config
+        N, CK, P, C = spec.n_nodes, self._CK, spec.payload_width, self._C
+        L = state.clock.shape[0]
+        msgs = state.msgs
+        narange = self._narange
+        i32 = torch.int32
+
+        # -- 0. unpack the packed bool planes
+        valid = bitpack.unpack_bits(msgs.valid_p, CK)  # bool [L,N,CK]
+        alive = bitpack.unpack_bits(state.alive_p, N)  # bool [L,N]
+        link_ok = bitpack.unpack_bits(state.link_ok_p, N)  # bool [L,N,N]
+        node0 = state.node
+
+        # -- 1. advance each lane to its next event window
+        t_pend = torch.where(valid, msgs.deliver[:, None, :], INF_US)
+        tmsg_n = t_pend.amin(dim=2)  # [L,N]
+        tmsg_n = torch.where(alive, tmsg_n, INF_US)
+        ttmr_n = torch.where(alive, state.timer, INF_US)
+        t_next = torch.minimum(
+            torch.minimum(
+                torch.minimum(tmsg_n.amin(dim=1), ttmr_n.amin(dim=1)),
+                state.chaos_at,
+            ),
+            state.part_at,
+        )
+        deadlocked = (~state.done) & (t_next >= INF_US)
+        active = (~state.done) & (t_next < INF_US)
+        # conservative-DES lookahead window [t_next, t_next + latency_lo),
+        # collapsed to the instant t_next when chaos falls inside it
+        lo_w = max(0, cfg.latency_lo_us - 1) if cfg.lookahead else 0
+        w_end = torch.clamp(t_next, max=INF_US - lo_w - 1) + lo_w
+        if lo_w and (cfg.any_crash_enabled or cfg.any_partition_enabled):
+            next_chaos = torch.minimum(state.chaos_at, state.part_at)
+            w_end = torch.where(next_chaos <= w_end, t_next, w_end)
+
+        # -- 2. advance per-lane keys
+        key = prng.fold(state.key, 1)
+        if gate_key:
+            key = torch.where((~state.done).any(), key, state.key)
+        node_key = prng.fold(key[:, None], narange)  # [L,N]
+        mkeys = prng.fold(node_key, 101)
+        rkeys = prng.fold(node_key, 103)
+        ckey = prng.fold(key, 104)  # [L]
+
+        # -- 3. pick each node's event: earliest in-window message or timer
+        msg_due = active[:, None] & (tmsg_n <= w_end[:, None])
+        tmr_due = active[:, None] & (ttmr_n <= w_end[:, None])
+        if cfg.sched_randomize:
+            timer_first = prng.bernoulli(prng.fold(node_key, 108), 1, 0.5)
+        else:
+            timer_first = torch.zeros_like(msg_due)
+        tie = msg_due & tmr_due & (tmsg_n == ttmr_n)
+        has_msg = msg_due & (
+            ~tmr_due | (tmsg_n < ttmr_n) | (tie & ~timer_first)
+        )
+        due_t = tmr_due & (
+            ~msg_due | (ttmr_n < tmsg_n) | (tie & timer_first)
+        )
+        t_evt = torch.where(
+            has_msg, tmsg_n, torch.where(due_t, ttmr_n, t_next[:, None])
+        )
+        # slot choice among the node's earliest-time slots: argmin returns
+        # the FIRST minimum on both devices, as jnp.argmin does
+        head = valid & (t_pend == tmsg_n[:, :, None])  # [L,N,CK]
+        if cfg.sched_randomize:
+            prio = prng.bits(
+                prng.fold(key, 107)[:, None], 1, index=self._slot_idx[None]
+            )[:, None, :]  # u32 [L,1,CK]
+            slot = torch.where(head, prio, prng.M32).argmin(dim=2)
+        else:
+            slot = torch.where(head, t_pend, INF_US).argmin(dim=2)
+        pick_oh = self._slot_idx == slot[:, :, None]  # [L,N,CK]
+        m_src = (slot // self._SK).to(i32)  # slot n*SK+k belongs to node n
+        m_kind = torch.gather(msgs.kind, 1, slot)
+        m_pay = torch.gather(
+            msgs.payload, 1, slot[:, :, None].expand(L, N, P)
+        )
+        node_ids = torch.broadcast_to(narange, (L, N))
+
+        # -- 4. handlers + fused select (the three masks are disjoint)
+        any_crash = cfg.any_crash_enabled
+        if any_crash:
+            chaos_due = active & (state.chaos_at <= t_next)
+            is_restart_evt = state.crashed >= 0
+            do_crash = chaos_due & ~is_restart_evt
+            do_restart = chaos_due & is_restart_evt
+            victim = prng.randint(ckey, 1, 0, N)
+            crash_mask = do_crash[:, None] & (node_ids == victim[:, None])
+            restart_node = torch.clamp(state.crashed, 0, N - 1)
+            restart_mask = do_restart[:, None] & (
+                node_ids == restart_node[:, None]
+            )
+            ns_r, timer_r = spec.on_restart(node0, node_ids, t_next, rkeys)
+        evt = has_msg | due_t
+        evt_kind = torch.where(has_msg, m_kind, -1)
+        ns_e, out_e, timer_e = spec.on_event(
+            node0, node_ids, m_src, evt_kind, m_pay, t_evt, mkeys
+        )
+        if any_crash:
+            node = tree_map(
+                lambda old, e, r: torch.where(
+                    expand_to(restart_mask, old), r,
+                    torch.where(expand_to(evt, old), e, old),
+                ),
+                node0, ns_e, ns_r,
+            )
+        else:
+            node = tree_map(
+                lambda old, e: torch.where(expand_to(evt, old), e, old),
+                node0, ns_e,
+            )
+        # message events keep the deadline on a negative timer; timer
+        # events disarm on one
+        timer = torch.where(has_msg & (timer_e >= 0), timer_e, state.timer)
+        timer = torch.where(
+            due_t, torch.where(timer_e >= 0, timer_e, INF_US), timer
+        )
+        if any_crash:
+            timer = torch.where(restart_mask, timer_r, timer)
+        valid = valid & ~(pick_oh & has_msg[:, :, None])
+        clock = torch.where(
+            active, torch.maximum(state.clock, t_evt.amax(dim=1)), state.clock
+        )
+
+        # -- 5. crash/restart chaos
+        crashed, chaos_at = state.crashed, state.chaos_at
+        if any_crash:
+            alive = (alive & ~crash_mask) | restart_mask
+            restart_delay = prng.randint(
+                ckey, 2, cfg.restart_delay_lo_us, cfg.restart_delay_hi_us
+            )
+            next_crash = prng.randint(
+                ckey, 3, cfg.crash_interval_lo_us, cfg.crash_interval_hi_us
+            )
+            chaos_at = torch.where(
+                do_crash, clock + restart_delay,
+                torch.where(do_restart, clock + next_crash, state.chaos_at),
+            )
+            crashed = torch.where(
+                do_crash, victim, torch.where(do_restart, -1, state.crashed)
+            )
+            # in-flight messages to a crashed node are lost
+            valid = valid & ~crash_mask[:, :, None]
+
+        # -- 5b. partition chaos: random bipartition splits, later heals
+        partitioned, part_at = state.partitioned, state.part_at
+        if cfg.any_partition_enabled:
+            part_due = active & (state.part_at <= t_next)
+            do_split = part_due & ~state.partitioned
+            do_heal = part_due & state.partitioned
+            pkey = prng.fold(key, 106)
+            side = prng.uniform(pkey[:, None], 7, index=narange[None, :]) < 0.5
+            heal_delay = prng.randint(
+                pkey, 8, cfg.partition_heal_lo_us, cfg.partition_heal_hi_us
+            )
+            next_split = prng.randint(
+                pkey, 9, cfg.partition_interval_lo_us,
+                cfg.partition_interval_hi_us,
+            )
+            part_at = torch.where(
+                do_split, clock + heal_delay,
+                torch.where(do_heal, clock + next_split, state.part_at),
+            )
+            same_side = side[:, :, None] == side[:, None, :]  # [L,N,N]
+            link_ok = torch.where(
+                do_split[:, None, None], same_side,
+                torch.where(do_heal[:, None, None], True, link_ok),
+            )
+            partitioned = (state.partitioned | do_split) & ~do_heal
+
+        # -- 6. collect outboxes, roll the network, pack into the pool
+        E, SK = self._E_pack, self._SK
+        cand_valid = (out_e.valid & evt[:, :, None]).reshape(L, C)
+        cand_dst = torch.clamp(out_e.dst.reshape(L, C), 0, N - 1).long()
+        cand_kind = out_e.kind.reshape(L, C)
+        cand_pay = out_e.payload.reshape(L, C, P)
+        net_key = prng.fold(key, 105)[:, None]
+        cidx = self._cidx[None, :]
+        u = prng.uniform(net_key, 1, index=cidx)
+        lat = prng.randint(
+            net_key, 2, cfg.latency_lo_us,
+            max(cfg.latency_hi_us, cfg.latency_lo_us + 1), index=cidx,
+        )
+        keep = cand_valid & (u >= prng.f32(cfg.loss_rate))
+        # sends to dead nodes drop, counted apart from pool overflow
+        alive_dst = torch.gather(alive, 1, cand_dst)
+        dead_dropped = (keep & ~alive_dst).sum(dim=1, dtype=i32)
+        keep = keep & alive_dst
+        if cfg.any_partition_enabled:
+            # link test at send time, row = the candidate's static source
+            link = link_ok.index_select(1, self._src_of_c)  # [L,C,N]
+            keep = keep & torch.gather(link, 2, cand_dst[:, :, None])[..., 0]
+        deliver_at = t_evt.index_select(1, self._src_of_c) + lat  # [L,C]
+        send = keep
+
+        # node-pooled placement: the i-th send of node n takes the i-th
+        # free slot of n's SK-slot pool; a send ranked past the free count
+        # drops and counts as overflow
+        send_n = send.reshape(L, N, E)
+        free = (~valid.any(dim=1)).reshape(L, N, SK)
+        send_i = send_n.to(i32)
+        free_i = free.to(i32)
+        r_send = torch.cumsum(send_i, dim=-1, dtype=i32) - send_i  # exclusive
+        c_free = torch.cumsum(free_i, dim=-1, dtype=i32)
+        r_free = c_free - free_i
+        n_free = c_free[..., -1]
+        place = (
+            send_n[:, :, :, None]
+            & free[:, :, None, :]
+            & (r_send[:, :, :, None] == r_free[:, :, None, :])
+        )  # [L,N,E,SK]: at most one row per slot
+        ring_w = place.any(dim=2).reshape(L, CK)
+        overflow = state.overflow + (
+            send_n & (r_send >= n_free[:, :, None])
+        ).sum(dim=(1, 2), dtype=i32)
+        # the row that took each slot (0 where none; masked by ring_w)
+        row = (
+            place.to(i32) * torch.arange(E, dtype=i32, device=self.device)[:, None]
+        ).sum(dim=2, dtype=i32)  # [L,N,SK]
+        row_c = (row + (narange * E)[None, :, None]).reshape(L, CK).long()
+
+        def put(ring, cand):
+            """Write each placed candidate's value into its slot."""
+            if cand.dim() == 2:
+                return torch.where(ring_w, torch.gather(cand, 1, row_c), ring)
+            inc = torch.gather(cand, 1, row_c[:, :, None].expand(L, CK, P))
+            return torch.where(ring_w[:, :, None], inc, ring)
+
+        slot_dst = torch.gather(cand_dst, 1, row_c)  # [L,CK]
+        written = ring_w[:, None, :] & (
+            slot_dst[:, None, :] == narange.long()[None, :, None]
+        )  # [L,N,CK]
+        referenced = valid.any(dim=1)
+        new_valid = valid | written
+        # slots no destination references reset to INF_US (canonical state)
+        new_deliver = put(
+            torch.where(referenced, msgs.deliver, INF_US), deliver_at
+        )
+        new_kind = put(msgs.kind, cand_kind)
+        new_payload = put(msgs.payload, cand_pay)
+
+        # -- 6b. chaos fire counts
+        zl = torch.zeros((L,), dtype=i32, device=self.device)
+        cols = [zl] * len(FIRE_KINDS)
+        if any_crash:
+            cols[FIRE_INDEX["crash"]] = do_crash.to(i32)
+            cols[FIRE_INDEX["restart"]] = do_restart.to(i32)
+        if cfg.any_partition_enabled:
+            cols[FIRE_INDEX["partition"]] = do_split.to(i32)
+            cols[FIRE_INDEX["heal"]] = do_heal.to(i32)
+        fires = state.fires + torch.stack(cols, dim=1)
+
+        # -- 7. invariants + lane lifecycle
+        ok = spec.check_invariants(node, alive, clock)
+        new_violation = active & ~ok & ~state.violated
+        violated = state.violated | new_violation
+        violation_at = torch.where(new_violation, clock, state.violation_at)
+        violation_epoch = torch.where(
+            new_violation, state.epoch, state.violation_epoch
+        )
+        violation_step = torch.where(
+            new_violation, state.steps, state.violation_step
+        )
+        eh, oh = divmod(int(cfg.horizon_us), REBASE_US)
+        reached_horizon = (state.epoch > eh) | (
+            (state.epoch == eh) & (clock >= oh)
+        )
+        done = state.done | deadlocked | reached_horizon | violated
+
+        # -- 8. epoch rebase: unbounded virtual time, int32 offsets
+        do_shift = (~done) & (clock >= REBASE_US)
+        shift = torch.where(do_shift, REBASE_US, 0).to(i32)  # [L]
+
+        def rb(x):  # rebase a live-offset tensor, guarding sentinels
+            return torch.where(x < INF_GUARD, x - expand_to(shift, x), x)
+
+        clock = clock - shift
+        epoch = state.epoch + do_shift.to(i32)
+        timer = rb(timer)
+        chaos_at = rb(chaos_at)
+        part_at = rb(part_at)
+        new_deliver = rb(new_deliver)
+        if spec.time_fields:
+            node = node._replace(**{
+                f: getattr(node, f) - expand_to(shift, getattr(node, f))
+                for f in spec.time_fields
+            })
+
+        return SimState(
+            clock=clock,
+            epoch=epoch,
+            key=key,
+            key0=state.key0,
+            done=done,
+            violated=violated,
+            violation_at=violation_at,
+            violation_epoch=violation_epoch,
+            violation_step=violation_step,
+            deadlocked=state.deadlocked | deadlocked,
+            steps=state.steps + active.to(i32),
+            events=state.events
+            + has_msg.sum(dim=1, dtype=i32)
+            + due_t.sum(dim=1, dtype=i32),
+            overflow=overflow,
+            dead_drops=state.dead_drops + dead_dropped,
+            nonmember_drops=state.nonmember_drops,
+            unsynced_loss=state.unsynced_loss,
+            fires=fires,
+            occ_fired=None,
+            alive_p=bitpack.pack_bits(alive),
+            crashed=crashed,
+            chaos_at=chaos_at,
+            member_p=state.member_p,
+            member_epoch=state.member_epoch,
+            link_ok_p=bitpack.pack_bits(link_ok),
+            partitioned=partitioned,
+            part_at=part_at,
+            timer=timer,
+            node=node,
+            dur=None,
+            msgs=MsgPool(
+                valid_p=bitpack.pack_bits(new_valid),
+                deliver=new_deliver,
+                kind=new_kind,
+                payload=new_payload,
+            ),
+            strag=None, nem=None, ctl=None, cov=None, lin=None, queue=None,
+            refill=None,
+        )
+
+    # ------------------------------------------------------------------ run
+
+    def _run(self, state: SimState, max_steps: int) -> SimState:
+        """Step until every lane is done or `max_steps` steps ran: the JAX
+        face's while-loop, with the all-done flag read every
+        DONE_CHECK_STEPS steps (gated steps past it are no-ops)."""
+        i = 0
+        while i < max_steps:
+            k = min(DONE_CHECK_STEPS, max_steps - i)
+            for _ in range(k):
+                state = self._step(state, gate_key=True)
+            i += k
+            if bool(state.done.all()):
+                break
+        return state
+
+    def run(
+        self, seeds, max_steps: int = 100_000,
+        dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+    ) -> SimState:
+        """Run lanes until every lane is done (or max_steps)."""
+        if dispatch_steps <= 0:
+            raise ValueError(
+                f"dispatch_steps must be positive, got {dispatch_steps}"
+            )
+        return self.run_state(self.init(seeds), max_steps, dispatch_steps)
+
+    def run_state(
+        self, state: SimState, max_steps: int,
+        dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+    ) -> SimState:
+        """run()'s segment loop on a pre-built state: segments of
+        `dispatch_steps`, stopping once every lane is done. The result
+        equals one loop of `max_steps` (the JAX face's semantics)."""
+        if dispatch_steps <= 0:
+            raise ValueError(
+                f"dispatch_steps must be positive, got {dispatch_steps}"
+            )
+        remaining = max_steps
+        while remaining > 0:
+            n = min(dispatch_steps, remaining)
+            state = self._run(state, n)
+            remaining -= n
+            if bool(state.done.all()):
+                break
+        return state
+
+    def run_steps(self, state: SimState, n_steps: int) -> SimState:
+        """Exactly `n_steps` ungated steps (the JAX face's fixed-step scan:
+        `key` keeps advancing after every lane is done)."""
+        for _ in range(n_steps):
+            state = self._step(state)
+        return state
+
+
+def abs_time_us(state: SimState) -> np.ndarray:
+    """Absolute virtual time per lane as int64 numpy (epoch * REBASE + off)."""
+    return (
+        state.epoch.cpu().numpy().astype(np.int64) * REBASE_US
+        + state.clock.cpu().numpy().astype(np.int64)
+    )
+
+
+def _sum64(x: torch.Tensor, axis=0):
+    """Exact lane sum of a non-negative i32 tensor as two u32 partials
+    (16-bit halves), the JAX face's reduction; both partials stay below
+    2^32 only for lanes <= 65536, so a bigger batch is refused."""
+    if x.shape[axis] > 65536:
+        raise ValueError(
+            f"_sum64: lane axis {x.shape[axis]} > 65536 would overflow "
+            "the u32 partial sums — summarize in chunks"
+        )
+    xu = prng.u32(x)
+    return (
+        torch.sum(xu >> 16, dim=axis),
+        torch.sum(xu & 0xFFFF, dim=axis),
+    )
+
+
+def _join64(hi, lo) -> int:
+    return int(
+        np.asarray(hi.cpu() if isinstance(hi, torch.Tensor) else hi, np.int64)
+        * 65536
+        + np.asarray(lo.cpu() if isinstance(lo, torch.Tensor) else lo, np.int64)
+    )
+
+
+def _summary_reduction(state: SimState) -> dict:
+    """Every per-summary reduction, on the device."""
+    violated = state.violated
+    return {
+        "violations": violated.sum(),
+        "deadlocked": state.deadlocked.sum(),
+        "events64": _sum64(state.events),
+        "overflow64": _sum64(state.overflow),
+        "dead_drops64": _sum64(state.dead_drops),
+        "nonmember_drops64": _sum64(state.nonmember_drops),
+        "unsynced_loss64": _sum64(state.unsynced_loss),
+        "steps64": _sum64(state.steps),
+        "epoch64": _sum64(state.epoch),
+        "clock64": _sum64(state.clock),
+        "first_violation_step": torch.where(
+            violated, state.violation_step, 2**31 - 1
+        ).amin(),
+        "fires64": _sum64(state.fires, axis=0),
+    }
+
+
+def summarize(state: SimState, spec: Optional[ProtocolSpec] = None) -> dict:
+    """Host-side summary of a finished batch; the JAX face's keys and
+    values. Pass the spec to include its `lane_metrics` diagnostics."""
+    red = _summary_reduction(state)
+    violated = state.violated.cpu().numpy()
+    L = int(violated.shape[0])
+    steps_total = _join64(*red["steps64"])
+    vt_total_us = (
+        _join64(*red["epoch64"]) * REBASE_US + _join64(*red["clock64"])
+    )
+    out = {
+        "lanes": L,
+        "violations": int(red["violations"]),
+        "violation_lanes": np.nonzero(violated)[0].tolist()[:32],
+        "deadlocked": int(red["deadlocked"]),
+        "total_events": _join64(*red["events64"]),
+        "total_overflow": _join64(*red["overflow64"]),
+        "total_dead_drops": _join64(*red["dead_drops64"]),
+        "total_nonmember_drops": _join64(*red["nonmember_drops64"]),
+        "total_unsynced_loss": _join64(*red["unsynced_loss64"]),
+        "mean_steps": steps_total / L,
+        "mean_virtual_secs": vt_total_us / L / 1e6,
+    }
+    if out["violations"]:
+        out["first_violation_step"] = int(red["first_violation_step"])
+    f_hi, f_lo = red["fires64"]
+    f_hi = f_hi.cpu().numpy().astype(np.int64)
+    f_lo = f_lo.cpu().numpy().astype(np.int64)
+    for i, name in enumerate(FIRE_KINDS):
+        out[f"fires_{name}"] = int(f_hi[i] * 65536 + f_lo[i])
+    if spec is not None and spec.lane_metrics is not None:
+        for name, arr in spec.lane_metrics(state.node).items():
+            a = arr.cpu().numpy()
+            if a.dtype == np.bool_:
+                out[name] = int(a.sum())
+            else:
+                out[name] = float(a.mean())
+    return out

@@ -1,0 +1,55 @@
+"""The port on a CUDA card: the pinned digest, and the card against the CPU.
+
+These tests need a card and skip without one (marker `cuda`). They import
+no JAX, so they run where only torch is installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from madsim_tpu_torch.tpu import BatchedSim
+from madsim_tpu_torch.tpu import prng
+from madsim_tpu_torch.tpu.convert import state_to_numpy
+from madsim_tpu_torch.tpu.digest import PINNED, canonical_digest, pinned_run
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (python3 chip_smoke.py covers it too)")
+    torch.use_deterministic_algorithms(True)
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_u32_product_wrap_on_the_card(cuda_device):
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.uint32),
+        rng.integers(0, 2**32, size=1 << 16, dtype=np.uint64).astype(np.uint32),
+    ])
+    for c in (0x85EBCA6B, 0xC2B2AE35, prng.GOLDEN):
+        got = prng._mul32(torch.as_tensor(x.astype(np.int64), device=cuda_device), c)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), (x * np.uint32(c)).astype(np.int64)
+        )
+
+
+@pytest.mark.cuda
+def test_card_run_matches_pinned_digest_and_cpu(cuda_device):
+    spec, cfg, seeds, max_steps = pinned_run("raft_entry")
+    card = state_to_numpy(
+        BatchedSim(spec, cfg, device=cuda_device).run(seeds, max_steps)
+    )
+    assert canonical_digest(card) == PINNED["raft_entry"]
+    cpu = state_to_numpy(
+        BatchedSim(spec, cfg, device="cpu").run(seeds[:8], max_steps)
+    )
+    sub = state_to_numpy(
+        BatchedSim(spec, cfg, device=cuda_device).run(seeds[:8], max_steps)
+    )
+    for k in cpu:
+        np.testing.assert_array_equal(sub[k], cpu[k], err_msg=k)
