@@ -5,7 +5,8 @@ Run from the repo root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port's main path — the 5-node Raft fuzz sweep through
-`BatchedSim.run` and `summarize` — and checks it, in five phases:
+`BatchedSim.run` and `summarize`, then FaultPlan chaos and the four other
+workloads — and checks it, in eight phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -21,11 +22,28 @@ It drives the port's main path — the 5-node Raft fuzz sweep through
    reps (seeds/s, events/s, step ms), and seeds 0..63 of the warm-up equal
    per seed to phase 2's 64-lane run;
 5. profile: torch.profiler over 20 steady steps at 32768 lanes — kernels
-   launched per step, device idle share, top device kernels.
+   launched per step, device idle share, top device kernels;
+6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
+   its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
+   canonical digest must equal the JAX package's GOLDEN value; the Raft
+   run is also held leaf for leaf (`nem.*` included) against the CPU;
+7. storm sweep: the bench Raft spec under `compile_plan` of an eight-clause
+   plan (the documented raft-storm plan plus LinkClog, LatencySpike and
+   MsgLoss) at 32768 lanes x 5 nodes, 10 virtual seconds: a warm run, then
+   a timed run; every enabled fire kind must fire, and seeds 0..63 must
+   equal a 64-lane run of the same config per seed in every leaf but
+   `key` (a done lane's key advances while any lane of its batch runs);
+8. workloads: paxos, chain (8192 lanes), kv and twopc (32768 lanes) at
+   their factories' defaults, 10 virtual seconds (cut when a probed step
+   time says the phase would overrun its budget; the cut is printed), one
+   timed run each; kv's exact linearizability check runs over lanes
+   0..127 and its counts are printed.
 
-The port has no hand-written kernel yet, so the kernel list is empty. The
-full measurements are printed as one `report: {...}` line. The last line
-is the run's result; any failed check exits non-zero before it.
+The port has no hand-written kernel (the JAX package has no Pallas kernel
+to port), so the kernel list is empty; the reason is printed on the line
+before it. The full measurements are printed as one `report: {...}` line.
+The last line is the run's result; any failed check exits non-zero before
+it.
 """
 
 from __future__ import annotations
@@ -49,6 +67,20 @@ SEEDS_SMALL = 64
 MAX_STEPS = 8000
 PROFILE_STEPS = 20
 PHASE4_BUDGET_S = 300.0
+STORM_LANES = 32768
+# phase 8: (workload, lanes, max_steps at 10 virtual s) as bench.py runs
+# them
+WORKLOADS = (
+    ("paxos", 8192, 18_000),
+    ("chain", 8192, 26_000),
+    ("kv", 32768, 14_000),
+    ("twopc", 32768, 18_000),
+)
+# the whole script must end well inside the 1200 s the card run allows;
+# phase 8 splits what is left of this target across its timed runs
+TARGET_S = 900.0
+T_START = time.perf_counter()
+KV_CHECK_LANES = 128
 
 
 def phase(n: int, msg: str) -> None:
@@ -80,6 +112,53 @@ def summaries_equal(a: dict, b: dict) -> list:
         elif x != y:
             bad.append(k)
     return sorted(bad)
+
+
+def first_lanes(state, n: int):
+    """The first n lanes of every leaf of a state (a fresh 64-lane view)."""
+    from madsim_tpu_torch.tpu.spec import tree_map
+
+    return tree_map(lambda t: t[:n], state)
+
+
+def storm_plan():
+    """The documented raft-storm plan (Crash, Partition, Duplicate, Reorder,
+    ClockSkew) plus LinkClog, LatencySpike and MsgLoss at their defaults,
+    so every ported clause fires."""
+    from madsim_tpu_torch import nemesis as nm
+
+    return nm.FaultPlan(name="raft-storm+", clauses=(
+        nm.Crash(interval_lo_us=500_000, interval_hi_us=2_000_000),
+        nm.Partition(),
+        nm.Duplicate(rate=0.05),
+        nm.Reorder(rate=0.1, window_us=50_000),
+        nm.ClockSkew(max_ppm=20_000),
+        nm.LinkClog(),
+        nm.LatencySpike(),
+        nm.MsgLoss(rate=0.05),
+    ))
+
+
+def timed_run(sim, seeds, max_steps):
+    """(final state, wall seconds) of one synchronized sweep."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sim.run(seeds, max_steps)
+    torch.cuda.synchronize()
+    return st, time.perf_counter() - t0
+
+
+def probe_step_ms(sim, lanes: int, steps: int = 10) -> float:
+    """Wall ms per step of `steps` steps after 3 warm steps at `lanes`."""
+    st = sim.init(range(lanes))
+    for _ in range(3):
+        st = sim.step(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        st = sim.step(st)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
 
 
 def card_line() -> str:
@@ -365,13 +444,186 @@ def main() -> dict:
              f"{ms_nofill:.3f} ms/step; leaves equal after "
              f"{PROFILE_STEPS + 1} steps")
     report["profile"] = prof_out
+    del st, a, b
+    report["golden"] = phase6_golden(cuda)
+    report["storm"] = phase7_storm(cuda)
+    report["workloads"] = phase8_workloads(cuda)
+    report["total_s"] = time.perf_counter() - T_START
     return report
+
+
+def phase6_golden(cuda) -> dict:
+    """The JAX package's five GOLDEN digests, reproduced on the card."""
+    from madsim_tpu_torch.tpu import BatchedSim
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.digest import GOLDEN, canonical_digest, golden_run
+
+    out = {}
+    for name in ("raft", "paxos", "kv", "twopc", "chain"):
+        spec, cfg, seeds, steps = golden_run(name)
+        st, wall = timed_run(BatchedSim(spec, cfg, device=cuda), seeds, steps)
+        g = state_to_numpy(st)
+        check(bool((g["steps"] == steps).all()) and not g["done"].any(),
+              f"golden {name}: the run did not take exactly {steps} live steps")
+        dg = canonical_digest(g)
+        check(dg == GOLDEN[name],
+              f"golden {name}: card digest {dg} != GOLDEN {GOLDEN[name]}")
+        extra = ""
+        if name == "raft":
+            c = state_to_numpy(BatchedSim(spec, cfg, device="cpu").run(
+                seeds, steps, dispatch_steps=steps))
+            bad = leaves_equal(g, c)
+            check(not bad, f"golden raft: card and CPU leaves differ: {bad}")
+            n_nem = sum(1 for k in g if k.startswith("nem."))
+            extra = f", {len(g)} leaves ({n_nem} nem.*) equal card/CPU"
+        out[name] = {"lanes": len(seeds), "steps": steps, "card_s": wall,
+                     "step_ms": wall / steps * 1e3, "digest": dg}
+        phase(6, f"golden {name}: {len(seeds)} lanes x {steps} steps in "
+                 f"{wall:.3f} s, digest {dg[:16]} == GOLDEN{extra}")
+    return out
+
+
+def phase7_storm(cuda) -> dict:
+    """The eight-clause storm plan at full width: throughput, fire counts
+    of every enabled kind, and batch independence."""
+    from madsim_tpu_torch.tpu import BatchedSim, summarize
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.nemesis import compile_plan, enabled_fire_kinds
+    from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
+
+    spec = make_raft_spec(5, client_rate=0.1, log_capacity=16)
+    cfg = compile_plan(storm_plan(), raft_bench_config(10.0))
+    sim = BatchedSim(spec, cfg, device=cuda)
+    t_phase = time.perf_counter()
+    warm, warm_s = timed_run(sim, range(STORM_LANES), MAX_STEPS)
+    check(bool(warm.done.all()), "storm warm run hit max_steps")
+    warm64 = state_to_numpy(first_lanes(warm, SEEDS_SMALL))
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    seeds = np.arange(STORM_LANES, dtype=np.int64) + STORM_LANES
+    st, wall = timed_run(sim, seeds, MAX_STEPS)
+    check(bool(st.done.all()), "storm timed run hit max_steps")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    s = summarize(st, spec)
+    steps_run = int(st.steps.max())
+    del st
+    kinds = enabled_fire_kinds(cfg)
+    fires = {k: s[f"fires_{k}"] for k in kinds}
+    dead = [k for k, n in fires.items() if n <= 0]
+    check(not dead, f"storm: enabled kinds that never fired: {dead}")
+    small = state_to_numpy(sim.run(range(SEEDS_SMALL), MAX_STEPS))
+    # `key` is the one leaf that depends on the batch: a done lane's key
+    # advances while any lane of its batch is live (as on the JAX face)
+    del warm64["key"], small["key"]
+    bad = leaves_equal(warm64, small)
+    check(not bad, f"storm batch independence: seeds 0..{SEEDS_SMALL - 1} of "
+                   f"the {STORM_LANES}-lane run differ from the "
+                   f"{SEEDS_SMALL}-lane run in {bad}")
+    out = {
+        "lanes": STORM_LANES, "nodes": 5, "virtual_secs": 10.0,
+        "plan": [type(c).__name__ for c in storm_plan().clauses],
+        "warm_s": warm_s, "wall_s": wall, "seeds_per_sec": STORM_LANES / wall,
+        "step_ms": wall / steps_run * 1e3, "steps_run": steps_run,
+        "events_per_sec": s["total_events"] / wall,
+        "total_overflow": s["total_overflow"], "violations": s["violations"],
+        "peak_mem_gib": peak_gib, "fires": fires,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    phase(7, f"storm {STORM_LANES} lanes x 5 nodes, 10 virtual s, "
+             f"{len(out['plan'])} clauses: {out['seeds_per_sec']:.1f} seeds/s, "
+             f"{out['step_ms']:.3f} ms/step x {steps_run} steps ({wall:.3f} s; "
+             f"warm run {warm_s:.3f} s), {out['events_per_sec']:.0f} events/s, "
+             f"overflow {out['total_overflow']}, violations "
+             f"{out['violations']}, peak {peak_gib:.2f} GiB; fires "
+             + ", ".join(f"{k} {n}" for k, n in fires.items())
+             + f"; every enabled kind fired; {len(warm64)} leaves (all but "
+             f"key) of seeds 0..{SEEDS_SMALL - 1} equal the "
+             f"{SEEDS_SMALL}-lane run")
+    return out
+
+
+def phase8_workloads(cuda) -> dict:
+    """paxos, chain, kv and twopc at bench.py's sizes; kv's exact check."""
+    from madsim_tpu_torch.tpu import (
+        BatchedSim, chain_workload, kv_workload, paxos_workload, summarize,
+        twopc_workload,
+    )
+    from madsim_tpu_torch.tpu import linearize
+
+    factories = {"paxos": paxos_workload, "chain": chain_workload,
+                 "kv": kv_workload, "twopc": twopc_workload}
+    # steps a 10-virtual-second lane takes (JAX face, 64 lanes, CPU), to
+    # estimate each run's wall from a probed step time
+    est_steps = {"paxos": 780, "chain": 3050, "kv": 4050, "twopc": 1350}
+    out = {}
+    for i, (name, lanes, max_steps) in enumerate(WORKLOADS):
+        virtual_secs = 10.0
+        wl = factories[name](virtual_secs=virtual_secs)
+        sim = BatchedSim(wl.spec, wl.config, device=cuda)
+        ms = probe_step_ms(sim, lanes)
+        est_s = est_steps[name] * ms / 1e3
+        budget_s = (TARGET_S - (time.perf_counter() - T_START)) / (
+            len(WORKLOADS) - i)
+        cut = ""
+        if est_s > budget_s:
+            virtual_secs = max(1.0, round(10.0 * budget_s / est_s, 1))
+            # bench.py's max_steps: virtual_secs * rate + 2000
+            max_steps = int((max_steps - 2000) * virtual_secs / 10.0) + 2000
+            cut = (f" (cut: virtual_secs 10 -> {virtual_secs}; "
+                   f"{est_steps[name]} steps at {ms:.2f} ms/step were "
+                   f"estimated at {est_s:.0f} s)")
+            wl = factories[name](virtual_secs=virtual_secs)
+            sim = BatchedSim(wl.spec, wl.config, device=cuda)
+        torch.cuda.reset_peak_memory_stats()
+        st, wall = timed_run(sim, range(lanes), max_steps)
+        check(bool(st.done.all()), f"{name}: hit max_steps {max_steps}")
+        s = summarize(st, wl.spec)
+        steps_run = int(st.steps.max())
+        row = {
+            "lanes": lanes, "virtual_secs": virtual_secs,
+            "max_steps": max_steps, "wall_s": wall,
+            "seeds_per_sec": lanes / wall, "steps_run": steps_run,
+            "step_ms": wall / steps_run * 1e3, "probe_step_ms": ms,
+            "events_per_sec": s["total_events"] / wall,
+            "total_overflow": s["total_overflow"],
+            "violations": s["violations"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        row["violation_lanes"] = s["violation_lanes"]
+        extra = ""
+        if name == "kv":
+            t0 = time.perf_counter()
+            n_check = min(KV_CHECK_LANES, lanes)
+            ex = linearize.check_lanes(st.node, range(n_check))
+            row["exact_check"] = {
+                "lanes": n_check, "ops_checked": ex["ops_checked"],
+                "unmatched_reads": ex["unmatched_reads"],
+                "violations": ex["violations"],
+                "non_linearizable_lanes": ex["non_linearizable_lanes"],
+                "check_s": time.perf_counter() - t0,
+            }
+            extra = (f"; exact check over lanes 0..{n_check - 1}: "
+                     f"{ex['ops_checked']} ops checked, "
+                     f"{ex['unmatched_reads']} unmatched reads, "
+                     f"{ex['violations']} violations "
+                     f"{ex['non_linearizable_lanes']}")
+        del st
+        out[name] = row
+        phase(8, f"{name} {lanes} lanes, {virtual_secs} virtual s{cut}: "
+                 f"{row['seeds_per_sec']:.1f} seeds/s, {row['step_ms']:.3f} "
+                 f"ms/step x {steps_run} steps ({wall:.3f} s), "
+                 f"{row['events_per_sec']:.0f} events/s, overflow "
+                 f"{row['total_overflow']}, violations {row['violations']} "
+                 f"{row['violation_lanes']}, "
+                 f"peak {row['peak_mem_gib']:.2f} GiB{extra}")
+    return out
 
 
 if __name__ == "__main__":
     report = main()
     print("report: " + json.dumps(report), flush=True)
-    # no hand-written kernel is on the main path yet
+    print("kernels: none — the JAX package has no Pallas kernel to port, "
+          "so no hand-written kernel is on the main path", flush=True)
     print(json.dumps({"kernels": []}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

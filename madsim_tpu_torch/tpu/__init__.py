@@ -1,4 +1,4 @@
-"""The batched simulation engine on PyTorch (main-path slice)."""
+"""The batched simulation engine on PyTorch."""
 
 from .batch import (  # noqa: F401
     BatchDeterminismError,
@@ -6,13 +6,24 @@ from .batch import (  # noqa: F401
     BatchWorkload,
     run_batch,
 )
+from .chain import ChainState, chain_workload, make_chain_spec  # noqa: F401
 from .engine import (  # noqa: F401
     BatchedSim,
     MsgPool,
+    NemesisState,
     SimState,
     abs_time_us,
+    scale_delay_ppm,
     summarize,
 )
+from .kv import (  # noqa: F401
+    KvState,
+    buggy_local_read_spec,
+    kv_workload,
+    make_kv_spec,
+)
+from .nemesis import compile_plan, coverage_report, enabled_fire_kinds  # noqa: F401
+from .paxos import PaxosState, make_paxos_spec, paxos_workload  # noqa: F401
 from .raft import (  # noqa: F401
     RaftState,
     make_raft_spec,
@@ -27,6 +38,9 @@ from .spec import (  # noqa: F401
     REBASE_US,
     SimConfig,
     empty_outbox,
+    fuse_two_handlers,
+    pool_kw_for,
     replace_handlers,
     wraps_event,
 )
+from .twopc import TpcState, make_twopc_spec, twopc_workload  # noqa: F401

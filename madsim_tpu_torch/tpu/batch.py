@@ -3,8 +3,10 @@
 The port of `madsim_tpu/tpu/batch.py`'s chunked sweep: every seed becomes a
 lane of one BatchedSim batch (in chunks of `chunk` lanes), and the result
 carries per-seed rows plus the batch summary. Violating seeds re-run on the
-workload's host reproducer when it has one. Traces, shrinking, coverage,
-refill, tuning and mesh sharding are later slices (ROADMAP.md queue 1).
+workload's host reproducer when it has one, and a workload's deep
+`lane_check` oracle runs on the violating lanes plus a clean sample.
+Traces, shrinking, coverage, refill, tuning and mesh sharding are later
+slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from .convert import state_to_numpy
 from .engine import (
     BatchedSim, DEFAULT_DISPATCH_STEPS, SimState, _not_ported, summarize,
 )
+from .nemesis import coverage_report, enabled_fire_kinds
 from .spec import ProtocolSpec, SimConfig
 
 # lanes per device dispatch: bounds peak memory for huge sweeps
@@ -34,6 +37,12 @@ class BatchWorkload:
     config: Optional[SimConfig] = None
     host_repro: Optional[Callable[[int], Any]] = None
     max_steps: int = 100_000
+    # optional deep oracle over recorded per-lane histories, run host-side
+    # on every violating lane plus a clean sample (kv_workload wires the
+    # exact per-key linearizability check here): lane_check(final chunk
+    # state, lane indices) -> dict of integer counters incl. "violations"
+    lane_check: Optional[Callable[[Any, Sequence[int]], dict]] = None
+    lane_check_sample: int = 8
 
 
 class BatchDeterminismError(AssertionError):
@@ -77,25 +86,6 @@ class BatchResult:
     @property
     def violating_seeds(self) -> List[int]:
         return [int(s) for s in self.seeds[self.violated]]
-
-
-def coverage_report(summary: Dict[str, Any], cfg: SimConfig) -> str:
-    """The chaos-coverage line for the legacy clauses this slice carries:
-    an enabled clause with zero fires over a whole batch is dead chaos."""
-    kinds: List[str] = []
-    if cfg.any_crash_enabled:
-        kinds += ["crash", "restart"]
-    if cfg.any_partition_enabled:
-        kinds += ["partition", "heal"]
-    lanes = summary.get("lanes", "?")
-    if not kinds:
-        return f"seed batch of {lanes}: no chaos clauses enabled"
-    parts = [f"{k} {int(summary.get(f'fires_{k}', 0))}" for k in kinds]
-    dead = [k for k in kinds if not summary.get(f"fires_{k}", 0)]
-    line = f"seed batch of {lanes}: " + ", ".join(parts)
-    if dead:
-        line += " => DEAD CLAUSE: " + ", ".join(dead)
-    return line
 
 
 def run_batch(
@@ -172,7 +162,19 @@ def run_batch(
         steps_parts.append(chunk_steps)
         occ_num += int(chunk_steps.astype(np.int64).sum())
         occ_den += int(chunk_steps.max(initial=0)) * chunk_steps.shape[0]
-        for k, v in summarize(st, workload.spec).items():
+        s = summarize(st, workload.spec)
+        if workload.lane_check is not None:
+            # deep host-side oracle: every violating lane + a clean sample
+            v_lanes = np.nonzero(violated_parts[-1])[0]
+            clean = np.nonzero(~violated_parts[-1])[0][
+                : workload.lane_check_sample
+            ]
+            picked = np.concatenate([v_lanes, clean])
+            if picked.size:
+                for k2, v2 in workload.lane_check(st, picked).items():
+                    if isinstance(v2, (int, np.integer)):
+                        s["lane_check_" + k2] = int(v2)
+        for k, v in s.items():
             if not isinstance(v, (int, float)):
                 continue
             if k == "first_violation_step":
@@ -189,7 +191,7 @@ def run_batch(
     violated = np.concatenate(violated_parts)
     totals["violation_lanes"] = np.nonzero(violated)[0].tolist()[:32]
     totals["n_devices"] = 1
-    if cfg.any_crash_enabled or cfg.any_partition_enabled:
+    if enabled_fire_kinds(cfg):
         totals["chaos_coverage"] = coverage_report(totals, cfg)
     totals["device_ms"] = round(sweep_ms, 3)
     occupancy = occ_num / occ_den if occ_den else 1.0

@@ -21,7 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .engine import MsgPool, SimState
+from .engine import MsgPool, NemesisState, SimState
 
 _WIDE = {
     np.dtype(np.uint32): torch.int64,
@@ -65,12 +65,21 @@ def state_from_numpy(
         f: _tensor(leaves[f"msgs.{f}"], device)
         for f in MsgPool._fields if f"msgs.{f}" in leaves
     })
+    nem = None
+    if any(k.startswith("nem.") for k in leaves):
+        nem = NemesisState(**{
+            f: _tensor(leaves[f"nem.{f}"], device)
+            if f"nem.{f}" in leaves else None
+            for f in NemesisState._fields
+        })
     top = {}
     for f in SimState._fields:
         if f == "node":
             top[f] = node
         elif f == "msgs":
             top[f] = msgs
+        elif f == "nem":
+            top[f] = nem
         elif f in leaves:
             top[f] = _tensor(leaves[f], device)
         elif any(k.startswith(f + ".") for k in leaves):

@@ -1,22 +1,26 @@
-"""The batched discrete-event engine in PyTorch: the main-path slice.
+"""The batched discrete-event engine in PyTorch.
 
-The port of `madsim_tpu/tpu/engine.py` for the legacy-chaos, fused-handler
-path: one step advances every lane to its next conservative-DES window,
-picks each node's earliest in-window event (message or timer), runs the
-spec's fused handler, applies crash/restart and bipartition chaos, rolls
-loss and latency for every send and places survivors in the node-pooled
-message ring, checks invariants and rebases lanes whose clock offset
-crossed REBASE_US. Same state fields, same draws, same order: a seed's
-final state is leaf-for-leaf the JAX engine's (tests/test_torch_engine.py).
+The port of `madsim_tpu/tpu/engine.py` for the fused-handler path: one step
+advances every lane to its next conservative-DES window, picks each node's
+earliest in-window event (message or timer), runs the spec's fused handler,
+applies crash/restart, bipartition, link-clog and latency-spike chaos
+(legacy trajectory-coupled knobs or the schedule-indexed `nem_*` knobs a
+FaultPlan compiles to), rolls loss, duplication, reordering and latency for
+every send and places survivors in the node-pooled message ring, checks
+invariants and rebases lanes whose clock offset crossed REBASE_US. Same
+state fields, same draws, same order: a seed's final state is leaf for
+leaf the JAX engine's (tests/test_torch_engine.py,
+tests/test_torch_nemesis.py).
 
 State layout differs only in storage width: node leaves are stored wide
 (the JAX face's u8/i8/u16 narrowing is a storage choice, not a value one)
 and u32 values are int64 tensors (prng.py). The bool planes rest packed,
 as on the JAX face (`alive_p`, `link_ok_p`, `member_p`, `msgs.valid_p`).
 
-Configurations the slice does not carry (nemesis clauses, the straggler
-pool, triage / coverage / lineage / device-loop planes, two-handler specs)
-are refused at construction with the ROADMAP item that will port them.
+Configurations the port does not carry yet (the reconfig and disk
+clauses, the straggler pool, triage / coverage / lineage / device-loop
+planes, two-handler specs) are refused at construction with the ROADMAP
+item that will port them.
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
 """
@@ -29,10 +33,34 @@ import numpy as np
 import torch
 
 from . import bitpack, prng
-from ..nemesis import FIRE_INDEX, FIRE_KINDS
+from ..nemesis import (
+    COIN_DENOM,
+    FIRE_INDEX,
+    FIRE_KINDS,
+    NEM_SITE_CLOG_DST,
+    NEM_SITE_CLOG_HEAL,
+    NEM_SITE_CLOG_IV,
+    NEM_SITE_CLOG_SRC,
+    NEM_SITE_CRASH_DOWN,
+    NEM_SITE_CRASH_IV,
+    NEM_SITE_CRASH_VICTIM,
+    NEM_SITE_CRASH_WIPE,
+    NEM_SITE_PART_HEAL,
+    NEM_SITE_PART_IV,
+    NEM_SITE_PART_SIDE,
+    NEM_SITE_SKEW,
+    NEM_SITE_SPIKE_DUR,
+    NEM_SITE_SPIKE_IV,
+    NET_SITE_DUP,
+    NET_SITE_NEM_LOSS,
+    NET_SITE_REORDER,
+    NET_SITE_REORDER_EXTRA,
+    OCC_CLAUSES,
+    OCC_ROW,
+)
 from .spec import (
     INF_GUARD, INF_US, REBASE_US, HardCap, ProtocolSpec, RateFloor, SimConfig,
-    derate_horizon, expand_to, tree_map,
+    derate_horizon, expand_to, tree_map, tree_select,
 )
 
 DEFAULT_DISPATCH_STEPS = 10_000
@@ -61,6 +89,36 @@ class MsgPool(NamedTuple):
         return bitpack.unpack_bits(self.valid_p, self.deliver.shape[-1])
 
 
+class NemesisState(NamedTuple):
+    """Per-lane nemesis bookkeeping (present iff a schedule-level clause or
+    clock skew is enabled). Every nemesis draw is indexed by (lane base
+    key, clause site, occurrence counter `*_k`), a pure function of the
+    seed, never of the trajectory clock. The crash clause shares
+    `SimState.chaos_at`/`crashed` and the partition clause shares
+    `part_at`/`partitioned`/`link_ok` with the legacy knobs; clog and
+    spike windows carry their own next-toggle offsets here. The reconfig
+    and disk rows hold their disabled values (those clauses are refused)."""
+
+    crash_k: Any  # int32 [L] crash/restart cycle counter
+    wipe: Any  # bool [L] current down node restarts with wiped state
+    part_k: Any  # int32 [L] split/heal cycle counter
+    clog_at: Any  # int32 [L] next clog toggle (offset us; INF_US disabled)
+    clogged: Any  # bool [L] a directed link is currently clogged
+    clog_src: Any  # int32 [L]
+    clog_dst: Any  # int32 [L]
+    clog_k: Any  # int32 [L]
+    spike_at: Any  # int32 [L] next latency-spike toggle
+    spiking: Any  # bool [L]
+    spike_k: Any  # int32 [L]
+    reconfig_at: Any  # int32 [L] (INF_US: reconfig is not carried)
+    reconf_node: Any  # int32 [L] (-1)
+    reconfig_k: Any  # int32 [L] (0)
+    disk_at: Any  # int32 [L] (INF_US: disk faults are not carried)
+    disk_phase: Any  # int32 [L] (0)
+    disk_k: Any  # int32 [L] (0)
+    skew_ppm: Any  # int32 [L,N] per-node timer skew in ppm | None
+
+
 class SimState(NamedTuple):
     """The full per-lane state; the JAX face's field names. Fields of planes
     this slice does not carry are None."""
@@ -82,7 +140,7 @@ class SimState(NamedTuple):
     nonmember_drops: Any  # int32 [L] (reconfig clause; zero here)
     unsynced_loss: Any  # int32 [L] (disk clause; zero here)
     fires: Any  # int32 [L, len(FIRE_KINDS)]
-    occ_fired: Any  # None (nemesis schedule clauses)
+    occ_fired: Any  # u32 [L, len(OCC_CLAUSES)] occurrence bits | None
     alive_p: Any  # u32 [L,1] packed liveness bits
     crashed: Any  # int32 [L] node currently down, -1 = none
     chaos_at: Any  # int32 [L] next crash/restart event
@@ -96,7 +154,7 @@ class SimState(NamedTuple):
     dur: Any  # None (durability plane)
     msgs: MsgPool
     strag: Any  # None (straggler pool)
-    nem: Any  # None (nemesis state)
+    nem: Any  # NemesisState | None
     ctl: Any  # None (triage controls)
     cov: Any  # None (coverage)
     lin: Any  # None (lineage)
@@ -127,6 +185,22 @@ def resolve_device(device) -> torch.device:
             "engine on the CPU"
         )
     return dev
+
+
+def scale_delay_ppm(d: torch.Tensor, ppm) -> torch.Tensor:
+    """Stretch an int32 microsecond delay by (1 + ppm * 1e-6), exactly:
+    d + floor(d * |ppm| / 1e6) * sign(ppm), wrapped to int32.
+
+    The JAX face splits the 64-bit product into int32-safe partial
+    products; the product is exact in int64 (|d| < 2^31, |ppm| < 1e6), and
+    floor division of the whole product equals the sum of its floored
+    parts, so the result is the same int32 value for every input the
+    engine passes (tests/test_torch_nemesis.py holds both on edge
+    values)."""
+    d64 = d.to(torch.int64)
+    ppm64 = torch.as_tensor(ppm, device=d.device).to(torch.int64)
+    adj = torch.div(d64 * ppm64.abs(), 1_000_000, rounding_mode="floor")
+    return torch.where(ppm64 >= 0, d64 + adj, d64 - adj).to(torch.int32)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -335,20 +409,12 @@ class BatchedSim:
                 "buggify_delay_rate > 0 (the straggler pool)",
                 "item 4, straggler pool",
             )
-        for clause, enabled, item in (
-            ("nem_crash", cfg.nem_crash_enabled, "item 6"),
-            ("nem_partition", cfg.nem_partition_enabled, "item 6"),
-            ("nem_clog", cfg.nem_clog_enabled, "item 6"),
-            ("nem_spike", cfg.nem_spike_enabled, "item 6"),
-            ("nem_loss", cfg.nem_loss_rate > 0, "item 6"),
-            ("nem_dup", cfg.nem_dup_rate > 0, "item 6"),
-            ("nem_reorder", cfg.nem_reorder_rate > 0, "item 6"),
-            ("nem_skew", cfg.nem_skew_enabled, "item 6"),
-            ("nem_reconfig", cfg.nem_reconfig_enabled, "item 8"),
-            ("nem_disk", cfg.nem_disk_enabled, "item 8"),
+        for clause, enabled in (
+            ("nem_reconfig", cfg.nem_reconfig_enabled),
+            ("nem_disk", cfg.nem_disk_enabled),
         ):
             if enabled:
-                raise _not_ported(f"the {clause}_* clause", item)
+                raise _not_ported(f"the {clause}_* clause", "item 8")
 
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -356,19 +422,37 @@ class BatchedSim:
             # this turns any future nondeterministic one into an error
             torch.use_deterministic_algorithms(True)
         dev = self.device
+        # nemesis duplication doubles the candidate axis: position 2c is
+        # the original send, 2c+1 its coin-gated copy (interleaved, so each
+        # node's candidate block stays contiguous); pool sizing follows
+        self._dup = cfg.nem_dup_rate > 0
+        mult = 2 if self._dup else 1
+        self._Cb = N * spec.max_out  # base (pre-duplication) candidates
+        self._C = self._Cb * mult
         # node-pooled placement: node n owns SK = E*K (+ spare) contiguous
         # ring slots, shared by all its sends (the JAX face's fused layout)
-        self._C = N * spec.max_out
         self._Km = cfg.msg_depth_msg or max(1, cfg.msg_capacity // self._C)
-        self._E_pack = spec.max_out
+        self._E_pack = spec.max_out * mult
         self._SK = self._E_pack * self._Km + cfg.msg_spare_slots
         self._CK = N * self._SK
-        self._src_of_c = torch.arange(
-            self._C, device=dev
-        ) // spec.max_out  # int64 [C]
+        self._src_of_c = torch.repeat_interleave(
+            torch.arange(self._Cb, device=dev) // spec.max_out, mult
+        )  # int64 [C]
+        # per-lane nemesis bookkeeping exists iff a schedule-level clause
+        # (or skew) is on; occurrence bits iff a schedule clause is on
+        self._nem_state = (
+            cfg.nem_crash_enabled or cfg.nem_partition_enabled
+            or cfg.nem_clog_enabled or cfg.nem_spike_enabled
+            or cfg.nem_skew_enabled
+        )
+        self._occ_track = (
+            cfg.nem_crash_enabled or cfg.nem_partition_enabled
+            or cfg.nem_clog_enabled or cfg.nem_spike_enabled
+        )
         self._narange = torch.arange(N, dtype=torch.int32, device=dev)
         self._slot_idx = torch.arange(self._CK, device=dev)
         self._cidx = torch.arange(self._C, device=dev)
+        self._bidx = torch.arange(self._Cb, device=dev)
         self.step = self._step
 
     # ------------------------------------------------------------------ init
@@ -396,29 +480,83 @@ class BatchedSim:
         def full(shape, v, dtype=torch.int32):
             return torch.full(shape, v, dtype=dtype, device=dev)
 
-        if cfg.chaos_enabled:
+        zi = full((L,), 0)
+        zb = full((L,), False, torch.bool)
+        fires = full((L, len(FIRE_KINDS)), 0)
+        # per-node clock skew: integer ppm drawn once per (seed, node);
+        # initial timers are armed at local t=0, so their delay scales
+        skew_ppm = None
+        if cfg.nem_skew_enabled:
+            skew_ppm = prng.randint(
+                key[:, None], NEM_SITE_SKEW, -cfg.nem_skew_max_ppm,
+                cfg.nem_skew_max_ppm + 1, index=self._narange[None, :],
+            )  # [L,N]
+            fires[:, FIRE_INDEX["skew"]] = (skew_ppm != 0).sum(
+                dim=1, dtype=torch.int32
+            )
+            sk_ok = (timer >= 0) & (timer < INF_GUARD)
+            timer = torch.where(sk_ok, scale_delay_ppm(timer, skew_ppm), timer)
+
+        if cfg.nem_crash_enabled:
+            # occurrence-indexed: the first crash interval is draw k=0
+            chaos_at = prng.randint(
+                key, NEM_SITE_CRASH_IV, cfg.nem_crash_interval_lo_us,
+                cfg.nem_crash_interval_hi_us, index=0,
+            )
+        elif cfg.chaos_enabled:
             chaos_at = prng.randint(
                 key, 11, cfg.crash_interval_lo_us, cfg.crash_interval_hi_us
             )
         else:
             chaos_at = full((L,), INF_US)
-        if cfg.partition_enabled:
+        if cfg.nem_partition_enabled:
+            part_at = prng.randint(
+                key, NEM_SITE_PART_IV, cfg.nem_partition_interval_lo_us,
+                cfg.nem_partition_interval_hi_us, index=0,
+            )
+        elif cfg.partition_enabled:
             part_at = prng.randint(
                 key, 12, cfg.partition_interval_lo_us,
                 cfg.partition_interval_hi_us,
             )
         else:
             part_at = full((L,), INF_US)
-        zi = full((L,), 0)
-        zb = full((L,), False, torch.bool)
+
+        nem = None
+        if self._nem_state:
+            def first_toggle(enabled, site, lo, hi):
+                if enabled:
+                    return prng.randint(key, site, lo, hi, index=0)
+                return full((L,), INF_US)
+
+            nem = NemesisState(
+                crash_k=zi, wipe=zb, part_k=zi,
+                clog_at=first_toggle(
+                    cfg.nem_clog_enabled, NEM_SITE_CLOG_IV,
+                    cfg.nem_clog_interval_lo_us, cfg.nem_clog_interval_hi_us,
+                ),
+                clogged=zb, clog_src=zi, clog_dst=zi, clog_k=zi,
+                spike_at=first_toggle(
+                    cfg.nem_spike_enabled, NEM_SITE_SPIKE_IV,
+                    cfg.nem_spike_interval_lo_us,
+                    cfg.nem_spike_interval_hi_us,
+                ),
+                spiking=zb, spike_k=zi,
+                reconfig_at=full((L,), INF_US), reconf_node=full((L,), -1),
+                reconfig_k=zi, disk_at=full((L,), INF_US), disk_phase=zi,
+                disk_k=zi, skew_ppm=skew_ppm,
+            )
         all_n = bitpack.full_mask_word(N)
         return SimState(
             clock=zi, epoch=zi, key=key, key0=key, done=zb, violated=zb,
             violation_at=full((L,), INF_US), violation_epoch=zi,
             violation_step=full((L,), -1), deadlocked=zb, steps=zi,
             events=zi, overflow=zi, dead_drops=zi, nonmember_drops=zi,
-            unsynced_loss=zi, fires=full((L, len(FIRE_KINDS)), 0),
-            occ_fired=None,
+            unsynced_loss=zi, fires=fires,
+            occ_fired=(
+                full((L, len(OCC_CLAUSES)), 0, torch.int64)
+                if self._occ_track else None
+            ),
             alive_p=full((L, 1), all_n, torch.int64),
             crashed=full((L,), -1), chaos_at=chaos_at,
             member_p=full((L, 1), all_n, torch.int64), member_epoch=zi,
@@ -431,7 +569,7 @@ class BatchedSim:
                 kind=full((L, CK), 0),
                 payload=full((L, CK, spec.payload_width), 0),
             ),
-            strag=None, nem=None, ctl=None, cov=None, lin=None, queue=None,
+            strag=None, nem=nem, ctl=None, cov=None, lin=None, queue=None,
             refill=None,
         )
 
@@ -446,8 +584,10 @@ class BatchedSim:
         N, CK, P, C = spec.n_nodes, self._CK, spec.payload_width, self._C
         L = state.clock.shape[0]
         msgs = state.msgs
+        nst = state.nem
         narange = self._narange
         i32 = torch.int32
+        clog_on, spike_on = cfg.nem_clog_enabled, cfg.nem_spike_enabled
 
         # -- 0. unpack the packed bool planes
         valid = bitpack.unpack_bits(msgs.valid_p, CK)  # bool [L,N,CK]
@@ -460,12 +600,16 @@ class BatchedSim:
         tmsg_n = t_pend.amin(dim=2)  # [L,N]
         tmsg_n = torch.where(alive, tmsg_n, INF_US)
         ttmr_n = torch.where(alive, state.timer, INF_US)
+        # the next chaos instant: crash/restart and partition toggles
+        # (legacy or nemesis), and the nemesis clog/spike toggles, which
+        # lanes advance to even when the protocol is quiet
+        next_chaos = torch.minimum(state.chaos_at, state.part_at)
+        if clog_on:
+            next_chaos = torch.minimum(next_chaos, nst.clog_at)
+        if spike_on:
+            next_chaos = torch.minimum(next_chaos, nst.spike_at)
         t_next = torch.minimum(
-            torch.minimum(
-                torch.minimum(tmsg_n.amin(dim=1), ttmr_n.amin(dim=1)),
-                state.chaos_at,
-            ),
-            state.part_at,
+            torch.minimum(tmsg_n.amin(dim=1), ttmr_n.amin(dim=1)), next_chaos
         )
         deadlocked = (~state.done) & (t_next >= INF_US)
         active = (~state.done) & (t_next < INF_US)
@@ -473,8 +617,10 @@ class BatchedSim:
         # collapsed to the instant t_next when chaos falls inside it
         lo_w = max(0, cfg.latency_lo_us - 1) if cfg.lookahead else 0
         w_end = torch.clamp(t_next, max=INF_US - lo_w - 1) + lo_w
-        if lo_w and (cfg.any_crash_enabled or cfg.any_partition_enabled):
-            next_chaos = torch.minimum(state.chaos_at, state.part_at)
+        if lo_w and (
+            cfg.any_crash_enabled or cfg.any_partition_enabled
+            or clog_on or spike_on
+        ):
             w_end = torch.where(next_chaos <= w_end, t_next, w_end)
 
         # -- 2. advance per-lane keys
@@ -528,13 +674,39 @@ class BatchedSim:
             is_restart_evt = state.crashed >= 0
             do_crash = chaos_due & ~is_restart_evt
             do_restart = chaos_due & is_restart_evt
-            victim = prng.randint(ckey, 1, 0, N)
+            if cfg.nem_crash_enabled:
+                # victim k of the pure schedule: a function of the seed,
+                # not of when the crash fires
+                victim = prng.randint(
+                    state.key0, NEM_SITE_CRASH_VICTIM, 0, N,
+                    index=nst.crash_k,
+                )
+            else:
+                victim = prng.randint(ckey, 1, 0, N)
             crash_mask = do_crash[:, None] & (node_ids == victim[:, None])
             restart_node = torch.clamp(state.crashed, 0, N - 1)
             restart_mask = do_restart[:, None] & (
                 node_ids == restart_node[:, None]
             )
             ns_r, timer_r = spec.on_restart(node0, node_ids, t_next, rkeys)
+            if cfg.nem_crash_enabled and cfg.nem_crash_wipe_rate > 0:
+                # crash-with-state-wipe: the marked node restarts from
+                # `init`, its absolute time fields and first timer shifted
+                # to the restart instant (the wipe flag was drawn at crash
+                # time and rides nem.wipe through the down window)
+                ns_w, timer_w = spec.init(rkeys, narange)
+                timer_w = timer_w.to(i32)
+                w_ok = (timer_w >= 0) & (timer_w < INF_GUARD)
+                timer_w = torch.where(w_ok, timer_w + t_next[:, None], timer_w)
+                if spec.time_fields:
+                    ns_w = ns_w._replace(**{
+                        f: getattr(ns_w, f)
+                        + expand_to(t_next, getattr(ns_w, f))
+                        for f in spec.time_fields
+                    })
+                wipe_mask = restart_mask & nst.wipe[:, None]
+                ns_r = tree_select(wipe_mask, ns_w, ns_r)
+                timer_r = torch.where(wipe_mask, timer_w, timer_r)
         evt = has_msg | due_t
         evt_kind = torch.where(has_msg, m_kind, -1)
         ns_e, out_e, timer_e = spec.on_event(
@@ -553,6 +725,21 @@ class BatchedSim:
                 lambda old, e: torch.where(expand_to(evt, old), e, old),
                 node0, ns_e,
             )
+        if cfg.nem_skew_enabled:
+            # per-node clock skew: a handler's absolute deadline encodes a
+            # delay from its own event time; stretch that delay by the
+            # node's ppm (sentinels and keep/disarm negatives pass through)
+            def skew_deadline(deadline, now):
+                d = deadline - now
+                stretched = now + scale_delay_ppm(d, nst.skew_ppm)
+                ok = (deadline >= 0) & (deadline < INF_GUARD) & (d > 0)
+                return torch.where(ok, stretched, deadline)
+
+            timer_e = skew_deadline(timer_e, t_evt)
+            if any_crash:
+                timer_r = skew_deadline(
+                    timer_r, torch.broadcast_to(t_next[:, None], (L, N))
+                )
         # message events keep the deadline on a negative timer; timer
         # events disarm on one
         timer = torch.where(has_msg & (timer_e >= 0), timer_e, state.timer)
@@ -568,18 +755,51 @@ class BatchedSim:
 
         # -- 5. crash/restart chaos
         crashed, chaos_at = state.crashed, state.chaos_at
+        nem_crash_k = nem_wipe = None
         if any_crash:
             alive = (alive & ~crash_mask) | restart_mask
-            restart_delay = prng.randint(
-                ckey, 2, cfg.restart_delay_lo_us, cfg.restart_delay_hi_us
-            )
-            next_crash = prng.randint(
-                ckey, 3, cfg.crash_interval_lo_us, cfg.crash_interval_hi_us
-            )
-            chaos_at = torch.where(
-                do_crash, clock + restart_delay,
-                torch.where(do_restart, clock + next_crash, state.chaos_at),
-            )
+            if cfg.nem_crash_enabled:
+                # schedule arithmetic: next toggle = previous toggle time
+                # plus an occurrence-indexed delta, never clock + delta
+                ck_n = nst.crash_k
+                restart_delay = prng.randint(
+                    state.key0, NEM_SITE_CRASH_DOWN, cfg.nem_crash_down_lo_us,
+                    cfg.nem_crash_down_hi_us, index=ck_n,
+                )
+                next_crash = prng.randint(
+                    state.key0, NEM_SITE_CRASH_IV,
+                    cfg.nem_crash_interval_lo_us,
+                    cfg.nem_crash_interval_hi_us, index=ck_n + 1,
+                )
+                chaos_at = torch.where(
+                    do_crash, state.chaos_at + restart_delay,
+                    torch.where(
+                        do_restart, state.chaos_at + next_crash,
+                        state.chaos_at,
+                    ),
+                )
+                nem_crash_k = ck_n + do_restart.to(i32)
+                # integer schedule coin: bits % 1e6 < round(rate * 1e6)
+                wipe_coin = (
+                    prng.bits(state.key0, NEM_SITE_CRASH_WIPE, index=ck_n)
+                    % COIN_DENOM
+                ) < round(cfg.nem_crash_wipe_rate * COIN_DENOM)
+                nem_wipe = torch.where(
+                    do_crash, wipe_coin,
+                    torch.where(do_restart, False, nst.wipe),
+                )
+            else:
+                restart_delay = prng.randint(
+                    ckey, 2, cfg.restart_delay_lo_us, cfg.restart_delay_hi_us
+                )
+                next_crash = prng.randint(
+                    ckey, 3, cfg.crash_interval_lo_us,
+                    cfg.crash_interval_hi_us,
+                )
+                chaos_at = torch.where(
+                    do_crash, clock + restart_delay,
+                    torch.where(do_restart, clock + next_crash, state.chaos_at),
+                )
             crashed = torch.where(
                 do_crash, victim, torch.where(do_restart, -1, state.crashed)
             )
@@ -588,23 +808,53 @@ class BatchedSim:
 
         # -- 5b. partition chaos: random bipartition splits, later heals
         partitioned, part_at = state.partitioned, state.part_at
+        nem_part_k = None
         if cfg.any_partition_enabled:
             part_due = active & (state.part_at <= t_next)
             do_split = part_due & ~state.partitioned
             do_heal = part_due & state.partitioned
-            pkey = prng.fold(key, 106)
-            side = prng.uniform(pkey[:, None], 7, index=narange[None, :]) < 0.5
-            heal_delay = prng.randint(
-                pkey, 8, cfg.partition_heal_lo_us, cfg.partition_heal_hi_us
-            )
-            next_split = prng.randint(
-                pkey, 9, cfg.partition_interval_lo_us,
-                cfg.partition_interval_hi_us,
-            )
-            part_at = torch.where(
-                do_split, clock + heal_delay,
-                torch.where(do_heal, clock + next_split, state.part_at),
-            )
+            if cfg.nem_partition_enabled:
+                pk_n = nst.part_k
+                # per-node side bit of occurrence k: index = k * 64 + node
+                side = (
+                    prng.bits(
+                        state.key0[:, None], NEM_SITE_PART_SIDE,
+                        index=prng.u32(pk_n)[:, None] * 64 + narange[None, :],
+                    ) & 1
+                ) == 1  # [L,N]
+                heal_delay = prng.randint(
+                    state.key0, NEM_SITE_PART_HEAL,
+                    cfg.nem_partition_heal_lo_us,
+                    cfg.nem_partition_heal_hi_us, index=pk_n,
+                )
+                next_split = prng.randint(
+                    state.key0, NEM_SITE_PART_IV,
+                    cfg.nem_partition_interval_lo_us,
+                    cfg.nem_partition_interval_hi_us, index=pk_n + 1,
+                )
+                part_at = torch.where(
+                    do_split, state.part_at + heal_delay,
+                    torch.where(
+                        do_heal, state.part_at + next_split, state.part_at
+                    ),
+                )
+                nem_part_k = pk_n + do_heal.to(i32)
+            else:
+                pkey = prng.fold(key, 106)
+                side = prng.uniform(
+                    pkey[:, None], 7, index=narange[None, :]
+                ) < 0.5
+                heal_delay = prng.randint(
+                    pkey, 8, cfg.partition_heal_lo_us, cfg.partition_heal_hi_us
+                )
+                next_split = prng.randint(
+                    pkey, 9, cfg.partition_interval_lo_us,
+                    cfg.partition_interval_hi_us,
+                )
+                part_at = torch.where(
+                    do_split, clock + heal_delay,
+                    torch.where(do_heal, clock + next_split, state.part_at),
+                )
             same_side = side[:, :, None] == side[:, None, :]  # [L,N,N]
             link_ok = torch.where(
                 do_split[:, None, None], same_side,
@@ -612,13 +862,84 @@ class BatchedSim:
             )
             partitioned = (state.partitioned | do_split) & ~do_heal
 
+        # -- 5c. nemesis link-clog + latency-spike windows (schedule-timed
+        # toggles; the clog is asymmetric: src->dst only)
+        clogged = clog_src = clog_dst = None
+        nem_clog_at = nem_clog_k = None
+        if clog_on:
+            clog_due = active & (nst.clog_at <= t_next)
+            do_clog = clog_due & ~nst.clogged
+            do_unclog = clog_due & nst.clogged
+            kk = nst.clog_k
+            src_d = prng.randint(state.key0, NEM_SITE_CLOG_SRC, 0, N, index=kk)
+            dst_d = prng.randint(
+                state.key0, NEM_SITE_CLOG_DST, 0, N - 1, index=kk
+            )
+            dst_d = dst_d + (dst_d >= src_d).to(i32)  # skip src
+            clog_src = torch.where(do_clog, src_d, nst.clog_src)
+            clog_dst = torch.where(do_clog, dst_d, nst.clog_dst)
+            clogged = (nst.clogged | do_clog) & ~do_unclog
+            heal_d = prng.randint(
+                state.key0, NEM_SITE_CLOG_HEAL, cfg.nem_clog_heal_lo_us,
+                cfg.nem_clog_heal_hi_us, index=kk,
+            )
+            next_d = prng.randint(
+                state.key0, NEM_SITE_CLOG_IV, cfg.nem_clog_interval_lo_us,
+                cfg.nem_clog_interval_hi_us, index=kk + 1,
+            )
+            nem_clog_at = torch.where(
+                do_clog, nst.clog_at + heal_d,
+                torch.where(do_unclog, nst.clog_at + next_d, nst.clog_at),
+            )
+            nem_clog_k = kk + do_unclog.to(i32)
+        spiking = nem_spike_at = nem_spike_k = None
+        if spike_on:
+            spike_due = active & (nst.spike_at <= t_next)
+            do_spike = spike_due & ~nst.spiking
+            do_unspike = spike_due & nst.spiking
+            sk = nst.spike_k
+            spiking = (nst.spiking | do_spike) & ~do_unspike
+            dur_d = prng.randint(
+                state.key0, NEM_SITE_SPIKE_DUR, cfg.nem_spike_duration_lo_us,
+                cfg.nem_spike_duration_hi_us, index=sk,
+            )
+            next_d = prng.randint(
+                state.key0, NEM_SITE_SPIKE_IV, cfg.nem_spike_interval_lo_us,
+                cfg.nem_spike_interval_hi_us, index=sk + 1,
+            )
+            nem_spike_at = torch.where(
+                do_spike, nst.spike_at + dur_d,
+                torch.where(do_unspike, nst.spike_at + next_d, nst.spike_at),
+            )
+            nem_spike_k = sk + do_unspike.to(i32)
+
         # -- 6. collect outboxes, roll the network, pack into the pool
-        E, SK = self._E_pack, self._SK
-        cand_valid = (out_e.valid & evt[:, :, None]).reshape(L, C)
-        cand_dst = torch.clamp(out_e.dst.reshape(L, C), 0, N - 1).long()
-        cand_kind = out_e.kind.reshape(L, C)
-        cand_pay = out_e.payload.reshape(L, C, P)
+        E, SK, Cb = self._E_pack, self._SK, self._Cb
+        cand_valid = (out_e.valid & evt[:, :, None]).reshape(L, Cb)
+        cand_dst = torch.clamp(out_e.dst.reshape(L, Cb), 0, N - 1).long()
+        cand_kind = out_e.kind.reshape(L, Cb)
+        cand_pay = out_e.payload.reshape(L, Cb, P)
         net_key = prng.fold(key, 105)[:, None]
+        zl = torch.zeros((L,), dtype=i32, device=self.device)
+        dup_fires = loss_drops = reorder_fires = zl
+        if self._dup:
+            # nemesis duplication: interleave a coin-gated copy of every
+            # candidate (position 2c+1 mirrors 2c); the copy rolls its own
+            # loss and latency below
+            dcoin = prng.uniform(
+                net_key, NET_SITE_DUP, index=self._bidx[None, :]
+            ) < prng.f32(cfg.nem_dup_rate)
+            dup_fires = (cand_valid & dcoin).sum(dim=1, dtype=i32)
+
+            def il(x):
+                return torch.repeat_interleave(x, 2, dim=1)
+
+            cand_valid = torch.stack(
+                [cand_valid, cand_valid & dcoin], dim=2
+            ).reshape(L, C)
+            cand_dst, cand_kind, cand_pay = (
+                il(cand_dst), il(cand_kind), il(cand_pay)
+            )
         cidx = self._cidx[None, :]
         u = prng.uniform(net_key, 1, index=cidx)
         lat = prng.randint(
@@ -634,6 +955,38 @@ class BatchedSim:
             # link test at send time, row = the candidate's static source
             link = link_ok.index_select(1, self._src_of_c)  # [L,C,N]
             keep = keep & torch.gather(link, 2, cand_dst[:, :, None])[..., 0]
+        if clog_on:
+            # asymmetric clog: drop candidates whose (static source,
+            # destination) is the lane's clogged directed link
+            clog_hit = (
+                clogged[:, None]
+                & (self._src_of_c[None, :] == clog_src[:, None])
+                & (cand_dst == clog_dst[:, None])
+            )
+            keep = keep & ~clog_hit
+        if cfg.nem_loss_rate > 0:
+            # the nemesis loss coin, rolled last: only on messages that
+            # survived base loss, dead destinations, partitions and clogs
+            u2 = prng.uniform(net_key, NET_SITE_NEM_LOSS, index=cidx)
+            nem_lost = keep & (u2 < prng.f32(cfg.nem_loss_rate))
+            loss_drops = nem_lost.sum(dim=1, dtype=i32)
+            keep = keep & ~nem_lost
+        if cfg.nem_reorder_rate > 0:
+            # bounded reordering: an extra uniform delay in [0, window]
+            rcoin = keep & (
+                prng.uniform(net_key, NET_SITE_REORDER, index=cidx)
+                < prng.f32(cfg.nem_reorder_rate)
+            )
+            extra = prng.randint(
+                net_key, NET_SITE_REORDER_EXTRA, 0,
+                cfg.nem_reorder_window_us + 1, index=cidx,
+            )
+            lat = torch.where(rcoin, lat + extra, lat)
+            reorder_fires = rcoin.sum(dim=1, dtype=i32)
+        if spike_on:
+            lat = torch.where(
+                spiking[:, None], lat + cfg.nem_spike_extra_us, lat
+            )
         deliver_at = t_evt.index_select(1, self._src_of_c) + lat  # [L,C]
         send = keep
 
@@ -684,15 +1037,45 @@ class BatchedSim:
         new_payload = put(msgs.payload, cand_pay)
 
         # -- 6b. chaos fire counts
-        zl = torch.zeros((L,), dtype=i32, device=self.device)
         cols = [zl] * len(FIRE_KINDS)
         if any_crash:
             cols[FIRE_INDEX["crash"]] = do_crash.to(i32)
             cols[FIRE_INDEX["restart"]] = do_restart.to(i32)
+            if cfg.nem_crash_enabled and cfg.nem_crash_wipe_rate > 0:
+                cols[FIRE_INDEX["wipe"]] = (do_crash & wipe_coin).to(i32)
         if cfg.any_partition_enabled:
             cols[FIRE_INDEX["partition"]] = do_split.to(i32)
             cols[FIRE_INDEX["heal"]] = do_heal.to(i32)
+        if clog_on:
+            cols[FIRE_INDEX["clog"]] = do_clog.to(i32)
+        if spike_on:
+            cols[FIRE_INDEX["spike"]] = do_spike.to(i32)
+        cols[FIRE_INDEX["loss"]] = loss_drops
+        cols[FIRE_INDEX["dup"]] = dup_fires
+        cols[FIRE_INDEX["reorder"]] = reorder_fires
         fires = state.fires + torch.stack(cols, dim=1)
+
+        # clause x occurrence fire bits: a window's bit is set when its
+        # open half applies
+        occ_fired = state.occ_fired
+        if occ_fired is not None:
+            ocols = [occ_fired[:, i] for i in range(len(OCC_CLAUSES))]
+
+            def occ_mark(row, fired, k):
+                bit = torch.bitwise_left_shift(
+                    torch.ones_like(ocols[row]), torch.clamp(k, 0, 31).long()
+                )
+                ocols[row] = torch.where(fired, ocols[row] | bit, ocols[row])
+
+            if cfg.nem_crash_enabled:
+                occ_mark(OCC_ROW["crash"], do_crash, nst.crash_k)
+            if cfg.nem_partition_enabled:
+                occ_mark(OCC_ROW["partition"], do_split, nst.part_k)
+            if clog_on:
+                occ_mark(OCC_ROW["clog"], do_clog, nst.clog_k)
+            if spike_on:
+                occ_mark(OCC_ROW["spike"], do_spike, nst.spike_k)
+            occ_fired = torch.stack(ocols, dim=1)
 
         # -- 7. invariants + lane lifecycle
         ok = spec.check_invariants(node, alive, clock)
@@ -724,6 +1107,31 @@ class BatchedSim:
         chaos_at = rb(chaos_at)
         part_at = rb(part_at)
         new_deliver = rb(new_deliver)
+        new_nem = None
+        if nst is not None:
+            def pick(new, old):
+                return old if new is None else new
+
+            new_nem = NemesisState(
+                crash_k=pick(nem_crash_k, nst.crash_k),
+                wipe=pick(nem_wipe, nst.wipe),
+                part_k=pick(nem_part_k, nst.part_k),
+                clog_at=rb(pick(nem_clog_at, nst.clog_at)),
+                clogged=pick(clogged, nst.clogged),
+                clog_src=pick(clog_src, nst.clog_src),
+                clog_dst=pick(clog_dst, nst.clog_dst),
+                clog_k=pick(nem_clog_k, nst.clog_k),
+                spike_at=rb(pick(nem_spike_at, nst.spike_at)),
+                spiking=pick(spiking, nst.spiking),
+                spike_k=pick(nem_spike_k, nst.spike_k),
+                reconfig_at=rb(nst.reconfig_at),
+                reconf_node=nst.reconf_node,
+                reconfig_k=nst.reconfig_k,
+                disk_at=rb(nst.disk_at),
+                disk_phase=nst.disk_phase,
+                disk_k=nst.disk_k,
+                skew_ppm=nst.skew_ppm,
+            )
         if spec.time_fields:
             node = node._replace(**{
                 f: getattr(node, f) - expand_to(shift, getattr(node, f))
@@ -750,7 +1158,7 @@ class BatchedSim:
             nonmember_drops=state.nonmember_drops,
             unsynced_loss=state.unsynced_loss,
             fires=fires,
-            occ_fired=None,
+            occ_fired=occ_fired,
             alive_p=bitpack.pack_bits(alive),
             crashed=crashed,
             chaos_at=chaos_at,
@@ -768,8 +1176,8 @@ class BatchedSim:
                 kind=new_kind,
                 payload=new_payload,
             ),
-            strag=None, nem=None, ctl=None, cov=None, lin=None, queue=None,
-            refill=None,
+            strag=None, nem=new_nem, ctl=None, cov=None, lin=None,
+            queue=None, refill=None,
         )
 
     # ------------------------------------------------------------------ run
@@ -877,6 +1285,12 @@ def _summary_reduction(state: SimState) -> dict:
             violated, state.violation_step, 2**31 - 1
         ).amin(),
         "fires64": _sum64(state.fires, axis=0),
+        # per-(clause row, occurrence bit) lane counts [R, 32]
+        "occ_counts": None if state.occ_fired is None else (
+            (state.occ_fired[:, :, None] >> torch.arange(
+                32, device=state.occ_fired.device
+            )) & 1
+        ).sum(dim=0),
     }
 
 
@@ -910,6 +1324,15 @@ def summarize(state: SimState, spec: Optional[ProtocolSpec] = None) -> dict:
     f_lo = f_lo.cpu().numpy().astype(np.int64)
     for i, name in enumerate(FIRE_KINDS):
         out[f"fires_{name}"] = int(f_hi[i] * 65536 + f_lo[i])
+    # per-occurrence fire counts (nemesis schedule clauses only): lanes in
+    # which occurrence k of the clause applied
+    if red["occ_counts"] is not None:
+        occ_counts = red["occ_counts"].cpu().numpy()
+        for row, clause in enumerate(OCC_CLAUSES):
+            for k in range(32):
+                n = int(occ_counts[row, k])
+                if n:
+                    out[f"occfires_{clause}_k{k}"] = n
     if spec is not None and spec.lane_metrics is not None:
         for name, arr in spec.lane_metrics(state.node).items():
             a = arr.cpu().numpy()

@@ -107,6 +107,35 @@ def majority(mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
     return popcount(mask) > n_nodes // 2
 
 
+def bit(n: torch.Tensor) -> torch.Tensor:
+    """`1 << n` in n's dtype (the int32 ack-bitmask idiom)."""
+    return torch.bitwise_left_shift(torch.ones_like(n), n)
+
+
+def select_sum(mask: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """values [..., K] at the one-hot `mask` [..., K] as int32, 0 where the
+    mask is empty: the JAX face's one-hot multiply-and-sum lookup."""
+    return torch.where(mask, values, 0).sum(dim=-1, dtype=torch.int32)
+
+
+def stack_fields(*fields, width: int = 0) -> torch.Tensor:
+    """Stack broadcastable int fields (tensors or Python ints) into an int32
+    payload row [..., P], zero-padded to `width` fields. Built with
+    `torch.stack`, so every field lands at a static index."""
+    ts = [f for f in fields if isinstance(f, torch.Tensor)]
+    shape = torch.broadcast_shapes(*(t.shape for t in ts))
+    dev = ts[0].device
+    cols = [
+        torch.broadcast_to(f.to(torch.int32), shape)
+        if isinstance(f, torch.Tensor)
+        else torch.full(shape, f, dtype=torch.int32, device=dev)
+        for f in fields
+    ]
+    zero = torch.zeros(shape, dtype=torch.int32, device=dev)
+    cols += [zero] * max(0, width - len(cols))
+    return torch.stack(cols, dim=-1)
+
+
 def tree_map(fn: Callable, *trees):
     """Map `fn` over the tensor leaves of NamedTuples (nested); a None leaf
     in the first tree stays None."""
@@ -147,6 +176,42 @@ class Outbox(NamedTuple):
     dst: Any  # int32 [L,N,E]
     kind: Any  # int32 [L,N,E]
     payload: Any  # int32 [L,N,E,P]
+
+
+def fuse_two_handlers(spec: "ProtocolSpec") -> "ProtocolSpec":
+    """Derive a fused `on_event` from a spec's on_message/on_timer by
+    running both bodies and selecting (kind == -1 => timer), as the JAX
+    face does: the message body sees `max(kind, 0)`. Requires
+    max_out == max_out_msg so the two outbox shapes line up."""
+    if spec.max_out != spec.max_out_msg:
+        raise ValueError(
+            "fuse_two_handlers needs max_out == max_out_msg "
+            f"(got {spec.max_out} != {spec.max_out_msg})"
+        )
+
+    def on_event(s, nid, src, kind, payload, now, key):
+        st_m, out_m, tm_m = spec.on_message(
+            s, nid, src, torch.clamp(kind, min=0), payload, now, key
+        )
+        st_t, out_t, tm_t = spec.on_timer(s, nid, now, key)
+        is_timer = kind == -1
+        return (
+            tree_select(is_timer, st_t, st_m),
+            tree_select(is_timer, out_t, out_m),
+            torch.where(is_timer, tm_t, tm_m),
+        )
+
+    # the two-handler bodies this fused body derives from, so the
+    # ProtocolSpec stale-wrapper guard accepts the resulting spec
+    on_event.__fused_from__ = (spec.on_message, spec.on_timer)
+    return dataclasses.replace(spec, on_event=on_event)
+
+
+def pool_kw_for(spec: "ProtocolSpec", fused: dict, two_handler: dict) -> dict:
+    """The pool-sizing SimConfig kwargs for the spec's engine path: fused
+    (on_event) specs place node-pooled slots (depth + spare), two-handler
+    specs per-class rings (per-class depths)."""
+    return dict(fused if spec.on_event is not None else two_handler)
 
 
 def wraps_event(on_event: Callable) -> Callable:
