@@ -5,8 +5,9 @@ Run from the repo root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It drives the port's main path — the 5-node Raft fuzz sweep through
-`BatchedSim.run` and `summarize`, then FaultPlan chaos and the four other
-workloads — and checks it, in eight phases:
+`BatchedSim.run` and `summarize`, then FaultPlan chaos, the four other
+workloads, and the membership, durability and straggler paths with their
+workloads — and checks it, in nine phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -22,22 +23,42 @@ workloads — and checks it, in eight phases:
    reps (seeds/s, events/s, step ms), and seeds 0..63 of the warm-up equal
    per seed to phase 2's 64-lane run;
 5. profile: torch.profiler over 20 steady steps at 32768 lanes — kernels
-   launched per step, device idle share, top device kernels;
+   launched per step, device idle share, top device kernels — and the
+   same steps with and without deterministic mode's uninitialized-memory
+   fills, leaves equal; phases 6-9 then run without the fills;
 6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
    its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
    canonical digest must equal the JAX package's GOLDEN value; the Raft
    run is also held leaf for leaf (`nem.*` included) against the CPU;
 7. storm sweep: the bench Raft spec under `compile_plan` of an eight-clause
    plan (the documented raft-storm plan plus LinkClog, LatencySpike and
-   MsgLoss) at 32768 lanes x 5 nodes, 10 virtual seconds: a warm run, then
-   a timed run; every enabled fire kind must fire, and seeds 0..63 must
-   equal a 64-lane run of the same config per seed in every leaf but
-   `key` (a done lane's key advances while any lane of its batch runs);
+   MsgLoss) at 32768 lanes x 5 nodes, 10 virtual seconds (cut when a probed
+   step time says its two runs would overrun the phase budget; the cut is
+   printed): one timed run; every enabled fire kind must fire, and seeds
+   0..63 must equal a 64-lane run of the same config per seed in every
+   leaf but `key` (a done lane's key advances while any lane of its batch
+   runs);
 8. workloads: paxos, chain (8192 lanes), kv and twopc (32768 lanes) at
    their factories' defaults, 10 virtual seconds (cut when a probed step
-   time says the phase would overrun its budget; the cut is printed), one
-   timed run each; kv's exact linearizability check runs over lanes
-   0..127 and its counts are printed.
+   time says the phase would overrun what is left of the script's time
+   target after phase 9; the cut is printed), one timed run each; kv's
+   exact linearizability check runs over lanes 0..127 and its counts are
+   printed;
+9. membership, durability and the straggler tail (run before phase 8, so
+   phase 8 absorbs any horizon cut): `isr_workload` and `lease_workload`
+   (10 virtual s), `wal_workload` (8 virtual s) and the two-handler
+   unilateral-abort 2PC participant under the quiet config with a 5%
+   heavy tail (10 virtual s), each at 32768 lanes, correct and buggy, one
+   timed run each (a horizon is cut, never below half, when a probed step
+   time says the runs would pass PHASE9_END_S; the cut is printed). The
+   correct builds never violate, every enabled fire
+   kind fires and stragglers ride the side pool, each planted bug fires on
+   at least the share of lanes its JAX test demands (isr > 64/128, lease >
+   16/128, wal >= 8/256, twopc > 0), every violating wal lane lost
+   unsynced state, and seeds 0..63 of the buggy 2PC run equal a 64-lane
+   card run in every leaf but `key`. Then a 64-lane two-handler Raft run at
+   unequal ring depths and a 64-lane Raft run under Reconfig + DiskFault
+   (crash-wipe, skew and the tail composed in) are leaf-equal card/CPU.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -68,6 +89,7 @@ MAX_STEPS = 8000
 PROFILE_STEPS = 20
 PHASE4_BUDGET_S = 300.0
 STORM_LANES = 32768
+PHASE7_BUDGET_S = 60.0
 # phase 8: (workload, lanes, max_steps at 10 virtual s) as bench.py runs
 # them
 WORKLOADS = (
@@ -76,15 +98,46 @@ WORKLOADS = (
     ("kv", 32768, 14_000),
     ("twopc", 32768, 18_000),
 )
+# phase 9: (workload, lanes, virtual seconds); every run takes both the
+# correct and the buggy build
+MEMBERSHIP = (
+    ("isr", 32768, 10.0),
+    ("lease", 32768, 10.0),
+    ("wal", 32768, 8.0),
+    ("twopc_tail", 32768, 10.0),
+)
+# the share of lanes each planted bug must violate on (its JAX test's
+# demand: isr > 64/128, lease > 16/128, wal >= 8/256, twopc > 0), and
+# whether the bound itself passes
+BUG_SHARE = {"isr": (64 / 128, False), "lease": (16 / 128, False),
+             "wal": (8 / 256, True), "twopc_tail": (0.0, False)}
+PHASE9_MAX_STEPS = 40_000
+# steps of each phase-9 run at its full horizon (the longest lane of
+# 32768; chip_smoke.py runs 1-2 of PR 3), to estimate its wall from a
+# probed step time
+PHASE9_STEPS = {
+    "isr_correct": 3596, "isr_buggy": 2819,
+    "lease_correct": 2251, "lease_buggy": 2251,
+    "wal_correct": 2387, "wal_buggy": 2387,
+    "twopc_tail_correct": 2071, "twopc_tail_buggy": 2087,
+}
+# phase 9's runs must end by then (its two 64-lane card/CPU parity runs
+# follow); phase 8 then gets what is left of TARGET_S
+PHASE9_END_S = 960.0
+# the buggy run whose seeds 0..63 are held against a 64-lane run (the
+# two-handler path and the straggler pool; one such run fits the time)
+PHASE9_INDEPENDENCE = "twopc_tail"
+PHASE9_PARITY_STEPS = 200
 # the whole script must end well inside the 1200 s the card run allows;
-# phase 8 splits what is left of this target across its timed runs
-TARGET_S = 900.0
+# phase 8 (run last) splits what is left of this target across its runs
+TARGET_S = 1050.0
 T_START = time.perf_counter()
 KV_CHECK_LANES = 128
 
 
 def phase(n: int, msg: str) -> None:
-    print(f"phase {n}: {msg}", flush=True)
+    elapsed = time.perf_counter() - T_START
+    print(f"phase {n} [{elapsed:.0f} s]: {msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -148,8 +201,9 @@ def timed_run(sim, seeds, max_steps):
     return st, time.perf_counter() - t0
 
 
-def probe_step_ms(sim, lanes: int, steps: int = 10) -> float:
-    """Wall ms per step of `steps` steps after 3 warm steps at `lanes`."""
+def probe(sim, lanes: int, steps: int = 10):
+    """(wall ms per step of `steps` steps after 3 warm steps at `lanes`,
+    the state after them)."""
     st = sim.init(range(lanes))
     for _ in range(3):
         st = sim.step(st)
@@ -158,7 +212,7 @@ def probe_step_ms(sim, lanes: int, steps: int = 10) -> float:
     for _ in range(steps):
         st = sim.step(st)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / steps * 1e3
+    return (time.perf_counter() - t0) / steps * 1e3, st
 
 
 def card_line() -> str:
@@ -443,10 +497,16 @@ def main() -> dict:
              f"{ms_fill:.3f} ms/step; off: {launches_nofill} launches, "
              f"{ms_nofill:.3f} ms/step; leaves equal after "
              f"{PROFILE_STEPS + 1} steps")
+    # the later phases run without the fills (their card/CPU and digest
+    # checks would still catch a read of uninitialized memory): the
+    # script must fit the card run's time limit
+    tdet.fill_uninitialized_memory = False
+    phase(5, "phases 6-9 run with uninitialized-memory fills off")
     report["profile"] = prof_out
     del st, a, b
     report["golden"] = phase6_golden(cuda)
     report["storm"] = phase7_storm(cuda)
+    report["membership"] = phase9_membership(cuda)
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
     return report
@@ -492,20 +552,30 @@ def phase7_storm(cuda) -> dict:
     from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
 
     spec = make_raft_spec(5, client_rate=0.1, log_capacity=16)
-    cfg = compile_plan(storm_plan(), raft_bench_config(10.0))
+    virtual_secs = 10.0
+    cfg = compile_plan(storm_plan(), raft_bench_config(virtual_secs))
     sim = BatchedSim(spec, cfg, device=cuda)
+    # a 10 s horizon takes ~1277 steps; the timed run and the 64-lane run
+    # must fit the phase budget, else the horizon is cut (printed)
+    ms = probe(sim, STORM_LANES)[0]
+    est_s = 2 * 1277 * ms / 1e3
+    cut = ""
+    if est_s > PHASE7_BUDGET_S:
+        # every clause's first window opens within 1-5 s: below 4 s some
+        # kind may never fire
+        virtual_secs = max(4.0, round(10.0 * PHASE7_BUDGET_S / est_s, 1))
+        cut = (f" (cut: virtual_secs 10 -> {virtual_secs}; 2 runs at "
+               f"{ms:.2f} ms/step were estimated at {est_s:.0f} s)")
+        cfg = compile_plan(storm_plan(), raft_bench_config(virtual_secs))
+        sim = BatchedSim(spec, cfg, device=cuda)
     t_phase = time.perf_counter()
-    warm, warm_s = timed_run(sim, range(STORM_LANES), MAX_STEPS)
-    check(bool(warm.done.all()), "storm warm run hit max_steps")
-    warm64 = state_to_numpy(first_lanes(warm, SEEDS_SMALL))
-    del warm
     torch.cuda.reset_peak_memory_stats()
-    seeds = np.arange(STORM_LANES, dtype=np.int64) + STORM_LANES
-    st, wall = timed_run(sim, seeds, MAX_STEPS)
+    st, wall = timed_run(sim, range(STORM_LANES), MAX_STEPS)
     check(bool(st.done.all()), "storm timed run hit max_steps")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     s = summarize(st, spec)
     steps_run = int(st.steps.max())
+    warm64 = state_to_numpy(first_lanes(st, SEEDS_SMALL))
     del st
     kinds = enabled_fire_kinds(cfg)
     fires = {k: s[f"fires_{k}"] for k in kinds}
@@ -520,19 +590,21 @@ def phase7_storm(cuda) -> dict:
                    f"the {STORM_LANES}-lane run differ from the "
                    f"{SEEDS_SMALL}-lane run in {bad}")
     out = {
-        "lanes": STORM_LANES, "nodes": 5, "virtual_secs": 10.0,
+        "lanes": STORM_LANES, "nodes": 5, "virtual_secs": virtual_secs,
         "plan": [type(c).__name__ for c in storm_plan().clauses],
-        "warm_s": warm_s, "wall_s": wall, "seeds_per_sec": STORM_LANES / wall,
+        "probe_step_ms": ms, "wall_s": wall,
+        "seeds_per_sec": STORM_LANES / wall,
         "step_ms": wall / steps_run * 1e3, "steps_run": steps_run,
         "events_per_sec": s["total_events"] / wall,
         "total_overflow": s["total_overflow"], "violations": s["violations"],
         "peak_mem_gib": peak_gib, "fires": fires,
         "phase_s": time.perf_counter() - t_phase,
     }
-    phase(7, f"storm {STORM_LANES} lanes x 5 nodes, 10 virtual s, "
-             f"{len(out['plan'])} clauses: {out['seeds_per_sec']:.1f} seeds/s, "
-             f"{out['step_ms']:.3f} ms/step x {steps_run} steps ({wall:.3f} s; "
-             f"warm run {warm_s:.3f} s), {out['events_per_sec']:.0f} events/s, "
+    phase(7, f"storm {STORM_LANES} lanes x 5 nodes, {virtual_secs} virtual "
+             f"s{cut}, {len(out['plan'])} clauses: "
+             f"{out['seeds_per_sec']:.1f} seeds/s, "
+             f"{out['step_ms']:.3f} ms/step x {steps_run} steps "
+             f"({wall:.3f} s), {out['events_per_sec']:.0f} events/s, "
              f"overflow {out['total_overflow']}, violations "
              f"{out['violations']}, peak {peak_gib:.2f} GiB; fires "
              + ", ".join(f"{k} {n}" for k, n in fires.items())
@@ -560,7 +632,7 @@ def phase8_workloads(cuda) -> dict:
         virtual_secs = 10.0
         wl = factories[name](virtual_secs=virtual_secs)
         sim = BatchedSim(wl.spec, wl.config, device=cuda)
-        ms = probe_step_ms(sim, lanes)
+        ms = probe(sim, lanes)[0]
         est_s = est_steps[name] * ms / 1e3
         budget_s = (TARGET_S - (time.perf_counter() - T_START)) / (
             len(WORKLOADS) - i)
@@ -616,6 +688,197 @@ def phase8_workloads(cuda) -> dict:
                  f"{row['total_overflow']}, violations {row['violations']} "
                  f"{row['violation_lanes']}, "
                  f"peak {row['peak_mem_gib']:.2f} GiB{extra}")
+    return out
+
+
+def phase9_workload(name: str, buggy: bool, virtual_secs: float):
+    """(spec, config) of one phase-9 run."""
+    from madsim_tpu_torch.tpu import (
+        SimConfig, isr_workload, lease_workload, make_twopc_spec,
+        unilateral_abort_spec, wal_workload,
+    )
+
+    if name == "twopc_tail":
+        # tests/test_buggify.py's quiet_config(buggify_delay_rate=0.05):
+        # no loss, no crashes, no partitions, only the heavy tail
+        cfg = SimConfig(horizon_us=int(virtual_secs * 1e6), loss_rate=0.0,
+                        msg_depth_msg=2, msg_depth_timer=2,
+                        buggify_delay_rate=0.05)
+        spec = unilateral_abort_spec(5) if buggy else make_twopc_spec(5)
+        return spec, cfg
+    factory = {"isr": isr_workload, "lease": lease_workload,
+               "wal": wal_workload}[name]
+    wl = factory(virtual_secs=virtual_secs, buggy=buggy)
+    return wl.spec, wl.config
+
+
+def phase9_membership(cuda) -> dict:
+    """isr, lease, wal and the tail-exposed 2PC bug at full width, correct
+    and buggy; then two 64-lane card/CPU parity runs."""
+    from madsim_tpu_torch.tpu import BatchedSim, summarize
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.nemesis import enabled_fire_kinds
+
+    out = {}
+    runs = [(name, lanes, secs, buggy) for name, lanes, secs in MEMBERSHIP
+            for buggy in (False, True)]
+    for i, (name, lanes, full_secs, buggy) in enumerate(runs):
+        tag = f"{name}_{'buggy' if buggy else 'correct'}"
+        virtual_secs = full_secs
+        spec, cfg = phase9_workload(name, buggy, virtual_secs)
+        sim = BatchedSim(spec, cfg, device=cuda)
+        ms, st = probe(sim, lanes)
+        strag_pending = (None if st.strag is None
+                         else int(st.strag.valid.sum()))
+        del st
+        # the time left before PHASE9_END_S, shared by the runs still to
+        # go (the 64-lane run counts as one); over it, the horizon is cut
+        # (printed), never below half: the bug shares hold there (JAX
+        # face, 512 lanes at half horizons: isr 0.98, lease 0.39, wal
+        # 0.45, twopc 0.11 of lanes)
+        left = len(runs) - i + 1
+        budget_s = (PHASE9_END_S - (time.perf_counter() - T_START)) / left
+        est_s = PHASE9_STEPS[tag] * ms / 1e3
+        cut = ""
+        if est_s > budget_s:
+            virtual_secs = round(
+                max(0.5, budget_s / est_s) * full_secs, 1)
+            cut = (f" (cut: virtual_secs {full_secs} -> {virtual_secs}; "
+                   f"{PHASE9_STEPS[tag]} steps at {ms:.2f} ms/step were "
+                   f"estimated at {est_s:.0f} s)")
+            spec, cfg = phase9_workload(name, buggy, virtual_secs)
+            sim = BatchedSim(spec, cfg, device=cuda)
+        torch.cuda.reset_peak_memory_stats()
+        st, wall = timed_run(sim, range(lanes), PHASE9_MAX_STEPS)
+        check(bool(st.done.all()),
+              f"{tag}: hit max_steps {PHASE9_MAX_STEPS}")
+        s = summarize(st, spec)
+        steps_run = int(st.steps.max())
+        violated = st.violated.cpu().numpy()
+        loss = st.unsynced_loss.cpu().numpy()
+        kinds = enabled_fire_kinds(cfg)
+        fires = {k: s[f"fires_{k}"] for k in kinds}
+        row = {
+            "lanes": lanes, "virtual_secs": virtual_secs,
+            "wall_s": wall, "seeds_per_sec": lanes / wall,
+            "steps_run": steps_run, "step_ms": wall / steps_run * 1e3,
+            "events_per_sec": s["total_events"] / wall,
+            "total_overflow": s["total_overflow"],
+            "violations": s["violations"],
+            "total_nonmember_drops": s["total_nonmember_drops"],
+            "total_unsynced_loss": s["total_unsynced_loss"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "fires": fires, "probe_step_ms": ms,
+            "strag_pending_after_13_steps": strag_pending,
+        }
+        dead = [k for k, n in fires.items() if n <= 0]
+        check(not dead, f"{tag}: enabled kinds that never fired: {dead}")
+        if cfg.buggify_delay_rate > 0:
+            check(bool(strag_pending),
+                  f"{tag}: no straggler in the side pool")
+        extra = ""
+        if not buggy:
+            check(s["violations"] == 0,
+                  f"{tag}: the correct build violated on "
+                  f"{s['violations']} lanes {s['violation_lanes']}")
+        else:
+            share, inclusive = BUG_SHARE[name]
+            got = s["violations"] / lanes
+            check(got >= share if inclusive else got > share,
+                  f"{tag}: the planted bug violated {s['violations']}"
+                  f"/{lanes} lanes, the JAX test demands "
+                  f"{'>=' if inclusive else '>'} {share:.4f}")
+            if name == "wal":
+                check(bool((loss[violated] > 0).all()),
+                      f"{tag}: violating lanes without unsynced loss")
+                extra += "; every violating lane lost unsynced state"
+        if buggy and name == PHASE9_INDEPENDENCE:
+            big = state_to_numpy(first_lanes(st, SEEDS_SMALL))
+            small = state_to_numpy(
+                sim.run(range(SEEDS_SMALL), PHASE9_MAX_STEPS))
+            del big["key"], small["key"]
+            bad = leaves_equal(big, small)
+            check(not bad, f"{tag} batch independence: seeds 0.."
+                           f"{SEEDS_SMALL - 1} differ from the "
+                           f"{SEEDS_SMALL}-lane run in {bad}")
+            extra += (f"; {len(big)} leaves (all but key) of seeds "
+                      f"0..{SEEDS_SMALL - 1} equal the "
+                      f"{SEEDS_SMALL}-lane run")
+        out[tag] = row
+        phase(9, f"{tag} {lanes} lanes, {virtual_secs} virtual s{cut}: "
+                 f"{row['seeds_per_sec']:.1f} seeds/s, "
+                 f"{row['step_ms']:.3f} ms/step x {steps_run} steps "
+                 f"({wall:.3f} s), {row['events_per_sec']:.0f} events/s, "
+                 f"overflow {row['total_overflow']}, violations "
+                 f"{row['violations']}/{lanes}, nonmember drops "
+                 f"{row['total_nonmember_drops']}, unsynced loss "
+                 f"{row['total_unsynced_loss']}, peak "
+                 f"{row['peak_mem_gib']:.2f} GiB; fires "
+                 + (", ".join(f"{k} {n}" for k, n in fires.items())
+                    or "none enabled")
+                 + (f"; {strag_pending} stragglers pending after 13 "
+                    "steps" if strag_pending is not None else "")
+                 + extra)
+        del st
+    out["parity"] = phase9_parity(cuda)
+    return out
+
+
+def membership_plan():
+    """Reconfig + DiskFault with crash-wipe, skew and duplication."""
+    from madsim_tpu_torch import nemesis as nm
+
+    return nm.FaultPlan(name="membership+durability", clauses=(
+        nm.Reconfig(interval_lo_us=300_000, interval_hi_us=900_000),
+        nm.DiskFault(interval_lo_us=300_000, interval_hi_us=900_000,
+                     torn_rate=0.5),
+        nm.Crash(interval_lo_us=300_000, interval_hi_us=900_000,
+                 wipe_rate=0.5),
+        nm.ClockSkew(max_ppm=20_000),
+        nm.Duplicate(rate=0.05),
+    ))
+
+
+def phase9_parity(cuda) -> dict:
+    """64-lane card/CPU leaf equality of the two-handler path at unequal
+    ring depths and of Raft under Reconfig + DiskFault."""
+    from madsim_tpu_torch.tpu import BatchedSim, SimConfig, make_raft_spec
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.nemesis import compile_plan
+    from madsim_tpu_torch.tpu.spec import replace_handlers
+
+    raft = make_raft_spec(5)
+    runs = {
+        "raft_two_handler_1_3": (
+            replace_handlers(raft, on_message=raft.on_message),
+            SimConfig(horizon_us=5_000_000, loss_rate=0.05,
+                      msg_depth_msg=1, msg_depth_timer=3,
+                      crash_interval_lo_us=300_000,
+                      crash_interval_hi_us=900_000,
+                      partition_interval_lo_us=300_000,
+                      partition_interval_hi_us=900_000),
+        ),
+        "raft_reconfig_disk": (
+            raft,
+            compile_plan(membership_plan(), SimConfig(
+                horizon_us=5_000_000, buggify_delay_rate=0.2)),
+        ),
+    }
+    out = {}
+    steps = PHASE9_PARITY_STEPS
+    for name, (spec, cfg) in runs.items():
+        st, wall = timed_run(BatchedSim(spec, cfg, device=cuda),
+                             range(SEEDS_SMALL), steps)
+        g = state_to_numpy(st)
+        c = state_to_numpy(BatchedSim(spec, cfg, device="cpu").run(
+            range(SEEDS_SMALL), steps))
+        bad = leaves_equal(g, c)
+        check(not bad, f"{name}: card and CPU leaves differ: {bad}")
+        check(int(g["steps"].max()) == steps, f"{name}: ran short")
+        out[name] = {"lanes": SEEDS_SMALL, "steps": steps, "card_s": wall,
+                     "leaves": len(g)}
+        phase(9, f"{name}: {SEEDS_SMALL} lanes x {steps} steps, "
+                 f"{len(g)} leaves equal card/CPU")
     return out
 
 

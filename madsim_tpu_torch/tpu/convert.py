@@ -3,7 +3,8 @@
 A simulator's weights are its state, so this is the port's weight loader:
 `state_from_numpy` takes the leaves of a JAX-face `SimState` as numpy
 arrays, keyed by dotted field path (`"clock"`, `"node.term"`,
-`"msgs.valid_p"`, ...; absent planes simply have no keys) and stored as the
+`"msgs.valid_p"`, `"strag.deliver"`, `"dur.log_len"`, ...; absent planes
+simply have no keys) and stored as the
 JAX face stores them, and builds the port's `SimState` on a device.
 `state_to_numpy` goes the other way, into the same paths with every value
 widened to int64, so the two faces' states compare leaf for leaf.
@@ -21,7 +22,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .engine import MsgPool, NemesisState, SimState
+from .engine import MsgPool, NemesisState, SimState, StragPool
 
 _WIDE = {
     np.dtype(np.uint32): torch.int64,
@@ -52,7 +53,10 @@ def state_from_numpy(
 
     `node_type` is the protocol state NamedTuple (e.g. raft.RaftState);
     by default one is made from the `node.*` field names in order."""
-    nodef = [k[len("node."):] for k in leaves if k.startswith("node.")]
+    def fields(plane):
+        return [k[len(plane) + 1:] for k in leaves if k.startswith(plane + ".")]
+
+    nodef = fields("node")
     if node_type is None:
         node_type = collections.namedtuple("NodeState", nodef)
     elif tuple(node_type._fields) != tuple(nodef):
@@ -60,29 +64,24 @@ def state_from_numpy(
             f"node fields {nodef} do not match {node_type.__name__} "
             f"{list(node_type._fields)}"
         )
-    node = node_type(*(_tensor(leaves[f"node.{f}"], device) for f in nodef))
-    msgs = MsgPool(**{
-        f: _tensor(leaves[f"msgs.{f}"], device)
-        for f in MsgPool._fields if f"msgs.{f}" in leaves
-    })
-    nem = None
-    if any(k.startswith("nem.") for k in leaves):
-        nem = NemesisState(**{
-            f: _tensor(leaves[f"nem.{f}"], device)
-            if f"nem.{f}" in leaves else None
-            for f in NemesisState._fields
-        })
+    planes = {"node": node_type, "msgs": MsgPool, "strag": StragPool,
+              "nem": NemesisState}
+    durf = fields("dur")
+    if durf:
+        planes["dur"] = collections.namedtuple("DurState", durf)
     top = {}
     for f in SimState._fields:
-        if f == "node":
-            top[f] = node
-        elif f == "msgs":
-            top[f] = msgs
-        elif f == "nem":
-            top[f] = nem
+        names = fields(f)
+        if f in planes and names:
+            typ = planes[f]
+            top[f] = typ(**{
+                g: _tensor(leaves[f"{f}.{g}"], device)
+                if f"{f}.{g}" in leaves else None
+                for g in typ._fields
+            })
         elif f in leaves:
             top[f] = _tensor(leaves[f], device)
-        elif any(k.startswith(f + ".") for k in leaves):
+        elif names:
             raise ValueError(
                 f"state plane {f!r} is not carried by this slice of the port"
             )

@@ -1,25 +1,31 @@
 """The batched discrete-event engine in PyTorch.
 
-The port of `madsim_tpu/tpu/engine.py` for the fused-handler path: one step
-advances every lane to its next conservative-DES window, picks each node's
-earliest in-window event (message or timer), runs the spec's fused handler,
-applies crash/restart, bipartition, link-clog and latency-spike chaos
-(legacy trajectory-coupled knobs or the schedule-indexed `nem_*` knobs a
-FaultPlan compiles to), rolls loss, duplication, reordering and latency for
-every send and places survivors in the node-pooled message ring, checks
-invariants and rebases lanes whose clock offset crossed REBASE_US. Same
-state fields, same draws, same order: a seed's final state is leaf for
-leaf the JAX engine's (tests/test_torch_engine.py,
-tests/test_torch_nemesis.py).
+The port of `madsim_tpu/tpu/engine.py`: one step advances every lane to its
+next conservative-DES window, picks each node's earliest in-window event
+(message, straggler or timer), runs the spec's handlers (the fused
+`on_event`, or `on_message` and `on_timer` with a 3-way state merge),
+applies crash/restart, bipartition, link-clog, latency-spike, membership
+(remove/join) and disk-fault (slow/crash/recover) chaos (legacy
+trajectory-coupled knobs or the schedule-indexed `nem_*` knobs a FaultPlan
+compiles to), keeps the durable watermark of specs that declare one, rolls
+loss, duplication, reordering, latency and the heavy-tail straggler coin
+for every send, places survivors in the message ring (node-pooled for fused
+specs, per-candidate rings for two-handler specs) or the straggler side
+pool, checks invariants and rebases lanes whose clock offset crossed
+REBASE_US. Same state fields, same draws, same order: a seed's final state
+is leaf for leaf the JAX engine's (tests/test_torch_engine.py,
+tests/test_torch_nemesis.py, tests/test_torch_twohandler.py,
+tests/test_torch_membership.py).
 
-State layout differs only in storage width: node leaves are stored wide
-(the JAX face's u8/i8/u16 narrowing is a storage choice, not a value one)
-and u32 values are int64 tensors (prng.py). The bool planes rest packed,
-as on the JAX face (`alive_p`, `link_ok_p`, `member_p`, `msgs.valid_p`).
+State layout differs only in storage width: node, watermark and straggler
+leaves are stored wide (the JAX face's u8/i8/u16 narrowing is a storage
+choice, not a value one) and u32 values are int64 tensors (prng.py). The
+bool planes rest packed, as on the JAX face (`alive_p`, `link_ok_p`,
+`member_p`, `msgs.valid_p`); the straggler pool's `valid` stays unpacked,
+as there.
 
-Configurations the port does not carry yet (the reconfig and disk
-clauses, the straggler pool, triage / coverage / lineage / device-loop
-planes, two-handler specs) are refused at construction with the ROADMAP
+Configurations the port does not carry yet (the triage / coverage /
+lineage / device-loop planes) are refused at construction with the ROADMAP
 item that will port them.
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
@@ -27,6 +33,7 @@ Every entry point runs on the CUDA card unless the caller passes
 
 from __future__ import annotations
 
+import collections
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -45,9 +52,17 @@ from ..nemesis import (
     NEM_SITE_CRASH_IV,
     NEM_SITE_CRASH_VICTIM,
     NEM_SITE_CRASH_WIPE,
+    NEM_SITE_DISK_DOWN,
+    NEM_SITE_DISK_IV,
+    NEM_SITE_DISK_SLOW,
+    NEM_SITE_DISK_TORN,
+    NEM_SITE_DISK_VICTIM,
     NEM_SITE_PART_HEAL,
     NEM_SITE_PART_IV,
     NEM_SITE_PART_SIDE,
+    NEM_SITE_RECONF_DUR,
+    NEM_SITE_RECONF_IV,
+    NEM_SITE_RECONF_VICTIM,
     NEM_SITE_SKEW,
     NEM_SITE_SPIKE_DUR,
     NEM_SITE_SPIKE_IV,
@@ -89,15 +104,27 @@ class MsgPool(NamedTuple):
         return bitpack.unpack_bits(self.valid_p, self.deliver.shape[-1])
 
 
+class StragPool(NamedTuple):
+    """Heavy-tail straggler side pool (present iff buggify_delay_rate > 0):
+    one region of K4 slots per candidate position ([L, C, K4] flattened to
+    [L, B]); the destination is stored per slot."""
+
+    valid: Any  # bool [L,B]
+    deliver: Any  # int32 [L,B] (offset us)
+    dst: Any  # int32 [L,B]
+    kind: Any  # int32 [L,B]
+    payload: Any  # int32 [L,B,P]
+    sent_eid: Any = None  # lineage stamp (not ported: always None)
+
+
 class NemesisState(NamedTuple):
     """Per-lane nemesis bookkeeping (present iff a schedule-level clause or
     clock skew is enabled). Every nemesis draw is indexed by (lane base
     key, clause site, occurrence counter `*_k`), a pure function of the
     seed, never of the trajectory clock. The crash clause shares
     `SimState.chaos_at`/`crashed` and the partition clause shares
-    `part_at`/`partitioned`/`link_ok` with the legacy knobs; clog and
-    spike windows carry their own next-toggle offsets here. The reconfig
-    and disk rows hold their disabled values (those clauses are refused)."""
+    `part_at`/`partitioned`/`link_ok` with the legacy knobs; clog, spike,
+    reconfig and disk windows carry their own next-toggle offsets here."""
 
     crash_k: Any  # int32 [L] crash/restart cycle counter
     wipe: Any  # bool [L] current down node restarts with wiped state
@@ -110,12 +137,14 @@ class NemesisState(NamedTuple):
     spike_at: Any  # int32 [L] next latency-spike toggle
     spiking: Any  # bool [L]
     spike_k: Any  # int32 [L]
-    reconfig_at: Any  # int32 [L] (INF_US: reconfig is not carried)
-    reconf_node: Any  # int32 [L] (-1)
-    reconfig_k: Any  # int32 [L] (0)
-    disk_at: Any  # int32 [L] (INF_US: disk faults are not carried)
-    disk_phase: Any  # int32 [L] (0)
-    disk_k: Any  # int32 [L] (0)
+    reconfig_at: Any  # int32 [L] next membership toggle (INF_US disabled)
+    reconf_node: Any  # int32 [L] node currently out of the membership (-1:
+    #           all in; the next reconfig event is a remove, else a join)
+    reconfig_k: Any  # int32 [L] remove/join cycle counter
+    disk_at: Any  # int32 [L] next disk-fault phase toggle (INF_US disabled)
+    disk_phase: Any  # int32 [L] 0 healthy, 1 degraded, 2 down (the victim
+    #           and torn bit are pure draws at (key0, site, disk_k))
+    disk_k: Any  # int32 [L] disk-fault occurrence counter (bumps at recover)
     skew_ppm: Any  # int32 [L,N] per-node timer skew in ppm | None
 
 
@@ -137,23 +166,25 @@ class SimState(NamedTuple):
     events: Any  # int32 [L]
     overflow: Any  # int32 [L] sends dropped: pool full
     dead_drops: Any  # int32 [L] sends dropped: destination down
-    nonmember_drops: Any  # int32 [L] (reconfig clause; zero here)
-    unsynced_loss: Any  # int32 [L] (disk clause; zero here)
+    nonmember_drops: Any  # int32 [L] sends dropped: destination removed
+    unsynced_loss: Any  # int32 [L] disk crashes that lost unsynced state
     fires: Any  # int32 [L, len(FIRE_KINDS)]
     occ_fired: Any  # u32 [L, len(OCC_CLAUSES)] occurrence bits | None
     alive_p: Any  # u32 [L,1] packed liveness bits
     crashed: Any  # int32 [L] node currently down, -1 = none
     chaos_at: Any  # int32 [L] next crash/restart event
-    member_p: Any  # u32 [L,1] packed membership bits (all ones here)
+    member_p: Any  # u32 [L,1] packed membership bits (reconfig clause)
     member_epoch: Any  # int32 [L]
     link_ok_p: Any  # u32 [L,N,1] packed directed-link bits, row = src
     partitioned: Any  # bool [L]
     part_at: Any  # int32 [L] next partition split/heal event
     timer: Any  # int32 [L,N]
     node: Any  # protocol NamedTuple, leaves [L,N,...]
-    dur: Any  # None (durability plane)
+    dur: Any  # durable watermark over spec.durable_fields, leaves [L,N,...]
+    #           | None (present iff nem_disk is on and the spec declares
+    #           durable_fields)
     msgs: MsgPool
-    strag: Any  # None (straggler pool)
+    strag: Any  # StragPool | None
     nem: Any  # NemesisState | None
     ctl: Any  # None (triage controls)
     cov: Any  # None (coverage)
@@ -201,6 +232,24 @@ def scale_delay_ppm(d: torch.Tensor, ppm) -> torch.Tensor:
     ppm64 = torch.as_tensor(ppm, device=d.device).to(torch.int64)
     adj = torch.div(d64 * ppm64.abs(), 1_000_000, rounding_mode="floor")
     return torch.where(ppm64 >= 0, d64 + adj, d64 - adj).to(torch.int32)
+
+
+def _first_free(free: torch.Tensor, K: int) -> torch.Tensor:
+    """First-free-slot mask along the last axis (length K, static),
+    unrolled as on the JAX face."""
+    if K == 1:
+        return free
+    prev = torch.zeros_like(free[..., 0])
+    cols = []
+    for k in range(K):
+        cols.append(free[..., k] & ~prev)
+        prev = prev | free[..., k]
+    return torch.stack(cols, dim=-1)
+
+
+# select NamedTuple leaves by an [L, N] mask, broadcasting trailing dims
+# (the JAX engine's `_tree_where`)
+_tree_where = tree_select
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -400,21 +449,6 @@ class BatchedSim:
             raise _not_ported("BatchedSim(lineage=True)", "item 9")
         if devloop is not None:
             raise _not_ported("BatchedSim(devloop=...)", "item 12")
-        if spec.on_event is None:
-            raise _not_ported(
-                "a two-handler spec (on_event=None)", "item 4, two-handler path"
-            )
-        if cfg.buggify_delay_rate > 0:
-            raise _not_ported(
-                "buggify_delay_rate > 0 (the straggler pool)",
-                "item 4, straggler pool",
-            )
-        for clause, enabled in (
-            ("nem_reconfig", cfg.nem_reconfig_enabled),
-            ("nem_disk", cfg.nem_disk_enabled),
-        ):
-            if enabled:
-                raise _not_ported(f"the {clause}_* clause", "item 8")
 
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -422,37 +456,95 @@ class BatchedSim:
             # this turns any future nondeterministic one into an error
             torch.use_deterministic_algorithms(True)
         dev = self.device
+        # candidate positions, the fixed send sites of one step: a fused
+        # spec's N * max_out rows; a two-handler spec's N * max_out_msg
+        # on_message rows, then its N * max_out on_timer rows. Position
+        # c's source node is a constant either way.
+        self._fused = spec.on_event is not None
+        if self._fused:
+            src_of_c = np.arange(N * spec.max_out) // spec.max_out
+        else:
+            src_of_c = np.concatenate([
+                np.arange(N * spec.max_out_msg) // spec.max_out_msg,
+                np.arange(N * spec.max_out) // spec.max_out,
+            ])
         # nemesis duplication doubles the candidate axis: position 2c is
         # the original send, 2c+1 its coin-gated copy (interleaved, so each
-        # node's candidate block stays contiguous); pool sizing follows
+        # node's candidate block and each two-handler segment stays
+        # contiguous with its bounds doubled); pool sizing follows
         self._dup = cfg.nem_dup_rate > 0
         mult = 2 if self._dup else 1
-        self._Cb = N * spec.max_out  # base (pre-duplication) candidates
+        self._Cb = src_of_c.size  # base (pre-duplication) candidates
         self._C = self._Cb * mult
-        # node-pooled placement: node n owns SK = E*K (+ spare) contiguous
-        # ring slots, shared by all its sends (the JAX face's fused layout)
-        self._Km = cfg.msg_depth_msg or max(1, cfg.msg_capacity // self._C)
-        self._E_pack = spec.max_out * mult
-        self._SK = self._E_pack * self._Km + cfg.msg_spare_slots
-        self._CK = N * self._SK
-        self._src_of_c = torch.repeat_interleave(
-            torch.arange(self._Cb, device=dev) // spec.max_out, mult
-        )  # int64 [C]
+        src_of_c = np.repeat(src_of_c, mult)
+        uniform = max(1, cfg.msg_capacity // self._C)
+        self._Km = cfg.msg_depth_msg or uniform
+        if self._fused:
+            # node-pooled placement: node n owns SK = E*K (+ spare)
+            # contiguous ring slots, shared by all its sends
+            self._E_pack = spec.max_out * mult
+            self._SK = self._E_pack * self._Km + cfg.msg_spare_slots
+            self._CK = N * self._SK
+            src_of_slot = np.repeat(np.arange(N), self._SK)
+            self._segs = None
+        else:
+            # per-candidate rings: position c owns K consecutive slots, K
+            # per class (reply rows msg_depth_msg, timer rows
+            # msg_depth_timer); equal depths collapse to one segment
+            self._Kt = cfg.msg_depth_timer or uniform
+            Cm = N * spec.max_out_msg * mult
+            Sm = Cm * self._Km
+            self._CK = Sm + (self._C - Cm) * self._Kt
+            if self._Km == self._Kt:
+                self._segs = ((0, self._C, self._Km, 0, self._CK),)
+            else:
+                self._segs = (
+                    (0, Cm, self._Km, 0, Sm),
+                    (Cm, self._C, self._Kt, Sm, self._CK),
+                )
+            # the candidate that owns each ring slot
+            cand_of_slot = np.concatenate([
+                np.repeat(np.arange(c0, c1), K)
+                for c0, c1, K, _, _ in self._segs
+            ])
+            self._cand_of_slot = torch.as_tensor(cand_of_slot, device=dev)
+            src_of_slot = src_of_c[cand_of_slot]
+        self._src_of_c = torch.as_tensor(src_of_c, device=dev)  # int64 [C]
+        self._src_of_slot = torch.as_tensor(
+            src_of_slot, dtype=torch.int32, device=dev
+        )  # [CK]
+        # straggler side pool: K4 slots per candidate position
+        if cfg.buggify_delay_rate > 0:
+            self._K4 = max(1, cfg.buggify_depth)
+            self._B = self._C * self._K4
+            cand_of_b = np.repeat(np.arange(self._C), self._K4)
+            self._cand_of_b = torch.as_tensor(cand_of_b, device=dev)
+            self._src_of_b = torch.as_tensor(
+                src_of_c[cand_of_b], dtype=torch.int32, device=dev
+            )  # [B]
+        else:
+            self._K4 = self._B = 0
         # per-lane nemesis bookkeeping exists iff a schedule-level clause
         # (or skew) is on; occurrence bits iff a schedule clause is on
-        self._nem_state = (
-            cfg.nem_crash_enabled or cfg.nem_partition_enabled
-            or cfg.nem_clog_enabled or cfg.nem_spike_enabled
-            or cfg.nem_skew_enabled
-        )
         self._occ_track = (
             cfg.nem_crash_enabled or cfg.nem_partition_enabled
             or cfg.nem_clog_enabled or cfg.nem_spike_enabled
+            or cfg.nem_reconfig_enabled or cfg.nem_disk_enabled
+        )
+        self._nem_state = self._occ_track or cfg.nem_skew_enabled
+        # durability plane: carried iff the disk clause can fire and the
+        # spec declares what is durable
+        self._dur_state = cfg.nem_disk_enabled and bool(spec.durable_fields)
+        self._DurTuple = (
+            collections.namedtuple("DurState", spec.durable_fields)
+            if spec.durable_fields else None
         )
         self._narange = torch.arange(N, dtype=torch.int32, device=dev)
         self._slot_idx = torch.arange(self._CK, device=dev)
         self._cidx = torch.arange(self._C, device=dev)
         self._bidx = torch.arange(self._Cb, device=dev)
+        if self._B:
+            self._sidx = torch.arange(self._B, device=dev)
         self.step = self._step
 
     # ------------------------------------------------------------------ init
@@ -476,6 +568,8 @@ class BatchedSim:
         node_keys = prng.fold(key[:, None], self._narange)
         node_state, timer = spec.init(node_keys, self._narange)
         timer = timer.to(torch.int32)
+        if spec.durable_fields:
+            self._check_durable(node_state)
 
         def full(shape, v, dtype=torch.int32):
             return torch.full(shape, v, dtype=dtype, device=dev)
@@ -542,9 +636,27 @@ class BatchedSim:
                     cfg.nem_spike_interval_hi_us,
                 ),
                 spiking=zb, spike_k=zi,
-                reconfig_at=full((L,), INF_US), reconf_node=full((L,), -1),
-                reconfig_k=zi, disk_at=full((L,), INF_US), disk_phase=zi,
-                disk_k=zi, skew_ppm=skew_ppm,
+                reconfig_at=first_toggle(
+                    cfg.nem_reconfig_enabled, NEM_SITE_RECONF_IV,
+                    cfg.nem_reconfig_interval_lo_us,
+                    cfg.nem_reconfig_interval_hi_us,
+                ),
+                reconf_node=full((L,), -1), reconfig_k=zi,
+                disk_at=first_toggle(
+                    cfg.nem_disk_enabled, NEM_SITE_DISK_IV,
+                    cfg.nem_disk_interval_lo_us, cfg.nem_disk_interval_hi_us,
+                ),
+                disk_phase=zi, disk_k=zi, skew_ppm=skew_ppm,
+            )
+        strag = None
+        if self._B:
+            B = self._B
+            strag = StragPool(
+                valid=full((L, B), False, torch.bool),
+                deliver=full((L, B), INF_US),
+                dst=full((L, B), 0),
+                kind=full((L, B), 0),
+                payload=full((L, B, spec.payload_width), 0),
             )
         all_n = bitpack.full_mask_word(N)
         return SimState(
@@ -562,16 +674,39 @@ class BatchedSim:
             member_p=full((L, 1), all_n, torch.int64), member_epoch=zi,
             link_ok_p=full((L, N, 1), all_n, torch.int64),
             partitioned=zb, part_at=part_at, timer=timer, node=node_state,
-            dur=None,
+            # boot is fsynced: the watermark starts as the init snapshot
+            dur=self._dur_of(node_state) if self._dur_state else None,
             msgs=MsgPool(
                 valid_p=full((L, N, bitpack.packed_words(CK)), 0, torch.int64),
                 deliver=full((L, CK), INF_US),
                 kind=full((L, CK), 0),
                 payload=full((L, CK, spec.payload_width), 0),
             ),
-            strag=None, nem=nem, ctl=None, cov=None, lin=None, queue=None,
+            strag=strag, nem=nem, ctl=None, cov=None, lin=None, queue=None,
             refill=None,
         )
+
+    # ----------------------------------------------- durability watermark
+    # spec.durable_fields: the disk clause's plane. The JAX face stores it
+    # at the node carry's narrow dtypes; here, like the node, it is wide.
+
+    def _check_durable(self, node) -> None:
+        for f in self.spec.durable_fields:
+            if not hasattr(node, f):
+                raise ValueError(
+                    f"durable_fields names unknown node-state field {f!r}"
+                )
+        sf = self.spec.sync_field
+        if sf is not None and not hasattr(node, sf):
+            raise ValueError(
+                f"sync_field names unknown node-state field {sf!r}"
+            )
+
+    def _dur_of(self, node):
+        """Snapshot the durable fields of a node pytree (the watermark)."""
+        return self._DurTuple(**{
+            f: getattr(node, f) for f in self.spec.durable_fields
+        })
 
     # ------------------------------------------------------------------ step
 
@@ -584,10 +719,12 @@ class BatchedSim:
         N, CK, P, C = spec.n_nodes, self._CK, spec.payload_width, self._C
         L = state.clock.shape[0]
         msgs = state.msgs
+        strag = state.strag
         nst = state.nem
         narange = self._narange
         i32 = torch.int32
         clog_on, spike_on = cfg.nem_clog_enabled, cfg.nem_spike_enabled
+        reconf_on, disk_on = cfg.nem_reconfig_enabled, cfg.nem_disk_enabled
 
         # -- 0. unpack the packed bool planes
         valid = bitpack.unpack_bits(msgs.valid_p, CK)  # bool [L,N,CK]
@@ -597,29 +734,39 @@ class BatchedSim:
 
         # -- 1. advance each lane to its next event window
         t_pend = torch.where(valid, msgs.deliver[:, None, :], INF_US)
-        tmsg_n = t_pend.amin(dim=2)  # [L,N]
+        tmsg_main = t_pend.amin(dim=2)  # [L,N]
+        tmsg_n = tmsg_main
+        if self._B:
+            # a node's earliest straggler: the side pool stores each
+            # slot's destination
+            sd_oh = strag.dst[:, :, None] == narange  # [L,B,N]
+            ts_b = torch.where(strag.valid, strag.deliver, INF_US)  # [L,B]
+            t_sn = torch.where(sd_oh, ts_b[:, :, None], INF_US)  # [L,B,N]
+            tmsg_strag = t_sn.amin(dim=1)  # [L,N]
+            tmsg_n = torch.minimum(tmsg_n, tmsg_strag)
         tmsg_n = torch.where(alive, tmsg_n, INF_US)
         ttmr_n = torch.where(alive, state.timer, INF_US)
         # the next chaos instant: crash/restart and partition toggles
-        # (legacy or nemesis), and the nemesis clog/spike toggles, which
-        # lanes advance to even when the protocol is quiet
+        # (legacy or nemesis), and the nemesis clog/spike/reconfig/disk
+        # toggles, which lanes advance to even when the protocol is quiet
         next_chaos = torch.minimum(state.chaos_at, state.part_at)
-        if clog_on:
-            next_chaos = torch.minimum(next_chaos, nst.clog_at)
-        if spike_on:
-            next_chaos = torch.minimum(next_chaos, nst.spike_at)
+        for on, at in ((clog_on, "clog_at"), (spike_on, "spike_at"),
+                       (reconf_on, "reconfig_at"), (disk_on, "disk_at")):
+            if on:
+                next_chaos = torch.minimum(next_chaos, getattr(nst, at))
         t_next = torch.minimum(
             torch.minimum(tmsg_n.amin(dim=1), ttmr_n.amin(dim=1)), next_chaos
         )
         deadlocked = (~state.done) & (t_next >= INF_US)
         active = (~state.done) & (t_next < INF_US)
         # conservative-DES lookahead window [t_next, t_next + latency_lo),
-        # collapsed to the instant t_next when chaos falls inside it
+        # collapsed to the instant t_next when chaos falls inside it (the
+        # straggler tail only lengthens latencies)
         lo_w = max(0, cfg.latency_lo_us - 1) if cfg.lookahead else 0
         w_end = torch.clamp(t_next, max=INF_US - lo_w - 1) + lo_w
         if lo_w and (
             cfg.any_crash_enabled or cfg.any_partition_enabled
-            or clog_on or spike_on
+            or clog_on or spike_on or reconf_on or disk_on
         ):
             w_end = torch.where(next_chaos <= w_end, t_next, w_end)
 
@@ -660,15 +807,36 @@ class BatchedSim:
         else:
             slot = torch.where(head, t_pend, INF_US).argmin(dim=2)
         pick_oh = self._slot_idx == slot[:, :, None]  # [L,N,CK]
-        m_src = (slot // self._SK).to(i32)  # slot n*SK+k belongs to node n
+        m_src = self._src_of_slot[slot]  # [L,N]
         m_kind = torch.gather(msgs.kind, 1, slot)
         m_pay = torch.gather(
             msgs.payload, 1, slot[:, :, None].expand(L, N, P)
         )
+        if self._B:
+            # a straggler beats the main pool only with a strictly earlier
+            # time (same-instant cross-pool ties go to the main pool); among
+            # a node's earliest stragglers the first slot wins
+            strag_win = has_msg & (tmsg_strag < tmsg_main)
+            s_slot = t_sn.argmin(dim=1)  # [L,N]
+            m_src = torch.where(strag_win, self._src_of_b[s_slot], m_src)
+            m_kind = torch.where(
+                strag_win, torch.gather(strag.kind, 1, s_slot), m_kind
+            )
+            m_pay = torch.where(
+                strag_win[:, :, None],
+                torch.gather(
+                    strag.payload, 1, s_slot[:, :, None].expand(L, N, P)
+                ),
+                m_pay,
+            )
+            consumed_main = has_msg & ~strag_win
+        else:
+            consumed_main = has_msg
         node_ids = torch.broadcast_to(narange, (L, N))
 
-        # -- 4. handlers + fused select (the three masks are disjoint)
+        # -- 4. handlers + state select (the masks are disjoint)
         any_crash = cfg.any_crash_enabled
+        wipe_mask = None
         if any_crash:
             chaos_due = active & (state.chaos_at <= t_next)
             is_restart_evt = state.crashed >= 0
@@ -694,37 +862,52 @@ class BatchedSim:
                 # `init`, its absolute time fields and first timer shifted
                 # to the restart instant (the wipe flag was drawn at crash
                 # time and rides nem.wipe through the down window)
-                ns_w, timer_w = spec.init(rkeys, narange)
-                timer_w = timer_w.to(i32)
-                w_ok = (timer_w >= 0) & (timer_w < INF_GUARD)
-                timer_w = torch.where(w_ok, timer_w + t_next[:, None], timer_w)
-                if spec.time_fields:
-                    ns_w = ns_w._replace(**{
-                        f: getattr(ns_w, f)
-                        + expand_to(t_next, getattr(ns_w, f))
-                        for f in spec.time_fields
-                    })
+                ns_w, timer_w = self._fresh(rkeys, t_next)
                 wipe_mask = restart_mask & nst.wipe[:, None]
-                ns_r = tree_select(wipe_mask, ns_w, ns_r)
+                ns_r = _tree_where(wipe_mask, ns_w, ns_r)
                 timer_r = torch.where(wipe_mask, timer_w, timer_r)
-        evt = has_msg | due_t
-        evt_kind = torch.where(has_msg, m_kind, -1)
-        ns_e, out_e, timer_e = spec.on_event(
-            node0, node_ids, m_src, evt_kind, m_pay, t_evt, mkeys
-        )
-        if any_crash:
-            node = tree_map(
-                lambda old, e, r: torch.where(
-                    expand_to(restart_mask, old), r,
-                    torch.where(expand_to(evt, old), e, old),
-                ),
-                node0, ns_e, ns_r,
+        if self._fused:
+            evt = has_msg | due_t
+            evt_kind = torch.where(has_msg, m_kind, -1)
+            ns_e, out_e, timer_e = spec.on_event(
+                node0, node_ids, m_src, evt_kind, m_pay, t_evt, mkeys
             )
+            if any_crash:
+                node = tree_map(
+                    lambda old, e, r: torch.where(
+                        expand_to(restart_mask, old), r,
+                        torch.where(expand_to(evt, old), e, old),
+                    ),
+                    node0, ns_e, ns_r,
+                )
+            else:
+                node = tree_map(
+                    lambda old, e: torch.where(expand_to(evt, old), e, old),
+                    node0, ns_e,
+                )
+            timer_m = timer_t = timer_e
         else:
-            node = tree_map(
-                lambda old, e: torch.where(expand_to(evt, old), e, old),
-                node0, ns_e,
+            # both handlers run for every node; a 3-way select keeps the
+            # one whose event fired (or the restart)
+            tkeys = prng.fold(node_key, 102)
+            ns_m, out_m, timer_m = spec.on_message(
+                node0, node_ids, m_src, m_kind, m_pay, t_evt, mkeys
             )
+            ns_t, out_t, timer_t = spec.on_timer(node0, node_ids, t_evt, tkeys)
+
+            def merge(old, m, t, r=None):
+                out = torch.where(
+                    expand_to(due_t, old), t,
+                    torch.where(expand_to(has_msg, old), m, old),
+                )
+                if r is not None:
+                    out = torch.where(expand_to(restart_mask, old), r, out)
+                return out
+
+            if any_crash:
+                node = tree_map(merge, node0, ns_m, ns_t, ns_r)
+            else:
+                node = tree_map(merge, node0, ns_m, ns_t)
         if cfg.nem_skew_enabled:
             # per-node clock skew: a handler's absolute deadline encodes a
             # delay from its own event time; stretch that delay by the
@@ -735,20 +918,28 @@ class BatchedSim:
                 ok = (deadline >= 0) & (deadline < INF_GUARD) & (d > 0)
                 return torch.where(ok, stretched, deadline)
 
-            timer_e = skew_deadline(timer_e, t_evt)
+            if self._fused:
+                timer_m = timer_t = skew_deadline(timer_e, t_evt)
+            else:
+                timer_m = skew_deadline(timer_m, t_evt)
+                timer_t = skew_deadline(timer_t, t_evt)
             if any_crash:
                 timer_r = skew_deadline(
                     timer_r, torch.broadcast_to(t_next[:, None], (L, N))
                 )
         # message events keep the deadline on a negative timer; timer
         # events disarm on one
-        timer = torch.where(has_msg & (timer_e >= 0), timer_e, state.timer)
+        timer = torch.where(has_msg & (timer_m >= 0), timer_m, state.timer)
         timer = torch.where(
-            due_t, torch.where(timer_e >= 0, timer_e, INF_US), timer
+            due_t, torch.where(timer_t >= 0, timer_t, INF_US), timer
         )
         if any_crash:
             timer = torch.where(restart_mask, timer_r, timer)
-        valid = valid & ~(pick_oh & has_msg[:, :, None])
+        # consume the delivered slot
+        valid = valid & ~(pick_oh & consumed_main[:, :, None])
+        if self._B:
+            s_oh = (self._sidx == s_slot[:, :, None]) & strag_win[:, :, None]
+            svalid = strag.valid & ~s_oh.any(dim=1)  # [L,B]
         clock = torch.where(
             active, torch.maximum(state.clock, t_evt.amax(dim=1)), state.clock
         )
@@ -805,6 +996,10 @@ class BatchedSim:
             )
             # in-flight messages to a crashed node are lost
             valid = valid & ~crash_mask[:, :, None]
+            if self._B:
+                svalid = svalid & ~(
+                    do_crash[:, None] & (strag.dst == victim[:, None])
+                )
 
         # -- 5b. partition chaos: random bipartition splits, later heals
         partitioned, part_at = state.partitioned, state.part_at
@@ -913,12 +1108,189 @@ class BatchedSim:
             )
             nem_spike_k = sk + do_unspike.to(i32)
 
+        # -- 5d. nemesis membership reconfiguration: a remove takes the
+        # schedule-drawn victim out of the cluster (member and alive bits
+        # cleared, in-flight messages to it lost); the paired join brings
+        # the same node back as a fresh replica rebuilt through spec.init.
+        # reconf_node doubles as the open/closed discriminator (-1: the
+        # next event is a remove)
+        member = None
+        member_epoch = state.member_epoch
+        nem_reconfig_at = nem_reconf_node = nem_reconfig_k = None
+        if reconf_on:
+            member = bitpack.unpack_bits(state.member_p, N)  # bool [L,N]
+            reconf_due = active & (nst.reconfig_at <= t_next)
+            do_remove = reconf_due & (nst.reconf_node < 0)
+            do_join = reconf_due & (nst.reconf_node >= 0)
+            rk = nst.reconfig_k
+            victim_d = prng.randint(
+                state.key0, NEM_SITE_RECONF_VICTIM, 0, N, index=rk
+            )
+            join_node = torch.clamp(nst.reconf_node, 0, N - 1)
+            remove_mask = do_remove[:, None] & (node_ids == victim_d[:, None])
+            join_mask = do_join[:, None] & (node_ids == join_node[:, None])
+            member = (member & ~remove_mask) | join_mask
+            # liveness and membership stay independent planes, but a
+            # remove also downs the node and a join revives it
+            alive = (alive & ~remove_mask) | join_mask
+            member_epoch = member_epoch + (do_remove | do_join).to(i32)
+            valid = valid & ~remove_mask[:, :, None]
+            if self._B:
+                svalid = svalid & ~(
+                    do_remove[:, None] & (strag.dst == victim_d[:, None])
+                )
+            ns_j, timer_j = self._fresh(
+                rkeys, t_next, nst.skew_ppm if cfg.nem_skew_enabled else None
+            )
+            node = _tree_where(join_mask, ns_j, node)
+            timer = torch.where(join_mask, timer_j, timer)
+            down_d = prng.randint(
+                state.key0, NEM_SITE_RECONF_DUR, cfg.nem_reconfig_down_lo_us,
+                cfg.nem_reconfig_down_hi_us, index=rk,
+            )
+            next_d = prng.randint(
+                state.key0, NEM_SITE_RECONF_IV,
+                cfg.nem_reconfig_interval_lo_us,
+                cfg.nem_reconfig_interval_hi_us, index=rk + 1,
+            )
+            nem_reconfig_at = torch.where(
+                do_remove, nst.reconfig_at + down_d,
+                torch.where(do_join, nst.reconfig_at + next_d,
+                            nst.reconfig_at),
+            )
+            nem_reconf_node = torch.where(
+                do_remove, victim_d,
+                torch.where(do_join, -1, nst.reconf_node),
+            )
+            nem_reconfig_k = rk + do_join.to(i32)
+
+        # durability watermark advance: re-snapshot the durable fields of
+        # every node whose sync counter rose this step. Done before the disk
+        # clause, so a spec that syncs before acking never loses an acked
+        # write to it, even when the sync and the crash land on one step
+        dur_mid = state.dur
+        if self._dur_state:
+            sf = spec.sync_field
+            dur_adv = getattr(node, sf) > getattr(node0, sf)  # [L,N]
+            dur_mid = _tree_where(dur_adv, self._dur_of(node), state.dur)
+
+        # -- 5e. nemesis disk-fault cycle (slow -> crash -> recover): the
+        # victim is killed at the crash and, at recovery, rebuilt from its
+        # durable watermark instead of live state. The victim and torn bit
+        # are pure draws at index disk_k, recomputed at every phase
+        drec_mask = None
+        unsynced_lost = None
+        nem_disk_at = nem_disk_phase = nem_disk_k = None
+        if disk_on:
+            disk_due = active & (nst.disk_at <= t_next)
+            dk = nst.disk_k
+            do_dslow = disk_due & (nst.disk_phase == 0)
+            do_dcrash = disk_due & (nst.disk_phase == 1)
+            do_drecover = disk_due & (nst.disk_phase == 2)
+            dvictim = prng.randint(
+                state.key0, NEM_SITE_DISK_VICTIM, 0, N, index=dk
+            )
+            if cfg.nem_disk_torn_rate > 0:
+                torn = (
+                    prng.bits(state.key0, NEM_SITE_DISK_TORN, index=dk)
+                    % COIN_DENOM
+                ) < round(cfg.nem_disk_torn_rate * COIN_DENOM)
+            else:
+                torn = torch.zeros_like(do_dslow)
+            dcrash_mask = do_dcrash[:, None] & (node_ids == dvictim[:, None])
+            drec_mask = do_drecover[:, None] & (node_ids == dvictim[:, None])
+            alive = (alive & ~dcrash_mask) | drec_mask
+            valid = valid & ~dcrash_mask[:, :, None]
+            if self._B:
+                svalid = svalid & ~(
+                    do_dcrash[:, None] & (strag.dst == dvictim[:, None])
+                )
+            # unsynced loss: the victim's durable fields differ from its
+            # watermark at the crash instant (without a durable contract
+            # the whole node state is unsynced)
+            if self._dur_state:
+                differs = torch.zeros_like(dcrash_mask)
+                for f in spec.durable_fields:
+                    d = getattr(dur_mid, f) != getattr(node, f)
+                    differs = differs | d.reshape(L, N, -1).any(dim=2)
+                unsynced_lost = (dcrash_mask & differs).any(dim=1).to(i32)
+            else:
+                unsynced_lost = do_dcrash.to(i32)
+            # recovery: a fresh init state with the durable fields replaced
+            # by the watermark, refined by spec.on_recover (which sees the
+            # torn bit); its timer is a delay from the recovery instant
+            ns_d, timer_d = spec.init(rkeys, narange)
+            if self._dur_state:
+                ns_d = ns_d._replace(**{
+                    f: getattr(dur_mid, f) for f in spec.durable_fields
+                })
+            if spec.on_recover is not None:
+                ns_d, timer_d = spec.on_recover(
+                    ns_d, node_ids, t_next, torn, rkeys
+                )
+            ns_d, timer_d = self._shift_fresh(
+                ns_d, timer_d, t_next,
+                nst.skew_ppm if cfg.nem_skew_enabled else None,
+            )
+            node = _tree_where(drec_mask, ns_d, node)
+            timer = torch.where(drec_mask, timer_d, timer)
+            slow_d = prng.randint(
+                state.key0, NEM_SITE_DISK_SLOW, cfg.nem_disk_slow_lo_us,
+                cfg.nem_disk_slow_hi_us, index=dk,
+            )
+            down_d = prng.randint(
+                state.key0, NEM_SITE_DISK_DOWN, cfg.nem_disk_down_lo_us,
+                cfg.nem_disk_down_hi_us, index=dk,
+            )
+            next_d = prng.randint(
+                state.key0, NEM_SITE_DISK_IV, cfg.nem_disk_interval_lo_us,
+                cfg.nem_disk_interval_hi_us, index=dk + 1,
+            )
+            nem_disk_at = torch.where(
+                do_dslow, nst.disk_at + slow_d,
+                torch.where(
+                    do_dcrash, nst.disk_at + down_d,
+                    torch.where(do_drecover, nst.disk_at + next_d,
+                                nst.disk_at),
+                ),
+            )
+            nem_disk_phase = torch.where(
+                do_dslow, 1,
+                torch.where(do_dcrash, 2,
+                            torch.where(do_drecover, 0, nst.disk_phase)),
+            ).to(i32)
+            nem_disk_k = dk + do_drecover.to(i32)
+
+        # durability watermark reset, the node now final: where wipe, join
+        # or disk-recover installed a fresh state, that state is the new
+        # on-disk truth. Reset targets are disjoint from advance targets
+        new_dur = dur_mid
+        if self._dur_state:
+            reset = drec_mask
+            if wipe_mask is not None:
+                reset = reset | wipe_mask
+            if reconf_on:
+                reset = reset | join_mask
+            new_dur = _tree_where(reset, self._dur_of(node), dur_mid)
+
         # -- 6. collect outboxes, roll the network, pack into the pool
-        E, SK, Cb = self._E_pack, self._SK, self._Cb
-        cand_valid = (out_e.valid & evt[:, :, None]).reshape(L, Cb)
-        cand_dst = torch.clamp(out_e.dst.reshape(L, Cb), 0, N - 1).long()
-        cand_kind = out_e.kind.reshape(L, Cb)
-        cand_pay = out_e.payload.reshape(L, Cb, P)
+        def flat(out, emitting, e):  # [L,N,e,...] -> [L, N*e, ...]
+            return (
+                (out.valid & emitting[:, :, None]).reshape(L, N * e),
+                out.dst.reshape(L, N * e),
+                out.kind.reshape(L, N * e),
+                out.payload.reshape(L, N * e, P),
+            )
+
+        if self._fused:
+            cand_valid, cd, cand_kind, cand_pay = flat(out_e, evt, spec.max_out)
+        else:
+            parts = (flat(out_m, has_msg, spec.max_out_msg),
+                     flat(out_t, due_t, spec.max_out))
+            cand_valid, cd, cand_kind, cand_pay = (
+                torch.cat(xs, dim=1) for xs in zip(*parts)
+            )
+        cand_dst = torch.clamp(cd, 0, N - 1).long()
         net_key = prng.fold(key, 105)[:, None]
         zl = torch.zeros((L,), dtype=i32, device=self.device)
         dup_fires = loss_drops = reorder_fires = zl
@@ -947,6 +1319,13 @@ class BatchedSim:
             max(cfg.latency_hi_us, cfg.latency_lo_us + 1), index=cidx,
         )
         keep = cand_valid & (u >= prng.f32(cfg.loss_rate))
+        nonmember_dropped = zl
+        if reconf_on:
+            # membership filter first, so the drop classes stay disjoint: a
+            # send to a removed node counts here, to a crashed member below
+            member_dst = torch.gather(member, 1, cand_dst)
+            nonmember_dropped = (keep & ~member_dst).sum(dim=1, dtype=i32)
+            keep = keep & member_dst
         # sends to dead nodes drop, counted apart from pool overflow
         alive_dst = torch.gather(alive, 1, cand_dst)
         dead_dropped = (keep & ~alive_dst).sum(dim=1, dtype=i32)
@@ -987,54 +1366,126 @@ class BatchedSim:
             lat = torch.where(
                 spiking[:, None], lat + cfg.nem_spike_extra_us, lat
             )
+        if self._B:
+            # the heavy-tail straggler coin: a surviving message sometimes
+            # takes seconds instead of milliseconds, and rides the side pool
+            bug = keep & prng.bernoulli(
+                net_key, 3, cfg.buggify_delay_rate, index=cidx
+            )
+            tail = prng.randint(
+                net_key, 4, cfg.buggify_delay_lo_us,
+                max(cfg.buggify_delay_hi_us, cfg.buggify_delay_lo_us + 1),
+                index=cidx,
+            )
+            lat = torch.where(bug, tail, lat)
+            send = keep & ~bug
+        else:
+            send = keep
         deliver_at = t_evt.index_select(1, self._src_of_c) + lat  # [L,C]
-        send = keep
+        # slots no destination references reset to INF_US (canonical state)
+        referenced = valid.any(dim=1)
+        old_deliver = torch.where(referenced, msgs.deliver, INF_US)
 
-        # node-pooled placement: the i-th send of node n takes the i-th
-        # free slot of n's SK-slot pool; a send ranked past the free count
-        # drops and counts as overflow
-        send_n = send.reshape(L, N, E)
-        free = (~valid.any(dim=1)).reshape(L, N, SK)
-        send_i = send_n.to(i32)
-        free_i = free.to(i32)
-        r_send = torch.cumsum(send_i, dim=-1, dtype=i32) - send_i  # exclusive
-        c_free = torch.cumsum(free_i, dim=-1, dtype=i32)
-        r_free = c_free - free_i
-        n_free = c_free[..., -1]
-        place = (
-            send_n[:, :, :, None]
-            & free[:, :, None, :]
-            & (r_send[:, :, :, None] == r_free[:, :, None, :])
-        )  # [L,N,E,SK]: at most one row per slot
-        ring_w = place.any(dim=2).reshape(L, CK)
-        overflow = state.overflow + (
-            send_n & (r_send >= n_free[:, :, None])
-        ).sum(dim=(1, 2), dtype=i32)
-        # the row that took each slot (0 where none; masked by ring_w)
-        row = (
-            place.to(i32) * torch.arange(E, dtype=i32, device=self.device)[:, None]
-        ).sum(dim=2, dtype=i32)  # [L,N,SK]
-        row_c = (row + (narange * E)[None, :, None]).reshape(L, CK).long()
+        if self._fused:
+            # node-pooled placement: the i-th send of node n takes the i-th
+            # free slot of n's SK-slot pool; a send ranked past the free
+            # count drops and counts as overflow
+            E, SK = self._E_pack, self._SK
+            send_n = send.reshape(L, N, E)
+            free = (~referenced).reshape(L, N, SK)
+            send_i = send_n.to(i32)
+            free_i = free.to(i32)
+            r_send = torch.cumsum(send_i, dim=-1, dtype=i32) - send_i
+            c_free = torch.cumsum(free_i, dim=-1, dtype=i32)
+            r_free = c_free - free_i
+            n_free = c_free[..., -1]
+            place = (
+                send_n[:, :, :, None]
+                & free[:, :, None, :]
+                & (r_send[:, :, :, None] == r_free[:, :, None, :])
+            )  # [L,N,E,SK]: at most one row per slot
+            ring_w = place.any(dim=2).reshape(L, CK)
+            overflow = state.overflow + (
+                send_n & (r_send >= n_free[:, :, None])
+            ).sum(dim=(1, 2), dtype=i32)
+            # the candidate that took each slot (masked by ring_w)
+            row = (
+                place.to(i32)
+                * torch.arange(E, dtype=i32, device=self.device)[:, None]
+            ).sum(dim=2, dtype=i32)  # [L,N,SK]
+            cand_of_slot = (row + (narange * E)[None, :, None]).reshape(
+                L, CK
+            ).long()
+
+            def to_slots(cand):
+                if cand.dim() == 2:
+                    return torch.gather(cand, 1, cand_of_slot)
+                return torch.gather(
+                    cand, 1, cand_of_slot[:, :, None].expand(L, CK, P)
+                )
+        else:
+            # per-candidate rings: a send takes the first of its K ring
+            # slots no destination still references; with all K pending it
+            # drops and counts as overflow (per depth segment)
+            ring_w_parts = []
+            ovf = zl
+            for c0, c1, K, s0, s1 in self._segs:
+                nc = c1 - c0
+                send_seg = send[:, c0:c1]
+                free = (~referenced[:, s0:s1]).reshape(L, nc, K)
+                ring_w_seg = send_seg[:, :, None] & _first_free(free, K)
+                ovf = ovf + (send_seg & ~ring_w_seg.any(dim=2)).sum(
+                    dim=1, dtype=i32
+                )
+                ring_w_parts.append(ring_w_seg.reshape(L, nc * K))
+            ring_w = (
+                ring_w_parts[0] if len(ring_w_parts) == 1
+                else torch.cat(ring_w_parts, dim=1)
+            )  # [L,CK]
+            overflow = state.overflow + ovf
+
+            def to_slots(cand):
+                return cand.index_select(1, self._cand_of_slot)
 
         def put(ring, cand):
             """Write each placed candidate's value into its slot."""
-            if cand.dim() == 2:
-                return torch.where(ring_w, torch.gather(cand, 1, row_c), ring)
-            inc = torch.gather(cand, 1, row_c[:, :, None].expand(L, CK, P))
-            return torch.where(ring_w[:, :, None], inc, ring)
+            return torch.where(expand_to(ring_w, ring), to_slots(cand), ring)
 
-        slot_dst = torch.gather(cand_dst, 1, row_c)  # [L,CK]
         written = ring_w[:, None, :] & (
-            slot_dst[:, None, :] == narange.long()[None, :, None]
-        )  # [L,N,CK]
-        referenced = valid.any(dim=1)
+            to_slots(cand_dst)[:, None, :] == narange.long()[None, :, None]
+        )  # [L,N,CK]: destination d references slot s
         new_valid = valid | written
-        # slots no destination references reset to INF_US (canonical state)
-        new_deliver = put(
-            torch.where(referenced, msgs.deliver, INF_US), deliver_at
-        )
+        new_deliver = put(old_deliver, deliver_at)
         new_kind = put(msgs.kind, cand_kind)
         new_payload = put(msgs.payload, cand_pay)
+
+        new_strag = None
+        if self._B:
+            # straggler pack: candidate c's tail send takes the first free
+            # of its K4 side-pool slots
+            K4, B = self._K4, self._B
+            sb = keep & bug  # [L,C]
+            splace = sb[:, :, None] & _first_free(
+                ~svalid.reshape(L, C, K4), K4
+            )
+            swritten = splace.reshape(L, B)
+            overflow = overflow + (sb & ~splace.any(dim=2)).sum(
+                dim=1, dtype=i32
+            )
+
+            def sput(pool, cand):
+                inc = cand.index_select(1, self._cand_of_b)
+                return torch.where(expand_to(swritten, pool), inc, pool)
+
+            new_strag = StragPool(
+                valid=svalid | swritten,
+                deliver=sput(
+                    torch.where(svalid, strag.deliver, INF_US), deliver_at
+                ),
+                dst=sput(strag.dst, cand_dst.to(i32)),
+                kind=sput(strag.kind, cand_kind),
+                payload=sput(strag.payload, cand_pay),
+            )
 
         # -- 6b. chaos fire counts
         cols = [zl] * len(FIRE_KINDS)
@@ -1050,6 +1501,13 @@ class BatchedSim:
             cols[FIRE_INDEX["clog"]] = do_clog.to(i32)
         if spike_on:
             cols[FIRE_INDEX["spike"]] = do_spike.to(i32)
+        if reconf_on:
+            cols[FIRE_INDEX["remove"]] = do_remove.to(i32)
+            cols[FIRE_INDEX["join"]] = do_join.to(i32)
+        if disk_on:
+            cols[FIRE_INDEX["disk_slow"]] = do_dslow.to(i32)
+            cols[FIRE_INDEX["disk_crash"]] = do_dcrash.to(i32)
+            cols[FIRE_INDEX["disk_recover"]] = do_drecover.to(i32)
         cols[FIRE_INDEX["loss"]] = loss_drops
         cols[FIRE_INDEX["dup"]] = dup_fires
         cols[FIRE_INDEX["reorder"]] = reorder_fires
@@ -1075,6 +1533,10 @@ class BatchedSim:
                 occ_mark(OCC_ROW["clog"], do_clog, nst.clog_k)
             if spike_on:
                 occ_mark(OCC_ROW["spike"], do_spike, nst.spike_k)
+            if reconf_on:
+                occ_mark(OCC_ROW["reconfig"], do_remove, nst.reconfig_k)
+            if disk_on:
+                occ_mark(OCC_ROW["disk"], do_dslow, nst.disk_k)
             occ_fired = torch.stack(ocols, dim=1)
 
         # -- 7. invariants + lane lifecycle
@@ -1107,6 +1569,8 @@ class BatchedSim:
         chaos_at = rb(chaos_at)
         part_at = rb(part_at)
         new_deliver = rb(new_deliver)
+        if new_strag is not None:
+            new_strag = new_strag._replace(deliver=rb(new_strag.deliver))
         new_nem = None
         if nst is not None:
             def pick(new, old):
@@ -1124,12 +1588,12 @@ class BatchedSim:
                 spike_at=rb(pick(nem_spike_at, nst.spike_at)),
                 spiking=pick(spiking, nst.spiking),
                 spike_k=pick(nem_spike_k, nst.spike_k),
-                reconfig_at=rb(nst.reconfig_at),
-                reconf_node=nst.reconf_node,
-                reconfig_k=nst.reconfig_k,
-                disk_at=rb(nst.disk_at),
-                disk_phase=nst.disk_phase,
-                disk_k=nst.disk_k,
+                reconfig_at=rb(pick(nem_reconfig_at, nst.reconfig_at)),
+                reconf_node=pick(nem_reconf_node, nst.reconf_node),
+                reconfig_k=pick(nem_reconfig_k, nst.reconfig_k),
+                disk_at=rb(pick(nem_disk_at, nst.disk_at)),
+                disk_phase=pick(nem_disk_phase, nst.disk_phase),
+                disk_k=pick(nem_disk_k, nst.disk_k),
                 skew_ppm=nst.skew_ppm,
             )
         if spec.time_fields:
@@ -1155,30 +1619,62 @@ class BatchedSim:
             + due_t.sum(dim=1, dtype=i32),
             overflow=overflow,
             dead_drops=state.dead_drops + dead_dropped,
-            nonmember_drops=state.nonmember_drops,
-            unsynced_loss=state.unsynced_loss,
+            nonmember_drops=state.nonmember_drops + nonmember_dropped,
+            unsynced_loss=(
+                state.unsynced_loss if unsynced_lost is None
+                else state.unsynced_loss + unsynced_lost
+            ),
             fires=fires,
             occ_fired=occ_fired,
             alive_p=bitpack.pack_bits(alive),
             crashed=crashed,
             chaos_at=chaos_at,
-            member_p=state.member_p,
-            member_epoch=state.member_epoch,
+            member_p=(
+                state.member_p if member is None else bitpack.pack_bits(member)
+            ),
+            member_epoch=member_epoch,
             link_ok_p=bitpack.pack_bits(link_ok),
             partitioned=partitioned,
             part_at=part_at,
             timer=timer,
             node=node,
-            dur=None,
+            dur=new_dur,
             msgs=MsgPool(
                 valid_p=bitpack.pack_bits(new_valid),
                 deliver=new_deliver,
                 kind=new_kind,
                 payload=new_payload,
             ),
-            strag=None, nem=new_nem, ctl=None, cov=None, lin=None,
+            strag=new_strag, nem=new_nem, ctl=None, cov=None, lin=None,
             queue=None, refill=None,
         )
+
+    def _fresh(self, rkeys, t_next, skew_ppm=None):
+        """A node rebuilt through `spec.init` at the instant t_next [L] (a
+        wipe-restart or a join), shifted as `_shift_fresh` does."""
+        ns, timer = self.spec.init(rkeys, self._narange)
+        return self._shift_fresh(ns, timer, t_next, skew_ppm)
+
+    def _shift_fresh(self, ns, timer, t_next, skew_ppm=None):
+        """Shift an init-style state (first timer relative) to the instant
+        t_next [L]: the timer and the spec's absolute time fields move by
+        t_next, and with `skew_ppm` [L,N] the timer's positive delay is
+        stretched by each node's ppm."""
+        timer = timer.to(torch.int32)
+        tn = t_next[:, None]
+        ok = (timer >= 0) & (timer < INF_GUARD)
+        timer = torch.where(ok, timer + tn, timer)
+        if skew_ppm is not None:
+            d = timer - tn
+            timer = torch.where(
+                ok & (d > 0), tn + scale_delay_ppm(d, skew_ppm), timer
+            )
+        if self.spec.time_fields:
+            ns = ns._replace(**{
+                f: getattr(ns, f) + expand_to(t_next, getattr(ns, f))
+                for f in self.spec.time_fields
+            })
+        return ns, timer
 
     # ------------------------------------------------------------------ run
 

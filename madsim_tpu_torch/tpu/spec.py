@@ -15,7 +15,17 @@ Handler contract:
         `kind == -1` means "your timer fired". On a message a negative
         next_timer keeps the current deadline; on a timer it disarms.
 
+    on_message(state, node_id, src, kind, payload, now_us, key)
+    on_timer(state, node_id, now_us, key)
+        -> (state', Outbox with [L,N,max_out_msg] / [L,N,max_out] leaves,
+            next_timer_us [L,N]); the engine runs these two (and merges
+            their states) only for specs without a fused `on_event`.
+
     on_restart(state, node_id, now_us [L], key) -> (state, first_timer_us)
+
+    on_recover(durable_state, node_id, now_us [L], torn [L], key)
+        -> (state', next_timer_us [L,N] relative to now_us); optional, the
+        disk clause's recovery hook for specs with `durable_fields`.
 
     check_invariants(state, alive [L,N], now_us [L]) -> ok [L] bool
 

@@ -15,10 +15,10 @@ outcomes for one tid) and vote respect (no node records COMMIT for a tid
 it voted NO on).
 
 One fused handler, every expression the JAX face's over explicit leading
-[L, N] axes (tests/test_torch_kv.py holds both faces equal). The JAX
-test's planted unilateral-abort bug replaces `on_timer` through
-`replace_handlers`, which clears the fused body: that two-handler path is
-refused until ROADMAP queue 1 item 4.
+[L, N] axes (tests/test_torch_kv.py holds both faces equal).
+`unilateral_abort_spec` is the planted participant of the repo's
+heavy-tail test (tests/test_buggify.py): it replaces `on_timer` through
+`replace_handlers`, so the engine runs it on the two-handler path.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ import torch
 
 from . import prng
 from .spec import (
-    Outbox, ProtocolSpec, RateFloor, SimConfig, bit, stack_fields,
-    wraps_event,
+    Outbox, ProtocolSpec, RateFloor, SimConfig, bit, replace_handlers,
+    stack_fields, wraps_event,
 )
 
 NONE, COMMIT, ABORT = 0, 1, 2
@@ -360,6 +360,45 @@ def make_twopc_spec(
             for f in ("tid_cur", "o_tid", "v_tid")
         },
     )
+
+
+def unilateral_abort_spec(n_nodes: int = 5) -> ProtocolSpec:
+    """The canonical wrong 2PC participant: when its in-doubt retry timer
+    fires for its newest vote, it records a local ABORT for the oldest
+    unresolved yes-vote instead of asking the coordinator (and sends no
+    DREQ). Safe under millisecond latencies; an OUTCOME riding the
+    heavy-tail straggler pool exposes it. The same handler, over [L, N]
+    axes, as tests/test_buggify.py's JAX spec."""
+    spec = make_twopc_spec(n_nodes)
+    inner = spec.on_timer
+    i32 = torch.int32
+
+    def on_timer(s: TpcState, nid, now, key):
+        state, out, timer = inner(s, nid, now, key)
+        voted_yes = (s.v_tid >= 0) & (s.v_val == COMMIT)
+        resolved = (s.v_tid == s.o_tid) & (s.o_tid >= 0)
+        doubt = voted_yes & ~resolved
+        dreq_tid = torch.where(doubt, s.v_tid, 2**30).amin(-1)
+        # only the newest vote counts as timed out (ring-recycled ancient
+        # doubts would fire it at any latency)
+        in_doubt = (nid != 0) & doubt.any(-1) & (
+            dreq_tid == s.v_tid.amax(-1)
+        )
+        TXN = s.o_tid.shape[-1]
+        at = torch.arange(TXN, dtype=i32, device=nid.device) == (
+            torch.remainder(dreq_tid, TXN)[..., None]
+        )
+        fresh = in_doubt & ~(at & (s.o_tid == dreq_tid[..., None])).any(-1)
+        w = at & fresh[..., None]
+        state = state._replace(
+            o_tid=torch.where(w, dreq_tid[..., None], state.o_tid),
+            o_val=torch.where(w, ABORT, state.o_val),
+        )
+        # suppress the DREQ it would have sent (participants only)
+        out = out._replace(valid=out.valid & ~in_doubt[..., None])
+        return state, out, timer
+
+    return replace_handlers(spec, on_timer=on_timer)
 
 
 def twopc_workload(

@@ -53,3 +53,47 @@ def test_card_run_matches_pinned_digest_and_cpu(cuda_device):
     )
     for k in cpu:
         np.testing.assert_array_equal(sub[k], cpu[k], err_msg=k)
+
+
+def _slice3_configs():
+    """(spec, config) of the third slice's paths: the two-handler
+    unilateral-abort 2PC participant under the 5% straggler tail, and the
+    buggy WAL under Reconfig + DiskFault."""
+    from madsim_tpu_torch import nemesis as nm
+    from madsim_tpu_torch.tpu import (
+        SimConfig, buggy_ack_before_fsync_spec, compile_plan,
+        unilateral_abort_spec,
+    )
+
+    plan = nm.FaultPlan(clauses=(
+        nm.Reconfig(interval_lo_us=300_000, interval_hi_us=900_000),
+        nm.DiskFault(interval_lo_us=300_000, interval_hi_us=900_000,
+                     torn_rate=0.5),
+    ))
+    return {
+        "two_handler_tail": (
+            unilateral_abort_spec(5),
+            SimConfig(horizon_us=10_000_000, loss_rate=0.0, msg_depth_msg=2,
+                      msg_depth_timer=2, buggify_delay_rate=0.05),
+        ),
+        "reconfig_disk": (
+            buggy_ack_before_fsync_spec(n_nodes=4),
+            compile_plan(plan, SimConfig(horizon_us=6_000_000,
+                                         msg_depth_msg=2,
+                                         msg_spare_slots=2)),
+        ),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["two_handler_tail", "reconfig_disk"])
+def test_third_slice_paths_card_equals_cpu(cuda_device, name):
+    spec, cfg = _slice3_configs()[name]
+    seeds = list(range(32))
+    card = state_to_numpy(
+        BatchedSim(spec, cfg, device=cuda_device).run(seeds, 300)
+    )
+    cpu = state_to_numpy(BatchedSim(spec, cfg, device="cpu").run(seeds, 300))
+    assert set(card) == set(cpu)
+    for k in cpu:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)

@@ -4,8 +4,9 @@ Full runs of the headline bench config and the `entry()` config to the end
 of their horizons (64 lanes, seeds 0..63), compared leaf for leaf with
 values widened to int64; `summarize` equal (float lane means at
 rtol=1e-6, their sums run in another order); the pinned digests; an epoch
-rebase from a shifted state; the argmin tie order; the early stop; and the
-configurations the port refuses.
+rebase from a shifted state; the argmin tie order; the early stop; the
+once-refused clauses and options, each run 40 steps leaf-equal; and the
+options the port still refuses.
 """
 
 import jax
@@ -210,29 +211,18 @@ REFUSED = [
     ("nem_disk", dict(nem_disk_interval_lo_us=1, nem_disk_interval_hi_us=10)),
     ("straggler pool", dict(buggify_delay_rate=0.01)),
 ]
-# the item-6 clauses are ported: those configs now run, leaf-equal to the
-# JAX engine; the rest stay refused with their ROADMAP item
-PORTED = {"nem_crash", "nem_partition", "nem_clog", "nem_spike", "nem_loss",
-          "nem_dup", "nem_reorder", "nem_skew"}
-REFUSED_ITEM = {"nem_reconfig": "item 8", "nem_disk": "item 8",
-                "straggler pool": "item 4"}
 
 
 @pytest.mark.parametrize("what,kw", REFUSED, ids=[r[0] for r in REFUSED])
 def test_construction_refuses_out_of_slice_config(what, kw):
-    """A config the port does not carry raises NotImplementedError naming
-    its ROADMAP item; a config of a clause the port now carries runs 40
-    steps leaf-equal to the JAX engine instead."""
+    """Every one of these clauses was once refused at construction; all are
+    ported now (items 4, 6 and 8), so each config runs 40 steps leaf-equal
+    to the JAX engine."""
     import dataclasses
 
     cfg = dataclasses.replace(raft_bench_config(1.0), **kw)
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
-    jsim = JaxSim(jax_raft_spec(5), jcfg)  # valid on the JAX face
-    if what not in PORTED:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1, {REFUSED_ITEM[what]}"):
-            BatchedSim(make_raft_spec(5), cfg, device="cpu")
-        return
+    jsim = JaxSim(jax_raft_spec(5), jcfg)
     sim = BatchedSim(make_raft_spec(5), cfg, device="cpu")
     jst = jsim.run(jnp.arange(8, dtype=jnp.uint32), max_steps=40,
                    dispatch_steps=40)
@@ -243,14 +233,26 @@ def test_construction_refuses_out_of_slice_config(what, kw):
 @pytest.mark.parametrize("opt", ["triage", "coverage", "lineage", "devloop",
                                  "two_handler"])
 def test_construction_refuses_out_of_slice_option(opt):
+    """The observability, triage and device-loop planes stay refused with
+    their ROADMAP item; a two-handler spec (once refused, item 4) runs 40
+    steps leaf-equal to the JAX engine."""
+    from madsim_tpu.tpu.spec import replace_handlers as jax_replace_handlers
     from madsim_tpu_torch.tpu.spec import replace_handlers
 
     spec, cfg = make_raft_spec(5), SimConfig(horizon_us=1_000_000)
     kw = {"device": "cpu"}
+    if opt == "two_handler":
+        jspec = jax_raft_spec(5)
+        jspec = jax_replace_handlers(jspec, on_message=jspec.on_message)
+        jst = JaxSim(jspec, JaxConfig(horizon_us=1_000_000)).run(
+            jnp.arange(8, dtype=jnp.uint32), max_steps=40, dispatch_steps=40)
+        spec = replace_handlers(spec, on_message=spec.on_message)
+        pst = BatchedSim(spec, cfg, **kw).run(
+            range(8), max_steps=40, dispatch_steps=40)
+        assert_leaves_equal(jax_leaves(jst), state_to_numpy(pst), opt)
+        return
     if opt == "devloop":
         kw.update(triage=True, coverage=True, devloop=object())
-    elif opt == "two_handler":
-        spec = replace_handlers(spec, on_message=spec.on_message)
     else:
         kw[opt] = True
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

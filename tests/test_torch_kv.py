@@ -5,17 +5,18 @@ twopc_workload() and kv_workload() configs run leaf-equal to the JAX engine
 at 16 lanes; their GOLDEN digests under CHAOS_PLAN are reproduced on the
 port; kv's planted stale-read bug fires on the same lanes at the same steps
 on both faces (cut from the JAX test's 256 lanes x 80000 steps to 16 lanes
-x 600 steps) while the correct build stays silent; 2PC's planted bug needs
-the two-handler path, which the port refuses until ROADMAP queue 1 item 4;
-and `linearize` gives the original's verdicts on the same histories.
+x 600 steps) while the correct build stays silent; 2PC's planted
+impatient-timer bug runs on the two-handler path and fires on the same
+lanes at the same steps; and `linearize` gives the original's verdicts on
+the same histories.
 """
 
 import collections
 
+import jax.numpy as jnp
 import pytest
 import torch
 
-from madsim_tpu.tpu import BatchedSim as JaxSim
 from madsim_tpu.tpu import SimConfig as JaxConfig
 from madsim_tpu.tpu import linearize as jax_linearize
 from madsim_tpu.tpu import summarize as jax_summarize
@@ -94,13 +95,35 @@ def test_kv_stale_read_bug_fires_on_the_same_lanes():
 
 
 def test_twopc_planted_bug_waits_for_the_two_handler_path():
-    """The JAX test plants the unilateral-abort bug by replacing on_timer
-    (replace_handlers clears the fused on_event). The JAX face runs that
-    two-handler spec; the port refuses it, naming item 4, rather than run
-    a hand-fused variant whose trajectory would differ."""
+    """The JAX test plants the impatient-timer bug (an in-doubt participant
+    flips a coin and unilaterally aborts) by replacing on_timer;
+    replace_handlers clears the fused on_event, so both faces run it on the
+    two-handler path. Under the test's full-chaos config (the JAX test's
+    256 lanes x 60000 steps cut to 16 lanes x 300 steps) the port is
+    leaf-equal and violates on the same lanes at the same steps."""
+    from madsim_tpu.tpu import prng as jprng
+    from madsim_tpu.tpu import twopc as jtpc
+
     jspec = jax_twopc_spec(5)
-    JaxSim(jax_replace_handlers(jspec, on_timer=jspec.on_timer),
-           JaxConfig(horizon_us=1_000_000, msg_capacity=128))
+
+    def jax_impatient_timer(s, nid, now, key):
+        state, out, timer = jspec.on_timer(s, nid, now, key)
+        voted_yes = (s.v_tid >= 0) & (s.v_val == jtpc.COMMIT)
+        resolved = (
+            (s.v_tid[:, None] == s.o_tid[None, :]) & (s.o_tid[None, :] >= 0)
+        ).any(-1)
+        doubt = voted_yes & ~resolved
+        tid = jnp.where(doubt, s.v_tid, jnp.int32(2**30)).min()
+        give_up = (nid != 0) & doubt.any() & (jprng.uniform(key, 77) < 0.5)
+        at = jnp.arange(s.o_tid.shape[0], dtype=jnp.int32) == (
+            tid % s.o_tid.shape[0]
+        )
+        state = state._replace(
+            o_tid=jnp.where(give_up & at, tid, state.o_tid),
+            o_val=jnp.where(give_up & at, jtpc.ABORT, state.o_val),
+        )
+        return state, out, timer
+
     spec = make_twopc_spec(5)
 
     def impatient_timer(s, nid, now, key):
@@ -123,9 +146,22 @@ def test_twopc_planted_bug_waits_for_the_two_handler_path():
 
     buggy = replace_handlers(spec, on_timer=impatient_timer)
     assert buggy.on_event is None
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        BatchedSim(buggy, SimConfig(horizon_us=1_000_000, msg_capacity=128),
-                   device="cpu")
+    full_chaos = dict(
+        horizon_us=8_000_000, msg_capacity=128, loss_rate=0.1,
+        crash_interval_lo_us=400_000, crash_interval_hi_us=2_000_000,
+        restart_delay_lo_us=200_000, restart_delay_hi_us=1_000_000,
+        partition_interval_lo_us=400_000, partition_interval_hi_us=1_500_000,
+        partition_heal_lo_us=300_000, partition_heal_hi_us=1_200_000,
+    )
+    jst, pst = run_both(
+        jax_replace_handlers(jspec, on_timer=jax_impatient_timer),
+        JaxConfig(**full_chaos), buggy, SimConfig(**full_chaos),
+        list(range(16)), 300,
+    )
+    want, got = jax_leaves(jst), state_to_numpy(pst)
+    assert_leaves_equal(want, got, "twopc impatient timer")
+    assert violations(got) == violations(want)
+    assert len(violations(got)) >= 1
 
 
 # ----------------------------------------------------------- linearize

@@ -5,7 +5,7 @@ The copied clause vocabulary and validation, `compile_plan` (byte-equal
 plan), `scale_delay_ppm` on edge values, the float32 rate coins, Raft under
 the golden-digest CHAOS_PLAN and under the storm plan leaf-equal to the JAX
 engine (`nem.*` and `occ_fired` included) at 16 lanes, the Raft GOLDEN
-digest, and the clauses the port still refuses.
+digest, and the Reconfig and DiskFault clauses leaf-equal.
 """
 
 import dataclasses
@@ -237,20 +237,35 @@ def test_golden_digest_raft():
 
 
 ITEM8 = [
-    ("reconfig", lambda m: m.Reconfig()),
-    ("disk", lambda m: m.DiskFault()),
+    ("reconfig", lambda m: m.Reconfig(
+        interval_lo_us=200_000, interval_hi_us=600_000,
+        down_lo_us=100_000, down_hi_us=300_000)),
+    ("disk", lambda m: m.DiskFault(
+        interval_lo_us=200_000, interval_hi_us=600_000,
+        slow_lo_us=50_000, slow_hi_us=100_000,
+        down_lo_us=100_000, down_hi_us=300_000, torn_rate=0.5)),
 ]
 
 
 @pytest.mark.parametrize("name,clause", ITEM8, ids=[c[0] for c in ITEM8])
 def test_item8_clauses_still_refused(name, clause):
+    """The Reconfig and DiskFault clauses, once refused (item 8), each run
+    Raft leaf-equal to the JAX engine (16 lanes x 300 steps, `nem.*`
+    included), and every kind the clause enables fires."""
     tcfg = ttn.compile_plan(tn.FaultPlan(clauses=(clause(tn),)),
-                            SimConfig(horizon_us=1_000_000))
-    JaxSim(jax_raft_spec(5), jtn.compile_plan(
-        jn.FaultPlan(clauses=(clause(jn),)),
-        JaxConfig(horizon_us=1_000_000)))  # valid on the JAX face
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        BatchedSim(make_raft_spec(5), tcfg, device="cpu")
+                            SimConfig(horizon_us=5_000_000))
+    jcfg = jtn.compile_plan(jn.FaultPlan(clauses=(clause(jn),)),
+                            JaxConfig(horizon_us=5_000_000))
+    assert tcfg.to_toml() == jcfg.to_toml()
+    jst = JaxSim(jax_raft_spec(5), jcfg).run(
+        jnp.arange(16, dtype=jnp.uint32), max_steps=300, dispatch_steps=300)
+    pst = BatchedSim(make_raft_spec(5), tcfg, device="cpu").run(
+        range(16), max_steps=300, dispatch_steps=300)
+    got = state_to_numpy(pst)
+    assert_leaves_equal(jax_leaves(jst), got, name)
+    fires = dict(zip(tn.FIRE_KINDS, got["fires"].sum(0)))
+    for kind in ttn.enabled_fire_kinds(tcfg):
+        assert fires[kind] > 0, (kind, fires)
 
 
 def test_epoch_rebase_under_the_storm_plan():
