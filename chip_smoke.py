@@ -6,8 +6,9 @@ Run from the repo root on a machine with one CUDA card:
 
 It drives the port's main path — the 5-node Raft fuzz sweep through
 `BatchedSim.run` and `summarize`, then FaultPlan chaos, the four other
-workloads, and the membership, durability and straggler paths with their
-workloads — and checks it, in nine phases:
+workloads, the membership, durability and straggler paths with their
+workloads, and the triage path (trace, shrink, replay) — and checks it, in
+ten phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -22,10 +23,12 @@ workloads — and checks it, in nine phases:
    seconds, max_steps 8000: a warm-up, then the median of 3 fresh-seed
    reps (seeds/s, events/s, step ms), and seeds 0..63 of the warm-up equal
    per seed to phase 2's 64-lane run;
-5. profile: torch.profiler over 20 steady steps at 32768 lanes — kernels
-   launched per step, device idle share, top device kernels — and the
-   same steps with and without deterministic mode's uninitialized-memory
-   fills, leaves equal; phases 6-9 then run without the fills;
+5. profile, in a child process (a profiler session slows its process's
+   later steps): torch.profiler over 20 steady steps at 32768 lanes —
+   kernels launched per step, device idle share, top device kernels — and
+   the same steps with and without deterministic mode's
+   uninitialized-memory fills, leaves equal; phases 6-10 then run without
+   the fills;
 6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
    its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
    canonical digest must equal the JAX package's GOLDEN value; the Raft
@@ -38,27 +41,39 @@ workloads — and checks it, in nine phases:
    0..63 must equal a 64-lane run of the same config per seed in every
    leaf but `key` (a done lane's key advances while any lane of its batch
    runs);
-8. workloads: paxos, chain (8192 lanes), kv and twopc (32768 lanes) at
-   their factories' defaults, 10 virtual seconds (cut when a probed step
-   time says the phase would overrun what is left of the script's time
-   target after phase 9; the cut is printed), one timed run each; kv's
-   exact linearizability check runs over lanes 0..127 and its counts are
-   printed;
-9. membership, durability and the straggler tail (run before phase 8, so
-   phase 8 absorbs any horizon cut): `isr_workload` and `lease_workload`
-   (10 virtual s), `wal_workload` (8 virtual s) and the two-handler
-   unilateral-abort 2PC participant under the quiet config with a 5%
-   heavy tail (10 virtual s), each at 32768 lanes, correct and buggy, one
-   timed run each (a horizon is cut, never below half, when a probed step
-   time says the runs would pass PHASE9_END_S; the cut is printed). The
-   correct builds never violate, every enabled fire
+8. workloads (run last, so they absorb the horizon cuts): paxos, chain
+   (8192 lanes), kv and twopc (32768 lanes) at their factories' defaults,
+   10 virtual seconds (cut when a probed step time says the phase would
+   overrun what is left of the script's time target; the cut is printed),
+   one timed run each; kv's exact linearizability check runs over lanes
+   0..127 and its counts are printed;
+9. membership, durability and the straggler tail: `isr_workload` and
+   `lease_workload` (buggy 10 virtual s, correct 5), `wal_workload` (buggy
+   8, correct 4) and the two-handler unilateral-abort 2PC participant
+   under the quiet config with a 5% heavy tail (10 virtual s), each at
+   32768 lanes, correct and buggy, one timed run each (a horizon is cut,
+   never below half, when a probed step time says the runs would pass
+   PHASE9_END_S; the cut is printed). The correct builds never violate,
+   every enabled fire
    kind fires and stragglers ride the side pool, each planted bug fires on
    at least the share of lanes its JAX test demands (isr > 64/128, lease >
    16/128, wal >= 8/256, twopc > 0), every violating wal lane lost
    unsynced state, and seeds 0..63 of the buggy 2PC run equal a 64-lane
    card run in every leaf but `key`. Then a 64-lane two-handler Raft run at
    unequal ring depths and a 64-lane Raft run under Reconfig + DiskFault
-   (crash-wipe, skew and the tail composed in) are leaf-equal card/CPU.
+   (crash-wipe, skew and the tail composed in) are leaf-equal card/CPU;
+10. triage (after phase 9, before phase 8): the planted deposed-leader
+   re-stamp Raft under Crash + Partition (`triage_workload`, 5 virtual s)
+   through `run_batch(range(24), ..., max_traces=1,
+   shrink_on_violation=True)`. The first violating seed is traced (its
+   final state equals its batch lane in every leaf but `key`, its
+   TraceRecord stream equals the CPU's leaf for leaf, and its events end
+   in VIOLATION at the lane's violation step), shrunk in at most 10
+   batched dispatches into a bundle whose digest is
+   `digest.PINNED_BUNDLE`, replayed twice by `repro.replay_device` at the
+   bundle's step and time, and its shrunk plan passes the twin schedule
+   check under the bundle's ctl. A triage sim under the default ctl
+   reproduces phase 2's bench run leaf for leaf (ctl aside).
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -87,6 +102,8 @@ LANES = 32768
 SEEDS_SMALL = 64
 MAX_STEPS = 8000
 PROFILE_STEPS = 20
+# the argument that runs phase 5's profile as a child process
+PROFILE_FLAG = "--phase5-profile"
 PHASE4_BUDGET_S = 300.0
 STORM_LANES = 32768
 PHASE7_BUDGET_S = 60.0
@@ -98,13 +115,15 @@ WORKLOADS = (
     ("kv", 32768, 14_000),
     ("twopc", 32768, 18_000),
 )
-# phase 9: (workload, lanes, virtual seconds); every run takes both the
-# correct and the buggy build
+# phase 9: (workload, lanes, virtual seconds of the correct build, of the
+# buggy build). The correct isr, lease and wal builds run half the buggy
+# horizon, to make room for phase 10; their checks (no violation, every
+# enabled kind fires) hold there
 MEMBERSHIP = (
-    ("isr", 32768, 10.0),
-    ("lease", 32768, 10.0),
-    ("wal", 32768, 8.0),
-    ("twopc_tail", 32768, 10.0),
+    ("isr", 32768, 5.0, 10.0),
+    ("lease", 32768, 5.0, 10.0),
+    ("wal", 32768, 4.0, 8.0),
+    ("twopc_tail", 32768, 10.0, 10.0),
 )
 # the share of lanes each planted bug must violate on (its JAX test's
 # demand: isr > 64/128, lease > 16/128, wal >= 8/256, twopc > 0), and
@@ -112,18 +131,25 @@ MEMBERSHIP = (
 BUG_SHARE = {"isr": (64 / 128, False), "lease": (16 / 128, False),
              "wal": (8 / 256, True), "twopc_tail": (0.0, False)}
 PHASE9_MAX_STEPS = 40_000
-# steps of each phase-9 run at its full horizon (the longest lane of
-# 32768; chip_smoke.py runs 1-2 of PR 3), to estimate its wall from a
-# probed step time
+# steps of each phase-9 run at its MEMBERSHIP horizon (the longest lane of
+# 32768, measured by this script on an H100 at the full horizons; for the
+# halved correct builds, half that count, an estimate), to estimate its
+# wall from a probed step time
 PHASE9_STEPS = {
-    "isr_correct": 3596, "isr_buggy": 2819,
-    "lease_correct": 2251, "lease_buggy": 2251,
-    "wal_correct": 2387, "wal_buggy": 2387,
+    "isr_correct": 1798, "isr_buggy": 2819,
+    "lease_correct": 1126, "lease_buggy": 2251,
+    "wal_correct": 1194, "wal_buggy": 2387,
     "twopc_tail_correct": 2071, "twopc_tail_buggy": 2087,
 }
 # phase 9's runs must end by then (its two 64-lane card/CPU parity runs
-# follow); phase 8 then gets what is left of TARGET_S
-PHASE9_END_S = 960.0
+# and phase 10's at most PHASE10_BUDGET_S follow); phase 8 then gets what
+# is left of TARGET_S
+PHASE10_BUDGET_S = 200.0
+PHASE9_END_S = 960.0 - PHASE10_BUDGET_S
+# phase 10: the triage sweep's seeds, and the spec reference its bundle
+# carries (resolved from the repo root by repro.resolve_spec)
+TRIAGE_SEEDS = 24
+TRIAGE_SPEC_REF = "chip_smoke:planted_restamp_spec"
 # the buggy run whose seeds 0..63 are held against a 64-lane run (the
 # two-handler path and the straggler pool; one such run fits the time)
 PHASE9_INDEPENDENCE = "twopc_tail"
@@ -190,6 +216,52 @@ def storm_plan():
         nm.LatencySpike(),
         nm.MsgLoss(rate=0.05),
     ))
+
+
+def planted_restamp_spec():
+    """Raft with the deposed-leader re-stamp bug planted
+    (tests/test_triage.py:40-57, over the port's [L, N] axes): a deposed
+    leader re-stamps its stale log tail with the newly adopted term, so
+    committed prefixes disagree under elections that chaos forces."""
+    from madsim_tpu_torch.tpu import make_raft_spec
+    from madsim_tpu_torch.tpu.raft import LEADER
+    from madsim_tpu_torch.tpu.spec import replace_handlers
+
+    spec = make_raft_spec(5, client_rate=0.8)
+
+    def buggy_on_message(s, nid, src, kind, payload, now, key):
+        state, out, timer = spec.on_message(s, nid, src, kind, payload, now,
+                                            key)
+        deposed = (s.role == LEADER) & (state.role != LEADER)
+        log_idx = torch.arange(s.log_term.shape[-1], dtype=torch.int32,
+                               device=s.log_term.device)
+        in_log = log_idx < state.log_len[..., None]
+        log_term = torch.where(deposed[..., None] & in_log,
+                               state.term[..., None], state.log_term)
+        return state._replace(log_term=log_term), out, timer
+
+    return replace_handlers(spec, on_message=buggy_on_message)
+
+
+def triage_workload():
+    """The planted re-stamp Raft under Crash + Partition (the schedule
+    clauses of tests/test_triage.py:64-70) over a 5-virtual-second config
+    without base loss: the shrinker has real occurrence atoms to drop."""
+    import dataclasses
+
+    from madsim_tpu_torch import nemesis as nm
+    from madsim_tpu_torch.tpu import SimConfig, compile_plan, raft_workload
+
+    plan = nm.FaultPlan(name="sched-only", clauses=(
+        nm.Crash(interval_lo_us=400_000, interval_hi_us=1_500_000,
+                 down_lo_us=300_000, down_hi_us=1_000_000),
+        nm.Partition(interval_lo_us=300_000, interval_hi_us=1_200_000,
+                     heal_lo_us=400_000, heal_hi_us=1_500_000),
+    ))
+    cfg = compile_plan(plan, SimConfig(horizon_us=5_000_000, loss_rate=0.0))
+    return dataclasses.replace(
+        raft_workload(spec=planted_restamp_spec()), config=cfg
+    )
 
 
 def timed_run(sim, seeds, max_steps):
@@ -390,13 +462,77 @@ def main() -> dict:
              f"log_saturated_lanes {head['log_saturated_lanes']}, peak "
              f"{peak_gib:.2f} GiB; {indep}")
 
-    # -- 5. profile over steady steps
+    # -- 5. profile over steady steps, in a child process: a CUDA profiler
+    # session leaves its process's later host steps slower (PERF.md,
+    # section 5), so the process that profiles is not the one that runs
+    # phases 6-10
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), PROFILE_FLAG,
+         str(virtual_secs), str(head["step_ms"])],
+        capture_output=True, text=True, timeout=900,
+    )
+    check(child.returncode == 0,
+          f"phase 5's profiling process failed: {child.stderr[-3000:]}")
+    prof_out = json.loads(child.stdout.strip().splitlines()[-1])
+    if prof_out["kernels_per_step"] is not None:
+        phase(5, f"profile {PROFILE_STEPS} steps at {LANES} lanes: "
+                 f"{prof_out['kernels_per_step']:.0f} kernels/step "
+                 f"({prof_out['launch_calls_per_step']:.0f} launch calls), "
+                 f"device busy {prof_out['device_busy_ms_per_step']:.3f} "
+                 f"ms/step; idle share {prof_out['idle_share']:.3f} of the "
+                 f"profiled {prof_out['window_ms'] / PROFILE_STEPS:.3f} "
+                 f"ms/step, {prof_out['idle_share_unprofiled']:.3f} of phase "
+                 f"4's {head['step_ms']:.3f} ms/step")
+        for i, k in enumerate(prof_out["top"]):
+            print(f"  top{i + 1}: {k['ms_per_step']:.4f} ms/step "
+                  f"x{k['count_per_step']:.0f} {k['name'][:90]}", flush=True)
+    else:
+        phase(5, f"profile: torch.profiler recorded no device events; "
+                 f"step {prof_out['window_ms'] / PROFILE_STEPS:.3f} ms by "
+                 f"host clock, {prof_out['launch_calls_per_step']:.0f} "
+                 "launch calls/step; device kernels and idle share not "
+                 "measured")
+    on, off = prof_out["fill_on"], prof_out["fill_off"]
+    phase(5, f"uninitialized-memory fills on: {on['launch_calls_per_step']} "
+             f"launches, {on['step_ms']:.3f} ms/step; off: "
+             f"{off['launch_calls_per_step']} launches, {off['step_ms']:.3f} "
+             f"ms/step; leaves equal after {PROFILE_STEPS + 1} steps")
+    # the later phases run without the fills (their card/CPU and digest
+    # checks would still catch a read of uninitialized memory): the
+    # script must fit the card run's time limit
+    import torch.utils.deterministic as tdet
+
+    tdet.fill_uninitialized_memory = False
+    phase(5, "phases 6-10 run with uninitialized-memory fills off")
+    report["profile"] = prof_out
+    report["golden"] = phase6_golden(cuda)
+    report["storm"] = phase7_storm(cuda)
+    report["membership"] = phase9_membership(cuda)
+    report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
+    report["workloads"] = phase8_workloads(cuda)
+    report["total_s"] = time.perf_counter() - T_START
+    return report
+
+
+def phase5_profile(virtual_secs: float, head_step_ms: float) -> dict:
+    """Phase 5's measurements (run as a child process of the script):
+    torch.profiler over PROFILE_STEPS steady steps of the headline sweep —
+    kernels per step, device busy time, idle share, top kernels — and the
+    same steps with and without deterministic mode's uninitialized-memory
+    fills, leaves equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch.utils.deterministic as tdet
+    from madsim_tpu_torch.tpu import BatchedSim
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
+
+    sim = BatchedSim(make_raft_spec(5, client_rate=0.1, log_capacity=16),
+                     raft_bench_config(virtual_secs), device=CARD)
     st = sim.init(range(LANES))
     for _ in range(200):
         st = sim.step(st)
     torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -414,7 +550,8 @@ def main() -> dict:
     launch_calls = sum(1 for e in prof.events()
                        if e.name.startswith("cudaLaunch"))
     prof_out = {"window_ms": window_us / 1e3, "steps": PROFILE_STEPS,
-                "launch_calls_per_step": launch_calls / PROFILE_STEPS}
+                "launch_calls_per_step": launch_calls / PROFILE_STEPS,
+                "kernels_per_step": None}
     if kernels:
         spans = sorted((e.time_range.start, e.time_range.end)
                        for e in dev_events)
@@ -439,35 +576,16 @@ def main() -> dict:
             # the profiler slows the host; the unprofiled share compares
             # the same device time with phase 4's step time
             "idle_share": 1.0 - busy / window_us,
-            "idle_share_unprofiled": 1.0 - busy_ms / head["step_ms"],
+            "idle_share_unprofiled": 1.0 - busy_ms / head_step_ms,
             "top": [{"name": n[:120], "ms_per_step": t / PROFILE_STEPS / 1e3,
                      "count_per_step": c / PROFILE_STEPS}
                     for n, (t, c) in top],
         }
-        phase(5, f"profile {PROFILE_STEPS} steps at {LANES} lanes: "
-                 f"{prof_out['kernels_per_step']:.0f} kernels/step "
-                 f"({prof_out['launch_calls_per_step']:.0f} launch calls), "
-                 f"device busy {busy_ms:.3f} ms/step; idle share "
-                 f"{prof_out['idle_share']:.3f} of the profiled "
-                 f"{window_us / PROFILE_STEPS / 1e3:.3f} ms/step, "
-                 f"{prof_out['idle_share_unprofiled']:.3f} of phase 4's "
-                 f"{head['step_ms']:.3f} ms/step")
-        for i, k in enumerate(prof_out["top"]):
-            print(f"  top{i + 1}: {k['ms_per_step']:.4f} ms/step "
-                  f"x{k['count_per_step']:.0f} {k['name'][:90]}", flush=True)
-    else:
-        prof_out["kernels_per_step"] = None
-        phase(5, f"profile: torch.profiler recorded no device events; "
-                 f"step {window_us / PROFILE_STEPS / 1e3:.3f} ms by host "
-                 f"clock, {prof_out['launch_calls_per_step']:.0f} launch "
-                 "calls/step; device kernels and idle share not measured")
 
     # deterministic mode also fills every fresh uninitialized allocation
     # (torch.utils.deterministic.fill_uninitialized_memory); the step
     # writes all of every output it allocates, so the fills change no
     # result: measure the same steps with and without them
-    import torch.utils.deterministic as tdet
-
     def timed(state, fill: bool):
         tdet.fill_uninitialized_memory = fill
         try:
@@ -493,23 +611,7 @@ def main() -> dict:
                            "step_ms": ms_fill}
     prof_out["fill_off"] = {"launch_calls_per_step": launches_nofill,
                             "step_ms": ms_nofill}
-    phase(5, f"uninitialized-memory fills on: {launches_fill} launches, "
-             f"{ms_fill:.3f} ms/step; off: {launches_nofill} launches, "
-             f"{ms_nofill:.3f} ms/step; leaves equal after "
-             f"{PROFILE_STEPS + 1} steps")
-    # the later phases run without the fills (their card/CPU and digest
-    # checks would still catch a read of uninitialized memory): the
-    # script must fit the card run's time limit
-    tdet.fill_uninitialized_memory = False
-    phase(5, "phases 6-9 run with uninitialized-memory fills off")
-    report["profile"] = prof_out
-    del st, a, b
-    report["golden"] = phase6_golden(cuda)
-    report["storm"] = phase7_storm(cuda)
-    report["membership"] = phase9_membership(cuda)
-    report["workloads"] = phase8_workloads(cuda)
-    report["total_s"] = time.perf_counter() - T_START
-    return report
+    return prof_out
 
 
 def phase6_golden(cuda) -> dict:
@@ -720,8 +822,9 @@ def phase9_membership(cuda) -> dict:
     from madsim_tpu_torch.tpu.nemesis import enabled_fire_kinds
 
     out = {}
-    runs = [(name, lanes, secs, buggy) for name, lanes, secs in MEMBERSHIP
-            for buggy in (False, True)]
+    runs = [(name, lanes, secs, buggy)
+            for name, lanes, *horizons in MEMBERSHIP
+            for buggy, secs in zip((False, True), horizons)]
     for i, (name, lanes, full_secs, buggy) in enumerate(runs):
         tag = f"{name}_{'buggy' if buggy else 'correct'}"
         virtual_secs = full_secs
@@ -882,7 +985,211 @@ def phase9_parity(cuda) -> dict:
     return out
 
 
+def phase10_triage(cuda, bench64: dict, card: str) -> dict:
+    """The triage path on the card: sweep, trace, shrink, replay, twin
+    check; and the default ctl against phase 2's bench run. Its summary
+    line names the card (`card`, as nvidia-smi reports it)."""
+    import re
+    import shutil
+    import tempfile
+
+    from madsim_tpu_torch import repro
+    from madsim_tpu_torch.tpu import BatchedSim, run_batch
+    from madsim_tpu_torch.tpu import nemesis as ttn
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.digest import (
+        PINNED, PINNED_BUNDLE, bundle_digest, canonical_digest, pinned_run,
+    )
+    from madsim_tpu_torch.tpu.engine import (
+        DONE_CHECK_STEPS, IDLE_BLOCK_STEPS_DEFAULT, TraceRecord,
+    )
+    from madsim_tpu_torch.tpu.trace import extract_trace
+
+    t_phase = time.perf_counter()
+    wl = triage_workload()
+
+    def timed_calls(sim, name, calls):
+        """Wrap sim.<name> to record (result, wall seconds) of each call."""
+        inner = getattr(sim, name)
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append((out, time.perf_counter() - t0))
+            return out
+
+        setattr(sim, name, wrapped)
+
+    # the sweep's and the shrinker's sims, pre-built so the trace leg's
+    # (state, records) and the shrink's batched dispatches (its run calls;
+    # its traced tail steps without run) can be read and timed
+    sim = BatchedSim(wl.spec, wl.config, device=cuda)
+    tsim = BatchedSim(wl.spec, wl.config, triage=True, device=cuda)
+    traced, dispatched = [], []
+    timed_calls(sim, "run_traced", traced)
+    timed_calls(tsim, "run", dispatched)
+    log = []
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_bundles-")
+    try:
+        # -- 1. sweep, shrink and trace through the user's entry point
+        t0 = time.perf_counter()
+        result = run_batch(
+            range(TRIAGE_SEEDS), wl, sim=sim, max_traces=1,
+            shrink_on_violation=True, shrink_kwargs={
+                "out_dir": out_dir, "spec_ref": TRIAGE_SPEC_REF, "sim": tsim,
+                "log": lambda m: log.append((time.perf_counter(), m)),
+            },
+        )
+        torch.cuda.synchronize()
+        batch_wall = time.perf_counter() - t0
+        check(result.bundle is not None,
+              f"triage: the shrink did not produce a bundle ({log})")
+        seed = result.violating_seeds[0]
+        check(seed == PINNED_BUNDLE[0],
+              f"triage: first violating seed {seed} != {PINNED_BUNDLE[0]}")
+        lane = int(np.nonzero(result.seeds == seed)[0][0])
+        vstep = int(result.violation_step[lane])
+        # the trace leg: wl.max_steps ungated steps, live until the lane
+        # is done (read every DONE_CHECK_STEPS), then idle steps in blocks
+        # of IDLE_BLOCK_STEPS_DEFAULT lanes
+        check(len(traced) == 1, f"triage: {len(traced)} traced runs")
+        (st, recs), trace_s = traced[0]
+        live = -(-(vstep + 1) // DONE_CHECK_STEPS) * DONE_CHECK_STEPS
+        launched = live + -(-(wl.max_steps - live) // IDLE_BLOCK_STEPS_DEFAULT)
+        trace_ms = trace_s / launched * 1e3
+        # its records of the steps up to the violation, and its final
+        # state, against the CPU's leaf for leaf (`key` aside: the card
+        # took wl.max_steps steps)
+        cst, crecs = BatchedSim(wl.spec, wl.config, device="cpu").run_traced(
+            seed, max_steps=vstep + 1)
+        rec_fields = [f for f in TraceRecord._fields
+                      if getattr(recs, f) is not None]
+        bad = [f for f in rec_fields
+               if not torch.equal(getattr(recs, f)[:vstep + 1].cpu(),
+                                  getattr(crecs, f))]
+        check(not bad, f"triage: card and CPU trace records differ: {bad}")
+        final = state_to_numpy(st)
+        cfinal = state_to_numpy(cst)
+        del final["key"], cfinal["key"]
+        bad = leaves_equal(final, cfinal)
+        check(not bad, f"triage: card and CPU traced states differ: {bad}")
+        batch_lane = {k: v[lane:lane + 1]
+                      for k, v in state_to_numpy(result.state).items()
+                      if k != "key"}
+        bad = leaves_equal(final, batch_lane)
+        check(not bad, f"triage: traced seed {seed} differs from its batch "
+                       f"lane in {bad}")
+        events = extract_trace(recs, kind_names=wl.spec.msg_kind_names)
+        check(events[-1].kind == "violation" and events[-1].step == vstep,
+              f"triage: the trace ends in {events[-1]}, not the violation "
+              f"at step {vstep}")
+        check([str(e) for e in events] == [str(e) for e in result.traces[seed]],
+              "triage: run_batch's trace leg differs from its own records")
+        phase(10, f"sweep {TRIAGE_SEEDS} lanes, 5 virtual s: "
+                  f"{result.violations} seeds violating "
+                  f"{result.violating_seeds}, sweep "
+                  f"{result.device_ms / 1e3:.3f} s; seed {seed} traced "
+                  f"{wl.max_steps} steps ({live} live, {launched - live} "
+                  f"idle-block steps) in {trace_s:.3f} s, {trace_ms:.3f} ms "
+                  f"per launched step, {len(rec_fields)} record leaves of "
+                  f"{vstep + 1} steps and the final state equal card/CPU, "
+                  f"final state equals its batch lane (all but key), "
+                  f"{len(events)} events ending {events[-1]}")
+
+        # -- 2. the default ctl is the plain engine
+        spec, cfg, seeds, max_steps = pinned_run("raft_bench")
+        t2 = time.perf_counter()
+        g = state_to_numpy(BatchedSim(spec, cfg, triage=True, device=cuda)
+                           .run(seeds, max_steps))
+        default_s = time.perf_counter() - t2
+        ctl_keys = [k for k in g if k.startswith("ctl.")]
+        for k in ctl_keys:
+            del g[k]
+        bad = leaves_equal(g, bench64)
+        check(len(ctl_keys) == 5 and not bad,
+              f"triage: default ctl differs from the plain run in {bad}")
+        check(canonical_digest(g) == PINNED["raft_bench"],
+              "triage: default-ctl digest != pinned")
+        phase(10, f"default ctl: raft_bench {len(seeds)} lanes in "
+                  f"{default_s:.3f} s, {len(g)} leaves (ctl aside) equal "
+                  "phase 2's plain run, digest == pinned")
+
+        # -- 3. the shrink: its report line, counted dispatches, bundle
+        shrink_end, last = log[-1]
+        found = re.search(r"(\d+) atoms -> (\d+) in (\d+) dispatches", last)
+        check(found is not None, f"triage: unexpected shrink report {last!r}")
+        atoms_before, atoms_after, dispatches = map(int, found.groups())
+        dispatch_s = [wall for _, wall in dispatched]
+        dispatch_steps = [int(st.steps.max()) for st, _ in dispatched]
+        check(dispatches == len(dispatch_s) and dispatches <= 10,
+              f"triage: {dispatches} dispatches reported, {len(dispatch_s)} "
+              "counted; at most 10 allowed")
+        # from the end of the sweep loop to the shrinker's last report
+        # line (its dispatches, its traced tail, the bundle's save)
+        shrink_s = shrink_end - (t0 + result.device_ms / 1e3)
+        bundle = result.bundle
+        dg = bundle_digest(bundle)
+        check(dg == PINNED_BUNDLE[1],
+              f"triage: bundle digest {dg} != pinned {PINNED_BUNDLE[1]}")
+        phase(10, f"shrink: {atoms_before} atoms -> {atoms_after} in "
+                  f"{dispatches} dispatches of {dispatch_steps} steps "
+                  f"({[round(x, 3) for x in dispatch_s]} s), "
+                  f"{sum(dispatch_s) / dispatches * 1e3:.3f} ms/dispatch, "
+                  f"{sum(dispatch_s) / sum(dispatch_steps) * 1e3:.3f} "
+                  f"ms/step, "
+                  f"shrink wall {shrink_s:.3f} s; dropped "
+                  f"{bundle.dropped_clauses}, occ_off {bundle.occ_off}, "
+                  f"violation step {bundle.violation_step} t="
+                  f"{bundle.violation_t_us} us, horizon {bundle.horizon_us} "
+                  f"us; bundle digest {dg[:16]} == pinned")
+
+        # -- 4. replay twice, and the twin schedule check
+        t3 = time.perf_counter()
+        rep = repro.replay_device(bundle, repeats=2, device=cuda,
+                                  out=lambda *_: None)
+        replay_s = time.perf_counter() - t3
+        check((rep["step"], rep["t_us"]) == (bundle.violation_step,
+                                            bundle.violation_t_us),
+              f"triage: replay at {rep} != the bundle's")
+        twin = ttn.assert_device_matches_schedule(
+            tsim, bundle.shrunk_plan(), seed, horizon_us=bundle.horizon_us,
+            max_steps=bundle.violation_step + 2, ctl=bundle.ctl(1),
+            occ_off=bundle.occ_off)
+        phase(10, f"replay: violation at step {rep['step']} t={rep['t_us']} "
+                  f"us in both of 2 runs, replay wall {replay_s:.3f} s; twin "
+                  f"check: {twin} chaos events equal the shrunk schedule "
+                  f"[{time.perf_counter() - t_phase:.0f} s in phase 10]")
+        phase(10, f"on {card}: {result.violations} of {TRIAGE_SEEDS} seeds "
+                  f"violating; {atoms_before} -> {atoms_after} atoms in "
+                  f"{dispatches} dispatches, {trace_ms:.3f} ms per traced "
+                  f"step, {sum(dispatch_s) / dispatches * 1e3:.3f} ms per "
+                  f"shrink dispatch, shrink wall {shrink_s:.3f} s, replay "
+                  f"wall {replay_s:.3f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {
+        "seeds": TRIAGE_SEEDS, "violating": result.violations,
+        "violating_seeds": result.violating_seeds, "seed": seed,
+        "violation_step": vstep, "sweep_s": result.device_ms / 1e3,
+        "run_batch_s": batch_wall, "trace_s": trace_s,
+        "trace_steps_launched": launched, "trace_live_steps": live,
+        "trace_ms_per_step": trace_ms, "atoms_before": atoms_before,
+        "atoms_after": atoms_after, "dispatches": dispatches,
+        "dispatch_s": dispatch_s, "dispatch_steps": dispatch_steps,
+        "ms_per_dispatch": sum(dispatch_s) / dispatches * 1e3,
+        "shrink_s": shrink_s, "default_ctl_s": default_s,
+        "replay_s": replay_s, "twin_events": twin, "bundle_digest": dg,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == [PROFILE_FLAG]:
+        # phase 5's child process: its result is its last stdout line
+        print(json.dumps(phase5_profile(float(sys.argv[2]),
+                                        float(sys.argv[3]))), flush=True)
+        sys.exit(0)
     report = main()
     print("report: " + json.dumps(report), flush=True)
     print("kernels: none — the JAX package has no Pallas kernel to port, "

@@ -8,22 +8,74 @@ clause dataclasses with their validation, and `FaultPlan`. A plan lowers
 onto the engine's `nem_*` SimConfig knobs through
 `madsim_tpu_torch.tpu.nemesis.compile_plan`.
 
-SCHEDULE-level clauses (crash, partition, clog, spike, skew) fire at
-virtual times that are pure functions of (seed, clause site, occurrence
-index); MESSAGE-level clauses (loss, duplication, reordering) flip a coin
-per message on the step's network key. Both faces draw from the same
-murmur3 chain at the same sites, so a plan gives the same trajectory on
-both (tests/test_torch_nemesis.py holds every copy here equal to its
-original).
+SCHEDULE-level clauses (crash, partition, clog, spike, skew, reconfig,
+disk) fire at virtual times that are pure functions of (seed, clause site,
+occurrence index); MESSAGE-level clauses (loss, duplication, reordering)
+flip a coin per message on the step's network key. Both faces draw from the
+same murmur3 chain at the same sites, so a plan gives the same trajectory
+on both (tests/test_torch_nemesis.py and tests/test_torch_triage.py hold
+every copy here equal to its original).
 
-The host-runtime faces of a plan (`schedule`, `skew_ppm`,
-`to_net_config`) are not ported: they raise NotImplementedError.
+`FaultPlan.schedule` is the pure schedule itself: the murmur3 chain in
+plain Python integers (`mix32` ... `coin32`), the event stream the engine
+executes and `filter_schedule` shrinks. The triage vocabulary
+(`TRIAGE_CLAUSES`, `RATE_CLAUSES`, `CLAUSE_OF_EVENT`) names the atoms the
+shrinker (madsim_tpu_torch/triage.py) switches off per lane.
+
+`to_net_config` belongs to the host runtime, which is not part of the
+port: it raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple, Type
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
+
+# --------------------------------------------------------------------------
+# murmur3 hash-chain mirror (tpu/prng.py, in plain Python ints)
+# --------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+_KEY0 = 0x2545F491
+
+
+def mix32(x: int) -> int:
+    """murmur3 fmix32, bit-equal to tpu/prng.mix."""
+    x &= _M32
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    x ^= x >> 16
+    return x
+
+
+def fold32(key: int, word: int) -> int:
+    return mix32(key ^ ((word * _GOLDEN) & _M32))
+
+
+def key_from_seed(seed: int) -> int:
+    """The engine's per-lane base key (prng.key_from of the seed's low 32
+    bits, the truncation BatchedSim.init applies)."""
+    return fold32(_KEY0, seed & _M32)
+
+
+def bits32(key: int, site: int, index: int = 0) -> int:
+    """Raw u32 draw, bit-equal to prng.bits(key, site, index)."""
+    return mix32(fold32(fold32(key, site), index & _M32))
+
+
+def randint32(key: int, site: int, lo: int, hi: int, index: int = 0) -> int:
+    """prng.randint: lo + bits % max(hi - lo, 1)."""
+    span = max(hi - lo, 1)
+    return lo + bits32(key, site, index) % span
+
+
+def coin32(key: int, site: int, rate: float, index: int = 0) -> bool:
+    """The integer schedule coin: bits % 1e6 < round(rate * 1e6)."""
+    return bits32(key, site, index) % COIN_DENOM < int(round(rate * COIN_DENOM))
+
 
 # --------------------------------------------------------------------------
 # fire-count and occurrence vocabulary
@@ -40,6 +92,30 @@ OCC_CLAUSES: Tuple[str, ...] = (
     "crash", "partition", "clog", "spike", "reconfig", "disk",
 )
 OCC_ROW: Dict[str, int] = {n: i for i, n in enumerate(OCC_CLAUSES)}
+
+# triage vocabulary: one name per shrinkable clause atom. A lane's
+# TriageCtl carries a bitmask over TRIAGE_CLAUSES (set bit = clause off in
+# that lane); the OCC_CLAUSES also take per-occurrence masks (bit k =
+# occurrence k's effect suppressed, its timing still advancing).
+TRIAGE_CLAUSES: Tuple[str, ...] = (
+    "crash", "partition", "clog", "spike", "skew", "loss", "dup",
+    "reorder", "wipe", "reconfig", "disk",
+)
+TRIAGE_BIT: Dict[str, int] = {n: 1 << i for i, n in enumerate(TRIAGE_CLAUSES)}
+# message-level clauses with per-lane rate scaling (TriageCtl.rate_scale)
+RATE_CLAUSES: Tuple[str, ...] = ("loss", "dup", "reorder")
+RATE_ROW: Dict[str, int] = {n: i for i, n in enumerate(RATE_CLAUSES)}
+# schedule-event kind -> owning clause (restart belongs to its crash
+# occurrence, heal to its split, ...)
+CLAUSE_OF_EVENT: Dict[str, str] = {
+    "crash": "crash", "restart": "crash",
+    "split": "partition", "heal": "partition",
+    "clog": "clog", "unclog": "clog",
+    "spike_on": "spike", "spike_off": "spike",
+    "skew": "skew",
+    "remove": "reconfig", "join": "reconfig",
+    "disk_slow": "disk", "disk_crash": "disk", "disk_recover": "disk",
+}
 
 # Schedule-level probability coins use an integer threshold
 # (bits % 1e6 < round(rate * 1e6)) rather than a float32 uniform.
@@ -164,8 +240,7 @@ class ClockSkew:
 @dataclasses.dataclass(frozen=True)
 class Reconfig:
     """Dynamic membership: remove a random node, later re-join it as a
-    fresh replica. (Carried by the plan; the engine refuses it until
-    ROADMAP queue 1 item 8.)"""
+    fresh replica."""
 
     interval_lo_us: int = 1_000_000
     interval_hi_us: int = 5_000_000
@@ -175,8 +250,7 @@ class Reconfig:
 
 @dataclasses.dataclass(frozen=True)
 class DiskFault:
-    """Durability chaos: a slow, then dying, then recovering disk. (Carried
-    by the plan; the engine refuses it until ROADMAP queue 1 item 8.)"""
+    """Durability chaos: a slow, then dying, then recovering disk."""
 
     interval_lo_us: int = 1_000_000
     interval_hi_us: int = 5_000_000
@@ -208,11 +282,6 @@ def _check_rate(name: str, rate: float) -> None:
         raise ValueError(f"{name} must be in [0, 1), got {rate}")
 
 
-def _host_face(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"FaultPlan.{what} is a host-runtime face and is not ported to "
-        "madsim_tpu_torch yet (ROADMAP.md queue 1, item 9)"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,12 +374,212 @@ class FaultPlan:
             kinds += ["disk_slow", "disk_crash", "disk_recover"]
         return tuple(kinds)
 
-    def schedule(self, seed: int, horizon_us: int, n_nodes: int,
-                 max_events: int = 100_000):
-        raise _host_face("schedule")
+    # -- the pure schedule (what the engine executes) --
 
-    def skew_ppm(self, seed: int, n_nodes: int):
-        raise _host_face("skew_ppm")
+    def schedule(
+        self, seed: int, horizon_us: int, n_nodes: int,
+        max_events: int = 100_000,
+    ) -> List["NemesisEvent"]:
+        return plan_schedule(self, seed, horizon_us, n_nodes, max_events)
+
+    def skew_ppm(self, seed: int, n_nodes: int) -> List[int]:
+        """Per-node clock-skew ppm for this (plan, seed); [0]*N if disabled."""
+        skew = self.get(ClockSkew)
+        if skew is None:
+            return [0] * n_nodes
+        key = key_from_seed(seed)
+        return [
+            randint32(key, NEM_SITE_SKEW, -skew.max_ppm, skew.max_ppm + 1,
+                      index=n)
+            for n in range(n_nodes)
+        ]
 
     def to_net_config(self, base=None):
-        raise _host_face("to_net_config")
+        raise NotImplementedError(
+            "FaultPlan.to_net_config configures the host runtime's network, "
+            "and the host runtime is not part of madsim_tpu_torch"
+        )
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class NemesisEvent:
+    """One schedule-level fault event. Sorted by (time, kind, node)."""
+
+    t_us: int
+    kind: str  # crash|restart|split|heal|clog|unclog|spike_on|spike_off|skew|
+    #            remove|join|disk_slow|disk_crash|disk_recover
+    node: int = -1  # crash victim / clog src / skew node
+    dst: int = -1  # clog dst
+    side_mask: int = 0  # split: bitmask of nodes on side A
+    wipe: bool = False  # crash/restart: state-wipe variant
+    ppm: int = 0  # skew
+    extra_us: int = 0  # spike_on / disk_slow per-write latency
+    k: int = -1  # clause occurrence index (the ddmin atom id; -1 = n/a)
+    torn: bool = False  # disk_crash/disk_recover: torn-tail variant
+
+    def __str__(self) -> str:
+        t = self.t_us / 1e6
+        if self.kind in ("crash", "restart"):
+            w = " (wipe)" if self.wipe else ""
+            return f"[{t:9.6f}s] {self.kind} node{self.node}{w}"
+        if self.kind in ("remove", "join"):
+            return f"[{t:9.6f}s] {self.kind} node{self.node} (reconfig k={self.k})"
+        if self.kind == "disk_slow":
+            return (
+                f"[{t:9.6f}s] disk_slow node{self.node} "
+                f"+{self.extra_us}us/write (disk k={self.k})"
+            )
+        if self.kind in ("disk_crash", "disk_recover"):
+            w = " (torn)" if self.torn else ""
+            return f"[{t:9.6f}s] {self.kind} node{self.node}{w} (disk k={self.k})"
+        if self.kind == "split":
+            return f"[{t:9.6f}s] split side_mask={self.side_mask:#x}"
+        if self.kind in ("clog", "unclog"):
+            return f"[{t:9.6f}s] {self.kind} link {self.node}->{self.dst}"
+        if self.kind == "skew":
+            return f"[{t:9.6f}s] skew node{self.node} {self.ppm:+d} ppm"
+        if self.kind == "spike_on":
+            return f"[{t:9.6f}s] latency spike +{self.extra_us}us"
+        return f"[{t:9.6f}s] {self.kind}"
+
+
+def _windows(key, horizon_us, max_events, events, sites, make):
+    """Append one clause's occurrence windows: for k = 0, 1, ... the open
+    time is the previous close plus draw k at the interval site, and each
+    later phase adds draw k at its own site; a time at or past the horizon
+    ends the clause. `sites` are (site, lo, hi) per gap; `make(k, phase,
+    t)` builds phase `phase`'s event."""
+    t, k = 0, 0
+    while len(events) < max_events:
+        for phase, (site, lo, hi) in enumerate(sites):
+            t += randint32(key, site, lo, hi, index=k)
+            if t >= horizon_us:
+                return
+            events.append(make(k, phase, t))
+        k += 1
+
+
+def plan_schedule(
+    plan: FaultPlan, seed: int, horizon_us: int, n_nodes: int,
+    max_events: int = 100_000,
+) -> List[NemesisEvent]:
+    """The plan's full fault-event stream for one seed, a pure function:
+    the engine derives the same times, victims and sides from the same
+    hash chain. Event times are absolute virtual us."""
+    key = key_from_seed(seed)
+    events: List[NemesisEvent] = []
+
+    for n, ppm in enumerate(plan.skew_ppm(seed, n_nodes)):
+        if ppm != 0:
+            events.append(NemesisEvent(t_us=0, kind="skew", node=n, ppm=ppm))
+
+    crash = plan.get(Crash)
+    if crash is not None:
+        def crash_ev(k, phase, t):
+            victim = randint32(key, NEM_SITE_CRASH_VICTIM, 0, n_nodes, index=k)
+            wipe = crash.wipe_rate > 0 and coin32(
+                key, NEM_SITE_CRASH_WIPE, crash.wipe_rate, index=k
+            )
+            return NemesisEvent(t, ("crash", "restart")[phase], node=victim,
+                                wipe=wipe, k=k)
+
+        _windows(key, horizon_us, max_events, events, (
+            (NEM_SITE_CRASH_IV, crash.interval_lo_us, crash.interval_hi_us),
+            (NEM_SITE_CRASH_DOWN, crash.down_lo_us, crash.down_hi_us),
+        ), crash_ev)
+
+    part = plan.get(Partition)
+    if part is not None:
+        def part_ev(k, phase, t):
+            mask = 0
+            for n in range(n_nodes):
+                if bits32(key, NEM_SITE_PART_SIDE, index=k * 64 + n) & 1:
+                    mask |= 1 << n
+            return NemesisEvent(t, ("split", "heal")[phase], side_mask=mask,
+                                k=k)
+
+        _windows(key, horizon_us, max_events, events, (
+            (NEM_SITE_PART_IV, part.interval_lo_us, part.interval_hi_us),
+            (NEM_SITE_PART_HEAL, part.heal_lo_us, part.heal_hi_us),
+        ), part_ev)
+
+    clog = plan.get(LinkClog)
+    if clog is not None:
+        def clog_ev(k, phase, t):
+            src = randint32(key, NEM_SITE_CLOG_SRC, 0, n_nodes, index=k)
+            d = randint32(key, NEM_SITE_CLOG_DST, 0, n_nodes - 1, index=k)
+            dst = d + (1 if d >= src else 0)
+            return NemesisEvent(t, ("clog", "unclog")[phase], node=src,
+                                dst=dst, k=k)
+
+        _windows(key, horizon_us, max_events, events, (
+            (NEM_SITE_CLOG_IV, clog.interval_lo_us, clog.interval_hi_us),
+            (NEM_SITE_CLOG_HEAL, clog.heal_lo_us, clog.heal_hi_us),
+        ), clog_ev)
+
+    reconf = plan.get(Reconfig)
+    if reconf is not None:
+        def reconf_ev(k, phase, t):
+            victim = randint32(key, NEM_SITE_RECONF_VICTIM, 0, n_nodes, index=k)
+            return NemesisEvent(t, ("remove", "join")[phase], node=victim, k=k)
+
+        _windows(key, horizon_us, max_events, events, (
+            (NEM_SITE_RECONF_IV, reconf.interval_lo_us, reconf.interval_hi_us),
+            (NEM_SITE_RECONF_DUR, reconf.down_lo_us, reconf.down_hi_us),
+        ), reconf_ev)
+
+    disk = plan.get(DiskFault)
+    if disk is not None:
+        def disk_ev(k, phase, t):
+            victim = randint32(key, NEM_SITE_DISK_VICTIM, 0, n_nodes, index=k)
+            if phase == 0:
+                return NemesisEvent(t, "disk_slow", node=victim,
+                                    extra_us=disk.extra_us, k=k)
+            torn = disk.torn_rate > 0 and coin32(
+                key, NEM_SITE_DISK_TORN, disk.torn_rate, index=k
+            )
+            return NemesisEvent(t, ("disk_crash", "disk_recover")[phase - 1],
+                                node=victim, torn=torn, k=k)
+
+        _windows(key, horizon_us, max_events, events, (
+            (NEM_SITE_DISK_IV, disk.interval_lo_us, disk.interval_hi_us),
+            (NEM_SITE_DISK_SLOW, disk.slow_lo_us, disk.slow_hi_us),
+            (NEM_SITE_DISK_DOWN, disk.down_lo_us, disk.down_hi_us),
+        ), disk_ev)
+
+    spike = plan.get(LatencySpike)
+    if spike is not None:
+        def spike_ev(k, phase, t):
+            if phase == 0:
+                return NemesisEvent(t, "spike_on", extra_us=spike.extra_us, k=k)
+            return NemesisEvent(t, "spike_off", k=k)
+
+        _windows(key, horizon_us, max_events, events, (
+            (NEM_SITE_SPIKE_IV, spike.interval_lo_us, spike.interval_hi_us),
+            (NEM_SITE_SPIKE_DUR, spike.duration_lo_us, spike.duration_hi_us),
+        ), spike_ev)
+
+    events.sort()
+    return events
+
+
+def filter_schedule(
+    events: Sequence[NemesisEvent],
+    occ_off: Optional[Dict[str, int]] = None,
+    drop_clauses: Sequence[str] = (),
+) -> List[NemesisEvent]:
+    """A shrunk schedule: drop whole clauses and/or masked occurrences
+    (`occ_off` maps a schedule clause to an occurrence bitmask; bit k
+    removes every phase of occurrence k). The pure-schedule face of the
+    engine's per-lane TriageCtl."""
+    occ_off = occ_off or {}
+    drop = set(drop_clauses)
+    out: List[NemesisEvent] = []
+    for ev in events:
+        clause = CLAUSE_OF_EVENT.get(ev.kind)
+        if clause in drop:
+            continue
+        if ev.k >= 0 and (occ_off.get(clause, 0) >> ev.k) & 1:
+            continue
+        out.append(ev)
+    return out

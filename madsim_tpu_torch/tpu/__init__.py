@@ -3,6 +3,7 @@
 from .batch import (  # noqa: F401
     BatchDeterminismError,
     BatchResult,
+    BatchViolation,
     BatchWorkload,
     run_batch,
 )
@@ -13,7 +14,10 @@ from .engine import (  # noqa: F401
     NemesisState,
     SimState,
     StragPool,
+    TraceRecord,
+    TriageCtl,
     abs_time_us,
+    default_ctl,
     scale_delay_ppm,
     summarize,
 )
@@ -44,8 +48,10 @@ from .spec import (  # noqa: F401
     fuse_two_handlers,
     pool_kw_for,
     replace_handlers,
+    simconfig_from_toml,
     wraps_event,
 )
+from .trace import TraceEvent, extract_trace, format_trace, trace_seed  # noqa: F401
 from .twopc import (  # noqa: F401
     TpcState,
     make_twopc_spec,

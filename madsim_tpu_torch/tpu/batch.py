@@ -2,11 +2,13 @@
 
 The port of `madsim_tpu/tpu/batch.py`'s chunked sweep: every seed becomes a
 lane of one BatchedSim batch (in chunks of `chunk` lanes), and the result
-carries per-seed rows plus the batch summary. Violating seeds re-run on the
-workload's host reproducer when it has one, and a workload's deep
-`lane_check` oracle runs on the violating lanes plus a clean sample.
-Traces, shrinking, coverage, refill, tuning and mesh sharding are later
-slices (ROADMAP.md queue 1).
+carries per-seed rows plus the batch summary. A workload's deep
+`lane_check` oracle runs on the violating lanes plus a clean sample. After
+the sweep, the first violating seed can be shrunk into a repro bundle
+(`shrink_on_violation`, madsim_tpu_torch/triage.py), the first
+`max_traces` violating seeds re-run traced (tpu/trace.py), and violating
+seeds re-run on the workload's host reproducer when it has one. Coverage,
+refill, tuning and mesh sharding are later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..testing import single_seed_repro_command
 from .convert import state_to_numpy
 from .engine import (
     BatchedSim, DEFAULT_DISPATCH_STEPS, SimState, _not_ported, summarize,
@@ -60,6 +63,43 @@ def _assert_runs_bitwise_equal(a: SimState, b: SimState, context: str) -> None:
             )
 
 
+class BatchViolation(AssertionError):
+    """Violations found in a batch; carries the repro seeds, the exact
+    single-seed repro command and, after a shrink, the repro bundle's path
+    and replay one-liner."""
+
+    def __init__(
+        self, seeds: List[int], detail: str,
+        bundle_path: Optional[str] = None,
+        bundle: Any = None,
+    ) -> None:
+        shown = ", ".join(str(s) for s in seeds[:16])
+        more = "" if len(seeds) <= 16 else f" (+{len(seeds) - 16} more)"
+        self.repro_command = single_seed_repro_command(seeds[0])
+        self.bundle_path = bundle_path
+        msg = (
+            f"{len(seeds)} violating seed(s): {shown}{more}\n    {detail}\n"
+            f"    reproduce one with: {self.repro_command}"
+        )
+        if bundle_path:
+            msg += f"\n    shrunk repro bundle: {bundle_path}"
+            if bundle is not None and not getattr(bundle, "spec_ref", None):
+                # without a spec factory reference a fresh process cannot
+                # rebuild the ProtocolSpec: say what is missing
+                msg += (
+                    f"\n    replay it with: python -m madsim_tpu_torch.repro "
+                    f"{bundle_path} --spec-ref 'your.module:spec_factory' "
+                    "(or pass spec_ref= in shrink_kwargs to bake it in)"
+                )
+            else:
+                msg += (
+                    f"\n    replay it with: "
+                    f"python -m madsim_tpu_torch.repro {bundle_path}"
+                )
+        super().__init__(msg)
+        self.seeds = seeds
+
+
 @dataclasses.dataclass
 class BatchResult:
     """Outcome of one batched sweep."""
@@ -70,7 +110,13 @@ class BatchResult:
     summary: Dict[str, Any]
     state: SimState  # final engine state (chunked runs: last chunk only)
     host_repros: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    # per-seed event traces of violating seeds (trace.TraceEvent lists)
+    traces: Dict[int, list] = dataclasses.field(default_factory=dict)
+    # the workload that ran (so .shrink() can build the triage sim), and
+    # the repro bundle after run_batch(shrink_on_violation=True)
     workload: Optional[BatchWorkload] = None
+    bundle: Any = None  # triage.ReproBundle | None
+    bundle_path: Optional[str] = None
     # the sweep loop's wall time in ms (dispatch through the last readback)
     device_ms: float = 0.0
     # busy lane-steps / lane-steps, each chunk's denominator its longest
@@ -87,6 +133,38 @@ class BatchResult:
     def violating_seeds(self) -> List[int]:
         return [int(s) for s in self.seeds[self.violated]]
 
+    def shrink(self, seed: Optional[int] = None, **kwargs):
+        """Shrink one violating seed (default: the first) into a minimal
+        repro bundle (see triage.shrink_seed for the keywords), on the
+        sweep's device unless `device=` says otherwise. Returns the
+        ShrinkResult and remembers the bundle on this result."""
+        from .. import triage
+
+        if self.workload is None:
+            raise ValueError(
+                "this BatchResult carries no workload — run it through "
+                "run_batch (or set result.workload) before shrinking"
+            )
+        if seed is None:
+            if not self.violations:
+                raise ValueError("no violating seeds to shrink")
+            seed = self.violating_seeds[0]
+        kwargs.setdefault("out_dir", triage.default_bundle_dir())
+        kwargs.setdefault("device", self.state.clock.device)
+        sr = triage.shrink_seed(self.workload, seed, **kwargs)
+        self.bundle = sr.bundle
+        self.bundle_path = sr.bundle_path
+        return sr
+
+    def raise_on_violation(self) -> None:
+        if self.violations:
+            raise BatchViolation(
+                self.violating_seeds,
+                f"summary: {self.summary}",
+                bundle_path=self.bundle_path,
+                bundle=self.bundle,
+            )
+
 
 def run_batch(
     seeds: Sequence[int],
@@ -94,7 +172,10 @@ def run_batch(
     repro_on_host: bool = True,
     max_host_repros: int = 4,
     chunk: Optional[int] = None,
+    max_traces: int = 2,
     check_determinism: bool = False,
+    shrink_on_violation: bool = False,
+    shrink_kwargs: Optional[Dict[str, Any]] = None,
     dispatch_steps: Optional[int] = None,
     sim: Optional[BatchedSim] = None,
     device="cuda",
@@ -104,10 +185,16 @@ def run_batch(
     """Fuzz every seed as device lanes; re-run violating seeds on the host.
 
     `check_determinism` runs every chunk twice and compares the full final
-    states leaf for leaf. `sim` passes a pre-built BatchedSim (it must be
-    built for the workload's spec and config); `device` is used only when
-    run_batch builds the sim. Per-seed results do not depend on `chunk`:
-    no draw folds the lane index."""
+    states leaf for leaf. `shrink_on_violation` ddmin-shrinks the first
+    violating seed into a repro bundle (triage.shrink_seed with
+    `shrink_kwargs`; written under triage.default_bundle_dir() unless
+    `out_dir` says otherwise) and reports it in BatchViolation; a failed
+    shrink warns and keeps the sweep's result. The first `max_traces`
+    violating seeds re-run traced into `result.traces`. `sim` passes a
+    pre-built BatchedSim (it must be built for the workload's spec and
+    config); `device` is used only when run_batch builds the sim.
+    Per-seed results do not depend on `chunk`: no draw folds the lane
+    index."""
     seeds_arr = np.asarray(list(seeds), dtype=np.uint32)
     if seeds_arr.ndim != 1 or seeds_arr.size == 0:
         raise ValueError("seeds must be a non-empty 1-D sequence")
@@ -208,6 +295,28 @@ def run_batch(
         retired_step=np.concatenate(steps_parts),
         violation_step=np.concatenate(vstep_parts),
     )
+    if result.violations and shrink_on_violation:
+        # auto-triage of the first violating seed; a triage failure must
+        # never eat the primary result (which seeds violated)
+        try:
+            result.shrink(**{"device": sim.device, **(shrink_kwargs or {})})
+        except Exception as e:  # noqa: BLE001 - opt-in convenience step
+            import warnings
+
+            warnings.warn(
+                f"shrink_on_violation failed ({type(e).__name__}: {e}); "
+                "reporting the unshrunken violation",
+                stacklevel=2,
+            )
+    if result.violations and max_traces > 0:
+        # the microscope: the same step the sweep ran, one lane, traced
+        from .trace import trace_seed
+
+        for seed in result.violating_seeds[:max_traces]:
+            result.traces[seed] = trace_seed(
+                sim, seed, max_steps=workload.max_steps,
+                kind_names=workload.spec.msg_kind_names,
+            )
     if repro_on_host and workload.host_repro is not None and result.violations:
         for seed in result.violating_seeds[:max_host_repros]:
             try:

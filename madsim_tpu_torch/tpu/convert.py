@@ -6,8 +6,9 @@ arrays, keyed by dotted field path (`"clock"`, `"node.term"`,
 `"msgs.valid_p"`, `"strag.deliver"`, `"dur.log_len"`, ...; absent planes
 simply have no keys) and stored as the
 JAX face stores them, and builds the port's `SimState` on a device.
-`state_to_numpy` goes the other way, into the same paths with every value
-widened to int64, so the two faces' states compare leaf for leaf.
+`state_to_numpy` goes the other way, into the same paths with every integer
+value widened to int64 (and the triage ctl's float32 rate scales to
+float64), so the two faces' states compare leaf for leaf.
 
 Storage mapping (values are never changed): u32 leaves (keys, chain
 hashes, packed bool words) become int64; the JAX face's narrow u8/i8/u16
@@ -22,7 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .engine import MsgPool, NemesisState, SimState, StragPool
+from .engine import MsgPool, NemesisState, SimState, StragPool, TriageCtl
 
 _WIDE = {
     np.dtype(np.uint32): torch.int64,
@@ -33,6 +34,7 @@ _WIDE = {
     np.dtype(np.int8): torch.int32,
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32,
 }
 
 
@@ -41,7 +43,7 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     if a.dtype not in _WIDE:
         raise ValueError(f"unsupported leaf dtype {a.dtype}")
     wide = _WIDE[a.dtype]
-    if wide == torch.bool:
+    if wide in (torch.bool, torch.float32):
         return torch.as_tensor(a.copy(), device=device)
     return torch.as_tensor(a.astype(np.int64), device=device).to(wide)
 
@@ -65,7 +67,7 @@ def state_from_numpy(
             f"{list(node_type._fields)}"
         )
     planes = {"node": node_type, "msgs": MsgPool, "strag": StragPool,
-              "nem": NemesisState}
+              "nem": NemesisState, "ctl": TriageCtl}
     durf = fields("dur")
     if durf:
         planes["dur"] = collections.namedtuple("DurState", durf)
@@ -91,8 +93,8 @@ def state_from_numpy(
 
 
 def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
-    """Dotted-path int64 numpy leaves of a port SimState (None planes
-    dropped), in the JAX face's flatten order."""
+    """Dotted-path numpy leaves of a port SimState (None planes dropped),
+    in the JAX face's flatten order: int64, float64 for float leaves."""
     out: Dict[str, np.ndarray] = {}
 
     def rec(name, obj):
@@ -102,7 +104,10 @@ def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
             for f in obj._fields:
                 rec(f"{name}.{f}" if name else f, getattr(obj, f))
         else:
-            out[name] = obj.detach().cpu().numpy().astype(np.int64)
+            a = obj.detach().cpu().numpy()
+            out[name] = a.astype(
+                np.float64 if np.issubdtype(a.dtype, np.floating) else np.int64
+            )
 
     rec("", state)
     return out

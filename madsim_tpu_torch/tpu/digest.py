@@ -12,11 +12,20 @@ running the port must reproduce them.
 from `tests/test_state_layout.py`: one 16-lane, 1500-step run per workload
 under `CHAOS_PLAN` (crash, partition and message-loss clauses lowered by
 `compile_plan`). `golden_run(name)` builds the same run for the port.
+
+`PINNED_BUNDLE` holds the `bundle_digest` (sha256 of the canonical JSON) of
+the repro bundle the JAX face's shrinker writes for the planted re-stamp
+Raft under Crash + Partition (`chip_smoke.triage_workload`, the bug and
+plan of tests/test_triage.py), seed 0, `spec_ref`
+"chip_smoke:planted_restamp_spec"; tests/test_torch_triage.py holds the
+port's CPU shrink and the JAX face's to it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import json
 from typing import Dict
 
 import numpy as np
@@ -135,3 +144,17 @@ def golden_run(name: str):
     cfg = compile_plan(CHAOS_PLAN, SimConfig(horizon_us=30_000_000))
     return (GOLDEN_SPECS[name](), cfg, list(range(GOLDEN_LANES)),
             GOLDEN_STEPS)
+
+
+def bundle_digest(bundle) -> str:
+    """sha256 of a ReproBundle's canonical JSON (sorted keys, no spaces):
+    equal for field-for-field equal bundles, whichever face wrote them."""
+    doc = json.dumps(dataclasses.asdict(bundle), sort_keys=True,
+                     separators=(",", ":"))
+    return hashlib.sha256(doc.encode()).hexdigest()
+
+
+# the planted re-stamp shrink's bundle: (seed, bundle_digest)
+PINNED_BUNDLE = (
+    0, "73496e75ea62bd1a05db236477dc88caf63c5676b955e4dab411ad748406d741",
+)

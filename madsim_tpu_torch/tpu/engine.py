@@ -15,7 +15,13 @@ pool, checks invariants and rebases lanes whose clock offset crossed
 REBASE_US. Same state fields, same draws, same order: a seed's final state
 is leaf for leaf the JAX engine's (tests/test_torch_engine.py,
 tests/test_torch_nemesis.py, tests/test_torch_twohandler.py,
-tests/test_torch_membership.py).
+tests/test_torch_membership.py, tests/test_torch_triage.py).
+
+`BatchedSim(..., triage=True)` threads a per-lane `TriageCtl` through the
+step: clause and occurrence switches, message-rate scales and a horizon
+per lane, so one batch evaluates a generation of shrink candidates. The
+same step, asked for it, also returns the step's `TraceRecord`, the
+per-lane event record `run_traced` collects (tpu/trace.py renders it).
 
 State layout differs only in storage width: node, watermark and straggler
 leaves are stored wide (the JAX face's u8/i8/u16 narrowing is a storage
@@ -24,9 +30,9 @@ bool planes rest packed, as on the JAX face (`alive_p`, `link_ok_p`,
 `member_p`, `msgs.valid_p`); the straggler pool's `valid` stays unpacked,
 as there.
 
-Configurations the port does not carry yet (the triage / coverage /
-lineage / device-loop planes) are refused at construction with the ROADMAP
-item that will port them.
+Configurations the port does not carry yet (the coverage, lineage and
+device-loop planes) are refused at construction with the ROADMAP item that
+will port them.
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
 """
@@ -72,6 +78,10 @@ from ..nemesis import (
     NET_SITE_REORDER_EXTRA,
     OCC_CLAUSES,
     OCC_ROW,
+    RATE_CLAUSES,
+    fold32,
+    RATE_ROW,
+    TRIAGE_BIT,
 )
 from .spec import (
     INF_GUARD, INF_US, REBASE_US, HardCap, ProtocolSpec, RateFloor, SimConfig,
@@ -83,6 +93,11 @@ DEFAULT_DISPATCH_STEPS = 10_000
 # point where every lane is done are no-ops (see BatchedSim._step), so the
 # check only bounds wasted work; it never changes a result.
 DONE_CHECK_STEPS = 32
+# idle steps of a traced run (every lane done) evaluated as one batch: a
+# card's step costs about the same at 1 and at 16384 lanes, a CPU's grows
+# with the lanes past ~1024
+IDLE_BLOCK_STEPS = {"cpu": 1024}
+IDLE_BLOCK_STEPS_DEFAULT = 16384
 
 
 class MsgPool(NamedTuple):
@@ -148,6 +163,102 @@ class NemesisState(NamedTuple):
     skew_ppm: Any  # int32 [L,N] per-node timer skew in ppm | None
 
 
+class TriageCtl(NamedTuple):
+    """Per-lane shrink controls (present iff `BatchedSim(..., triage=True)`).
+
+    The shrinker (madsim_tpu_torch/triage.py) evaluates every candidate as
+    a lane of one batch: all lanes share the config's compiled knobs, and
+    these tensors switch clauses, single clause occurrences, message-coin
+    rates and the horizon off per lane. A suppressed occurrence still
+    advances the timing machinery through its window, so a candidate is
+    the seed's trajectory minus exactly the suppressed faults."""
+
+    off: Any  # int32 [L] clause-off bitmask over nemesis.TRIAGE_CLAUSES
+    occ: Any  # int32 [L, len(OCC_CLAUSES)] occurrence-off bitmasks (bit k
+    #           suppresses occurrence k; k >= 32 is always on, and bit 31,
+    #           the int32 sign bit, is left unused by the shrinker)
+    rate_scale: Any  # float32 [L, len(RATE_CLAUSES)] loss/dup/reorder rate
+    #           scales (the coin is `u < rate * scale` on the same stream)
+    h_epoch: Any  # int32 [L] per-lane horizon, epoch part
+    h_off: Any  # int32 [L] per-lane horizon, offset part
+
+
+def default_ctl(L: int, horizon_us: int, device="cpu") -> TriageCtl:
+    """The no-op ctl: every clause and occurrence on, full horizon."""
+    eh, oh = divmod(int(horizon_us), REBASE_US)
+    return TriageCtl(
+        off=torch.zeros((L,), dtype=torch.int32, device=device),
+        occ=torch.zeros((L, len(OCC_CLAUSES)), dtype=torch.int32,
+                        device=device),
+        rate_scale=torch.ones((L, len(RATE_CLAUSES)), dtype=torch.float32,
+                              device=device),
+        h_epoch=torch.full((L,), eh, dtype=torch.int32, device=device),
+        h_off=torch.full((L,), oh, dtype=torch.int32, device=device),
+    )
+
+
+def _clause_on(ctl: TriageCtl, name: str) -> torch.Tensor:
+    """bool [L]: clause `name` enabled per lane."""
+    return (ctl.off & TRIAGE_BIT[name]) == 0
+
+
+def _occ_on(ctl: TriageCtl, name: str, k: torch.Tensor) -> torch.Tensor:
+    """bool [L]: occurrence k [L] of schedule clause `name` enabled per
+    lane. The mask is read as u32 (held in int64), as on the JAX face."""
+    bit = (
+        prng.u32(ctl.occ[:, OCC_ROW[name]]) >> torch.clamp(k, 0, 31).long()
+    ) & 1
+    return _clause_on(ctl, name) & ((bit == 0) | (k >= 32))
+
+
+def _scaled_rate(rate: float, ctl: TriageCtl, name: str) -> torch.Tensor:
+    """float32 [L, 1]: a message clause's per-lane coin rate, the JAX
+    face's f32(rate) * scale * f32(clause on). The product of two float32
+    values rounds the same whether formed in float32 or in double, so the
+    scalar needs no device tensor; with the default ctl it is f32(rate)."""
+    return (
+        ctl.rate_scale[:, RATE_ROW[name]] * prng.f32(rate)
+        * _clause_on(ctl, name).to(torch.float32)
+    )[:, None]
+
+
+class TraceRecord(NamedTuple):
+    """One step's observable events, for per-lane violation traces: every
+    delivery, timer fire and chaos event with its virtual time. Leaves are
+    [L, ...]; `run_traced` stacks them to [T, L, ...]. Times are offsets in
+    the post-rebase basis (absolute = epoch * REBASE_US + offset)."""
+
+    clock: Any  # int32 [L]
+    epoch: Any  # int32 [L]
+    t_evt: Any  # int32 [L,N] virtual time of node n's event this step
+    msg_fired: Any  # bool [L,N] message delivered to node n this step
+    msg_src: Any  # int32 [L,N]
+    msg_kind: Any  # int32 [L,N]
+    msg_payload: Any  # int32 [L,N,P]
+    timer_fired: Any  # bool [L,N]
+    crash: Any  # int32 [L] node crashed this step, -1 = none
+    restart: Any  # int32 [L] node restarted this step, -1 = none
+    split: Any  # bool [L] partition split this step
+    heal: Any  # bool [L] partition healed this step
+    side_mask: Any  # int32 [L] nodes on side A of the partition draw
+    violation: Any  # bool [L] invariant first violated this step
+    deadlock: Any  # bool [L]
+    clog_src: Any  # int32 [L] link clogged this step, -1 = none
+    clog_dst: Any  # int32 [L]
+    unclog: Any  # bool [L]
+    spike_on: Any  # bool [L] latency spike opened this step
+    spike_off: Any  # bool [L]
+    remove: Any  # int32 [L] node removed from membership, -1 = none
+    join: Any  # int32 [L] node re-joined (fresh init), -1 = none
+    disk_slow: Any  # int32 [L] disk degraded on node, -1 = none
+    disk_crash: Any  # int32 [L] disk died on node, -1 = none
+    disk_recover: Any  # int32 [L] node recovered from its watermark, -1 = none
+    disk_torn: Any  # bool [L] the occurrence's torn coin (crash, recover)
+    lam: Any = None  # lineage plane (not ported: always None)
+    evt_eid: Any = None
+    sent_eid: Any = None
+
+
 class SimState(NamedTuple):
     """The full per-lane state; the JAX face's field names. Fields of planes
     this slice does not carry are None."""
@@ -186,7 +297,7 @@ class SimState(NamedTuple):
     msgs: MsgPool
     strag: Any  # StragPool | None
     nem: Any  # NemesisState | None
-    ctl: Any  # None (triage controls)
+    ctl: Any  # TriageCtl | None (BatchedSim(..., triage=True) only)
     cov: Any  # None (coverage)
     lin: Any  # None (lineage)
     queue: Any  # None (refill queue)
@@ -269,6 +380,7 @@ class BatchedSim:
     ) -> None:
         self.spec = spec
         self.config = config or SimConfig()
+        self.triage = bool(triage)
         cfg = self.config
         N = spec.n_nodes
         # -- the JAX face's construction checks that apply to this slice,
@@ -441,8 +553,6 @@ class BatchedSim:
                 f"would go stale): remove {sorted(bad_dur)}"
             )
         # -- valid configurations this slice does not carry yet
-        if triage:
-            raise _not_ported("BatchedSim(triage=True)", "item 10")
         if coverage:
             raise _not_ported("BatchedSim(coverage=True)", "item 9")
         if lineage:
@@ -558,11 +668,20 @@ class BatchedSim:
             arr.astype(np.uint32).astype(np.int64), device=self.device
         )
 
-    def init(self, seeds) -> SimState:
-        """Build lane state for a batch of seeds."""
+    def init(self, seeds, ctl: Optional[TriageCtl] = None) -> SimState:
+        """Build lane state for a batch of seeds. `ctl` (triage sims only)
+        carries the per-lane shrink controls; by default every clause is
+        on and the horizon is the config's."""
         spec, cfg, dev = self.spec, self.config, self.device
         seeds = self._seeds_tensor(seeds)
         L, N, CK = seeds.shape[0], spec.n_nodes, self._CK
+        if ctl is not None and not self.triage:
+            raise ValueError(
+                "a TriageCtl requires BatchedSim(..., triage=True)"
+            )
+        if self.triage:
+            ctl = (default_ctl(L, cfg.horizon_us, dev) if ctl is None
+                   else TriageCtl(*(t.to(dev) for t in ctl)))
 
         key = prng.key_from(seeds)  # u32 [L]
         node_keys = prng.fold(key[:, None], self._narange)
@@ -585,6 +704,12 @@ class BatchedSim:
                 key[:, None], NEM_SITE_SKEW, -cfg.nem_skew_max_ppm,
                 cfg.nem_skew_max_ppm + 1, index=self._narange[None, :],
             )  # [L,N]
+            if self.triage:
+                # a skew-off lane runs every node at ppm 0; the draws
+                # still happen, they just do not apply
+                skew_ppm = torch.where(
+                    _clause_on(ctl, "skew")[:, None], skew_ppm, 0
+                ).to(torch.int32)
             fires[:, FIRE_INDEX["skew"]] = (skew_ppm != 0).sum(
                 dim=1, dtype=torch.int32
             )
@@ -682,7 +807,7 @@ class BatchedSim:
                 kind=full((L, CK), 0),
                 payload=full((L, CK, spec.payload_width), 0),
             ),
-            strag=strag, nem=nem, ctl=None, cov=None, lin=None, queue=None,
+            strag=strag, nem=nem, ctl=ctl, cov=None, lin=None, queue=None,
             refill=None,
         )
 
@@ -710,12 +835,16 @@ class BatchedSim:
 
     # ------------------------------------------------------------------ step
 
-    def _step(self, state: SimState, gate_key: bool = False) -> SimState:
+    def _step(self, state: SimState, gate_key: bool = False,
+              record: bool = False):
         """One engine step. With `gate_key`, a step taken when every lane is
         already done is a no-op: done lanes freeze every leaf but `key`, and
         the gate holds `key` too, so a sweep may run past its last live step
-        without changing the result (the JAX loop stops at that step)."""
+        without changing the result (the JAX loop stops at that step). With
+        `record`, returns (state, TraceRecord of this step)."""
         spec, cfg = self.spec, self.config
+        triage = self.triage
+        ctl = state.ctl
         N, CK, P, C = spec.n_nodes, self._CK, spec.payload_width, self._C
         L = state.clock.shape[0]
         msgs = state.msgs
@@ -851,9 +980,21 @@ class BatchedSim:
                 )
             else:
                 victim = prng.randint(ckey, 1, 0, N)
-            crash_mask = do_crash[:, None] & (node_ids == victim[:, None])
+            # triage: a suppressed occurrence keeps its timing (chaos_at,
+            # crashed, crash_k advance as always) but applies no effect:
+            # ap_* gate the kill, the restart, the pool drops, the trace
+            # rows and the fire counts
+            ap_crash, ap_restart = do_crash, do_restart
+            if triage:
+                crash_en = _occ_on(
+                    ctl, "crash",
+                    nst.crash_k if cfg.nem_crash_enabled
+                    else torch.zeros_like(state.crashed),
+                )
+                ap_crash, ap_restart = do_crash & crash_en, do_restart & crash_en
+            crash_mask = ap_crash[:, None] & (node_ids == victim[:, None])
             restart_node = torch.clamp(state.crashed, 0, N - 1)
-            restart_mask = do_restart[:, None] & (
+            restart_mask = ap_restart[:, None] & (
                 node_ids == restart_node[:, None]
             )
             ns_r, timer_r = spec.on_restart(node0, node_ids, t_next, rkeys)
@@ -864,6 +1005,10 @@ class BatchedSim:
                 # time and rides nem.wipe through the down window)
                 ns_w, timer_w = self._fresh(rkeys, t_next)
                 wipe_mask = restart_mask & nst.wipe[:, None]
+                if triage:
+                    # wipe is its own atom: with it off, the occurrence
+                    # still happens but restarts through on_restart
+                    wipe_mask = wipe_mask & _clause_on(ctl, "wipe")[:, None]
                 ns_r = _tree_where(wipe_mask, ns_w, ns_r)
                 timer_r = torch.where(wipe_mask, timer_w, timer_r)
         if self._fused:
@@ -998,7 +1143,7 @@ class BatchedSim:
             valid = valid & ~crash_mask[:, :, None]
             if self._B:
                 svalid = svalid & ~(
-                    do_crash[:, None] & (strag.dst == victim[:, None])
+                    ap_crash[:, None] & (strag.dst == victim[:, None])
                 )
 
         # -- 5b. partition chaos: random bipartition splits, later heals
@@ -1050,10 +1195,20 @@ class BatchedSim:
                     do_split, clock + heal_delay,
                     torch.where(do_heal, clock + next_split, state.part_at),
                 )
+            # a suppressed occurrence toggles `partitioned` (timing) but
+            # never touches link_ok
+            ap_split, ap_heal = do_split, do_heal
+            if triage:
+                part_en = _occ_on(
+                    ctl, "partition",
+                    nst.part_k if cfg.nem_partition_enabled
+                    else torch.zeros_like(state.crashed),
+                )
+                ap_split, ap_heal = do_split & part_en, do_heal & part_en
             same_side = side[:, :, None] == side[:, None, :]  # [L,N,N]
             link_ok = torch.where(
-                do_split[:, None, None], same_side,
-                torch.where(do_heal[:, None, None], True, link_ok),
+                ap_split[:, None, None], same_side,
+                torch.where(ap_heal[:, None, None], True, link_ok),
             )
             partitioned = (state.partitioned | do_split) & ~do_heal
 
@@ -1066,6 +1221,12 @@ class BatchedSim:
             do_clog = clog_due & ~nst.clogged
             do_unclog = clog_due & nst.clogged
             kk = nst.clog_k
+            # clog_k names the window open (or opening) this step: one gate
+            # covers the toggle's trace rows and every in-window send
+            ap_clog, ap_unclog = do_clog, do_unclog
+            if triage:
+                clog_en = _occ_on(ctl, "clog", kk)
+                ap_clog, ap_unclog = do_clog & clog_en, do_unclog & clog_en
             src_d = prng.randint(state.key0, NEM_SITE_CLOG_SRC, 0, N, index=kk)
             dst_d = prng.randint(
                 state.key0, NEM_SITE_CLOG_DST, 0, N - 1, index=kk
@@ -1093,6 +1254,11 @@ class BatchedSim:
             do_spike = spike_due & ~nst.spiking
             do_unspike = spike_due & nst.spiking
             sk = nst.spike_k
+            ap_spike, ap_unspike = do_spike, do_unspike
+            if triage:
+                spike_en = _occ_on(ctl, "spike", sk)
+                ap_spike = do_spike & spike_en
+                ap_unspike = do_unspike & spike_en
             spiking = (nst.spiking | do_spike) & ~do_unspike
             dur_d = prng.randint(
                 state.key0, NEM_SITE_SPIKE_DUR, cfg.nem_spike_duration_lo_us,
@@ -1123,21 +1289,27 @@ class BatchedSim:
             do_remove = reconf_due & (nst.reconf_node < 0)
             do_join = reconf_due & (nst.reconf_node >= 0)
             rk = nst.reconfig_k
+            # one gate per occurrence covers both halves (k bumps at the
+            # join): a suppressed occurrence changes no membership at all
+            ap_remove, ap_join = do_remove, do_join
+            if triage:
+                reconf_en = _occ_on(ctl, "reconfig", rk)
+                ap_remove, ap_join = do_remove & reconf_en, do_join & reconf_en
             victim_d = prng.randint(
                 state.key0, NEM_SITE_RECONF_VICTIM, 0, N, index=rk
             )
             join_node = torch.clamp(nst.reconf_node, 0, N - 1)
-            remove_mask = do_remove[:, None] & (node_ids == victim_d[:, None])
-            join_mask = do_join[:, None] & (node_ids == join_node[:, None])
+            remove_mask = ap_remove[:, None] & (node_ids == victim_d[:, None])
+            join_mask = ap_join[:, None] & (node_ids == join_node[:, None])
             member = (member & ~remove_mask) | join_mask
             # liveness and membership stay independent planes, but a
             # remove also downs the node and a join revives it
             alive = (alive & ~remove_mask) | join_mask
-            member_epoch = member_epoch + (do_remove | do_join).to(i32)
+            member_epoch = member_epoch + (ap_remove | ap_join).to(i32)
             valid = valid & ~remove_mask[:, :, None]
             if self._B:
                 svalid = svalid & ~(
-                    do_remove[:, None] & (strag.dst == victim_d[:, None])
+                    ap_remove[:, None] & (strag.dst == victim_d[:, None])
                 )
             ns_j, timer_j = self._fresh(
                 rkeys, t_next, nst.skew_ppm if cfg.nem_skew_enabled else None
@@ -1187,6 +1359,13 @@ class BatchedSim:
             do_dslow = disk_due & (nst.disk_phase == 0)
             do_dcrash = disk_due & (nst.disk_phase == 1)
             do_drecover = disk_due & (nst.disk_phase == 2)
+            # all three phases of occurrence k share one gate
+            ap_dslow, ap_dcrash, ap_drecover = do_dslow, do_dcrash, do_drecover
+            if triage:
+                disk_en = _occ_on(ctl, "disk", dk)
+                ap_dslow = do_dslow & disk_en
+                ap_dcrash = do_dcrash & disk_en
+                ap_drecover = do_drecover & disk_en
             dvictim = prng.randint(
                 state.key0, NEM_SITE_DISK_VICTIM, 0, N, index=dk
             )
@@ -1197,13 +1376,13 @@ class BatchedSim:
                 ) < round(cfg.nem_disk_torn_rate * COIN_DENOM)
             else:
                 torn = torch.zeros_like(do_dslow)
-            dcrash_mask = do_dcrash[:, None] & (node_ids == dvictim[:, None])
-            drec_mask = do_drecover[:, None] & (node_ids == dvictim[:, None])
+            dcrash_mask = ap_dcrash[:, None] & (node_ids == dvictim[:, None])
+            drec_mask = ap_drecover[:, None] & (node_ids == dvictim[:, None])
             alive = (alive & ~dcrash_mask) | drec_mask
             valid = valid & ~dcrash_mask[:, :, None]
             if self._B:
                 svalid = svalid & ~(
-                    do_dcrash[:, None] & (strag.dst == dvictim[:, None])
+                    ap_dcrash[:, None] & (strag.dst == dvictim[:, None])
                 )
             # unsynced loss: the victim's durable fields differ from its
             # watermark at the crash instant (without a durable contract
@@ -1215,7 +1394,7 @@ class BatchedSim:
                     differs = differs | d.reshape(L, N, -1).any(dim=2)
                 unsynced_lost = (dcrash_mask & differs).any(dim=1).to(i32)
             else:
-                unsynced_lost = do_dcrash.to(i32)
+                unsynced_lost = ap_dcrash.to(i32)
             # recovery: a fresh init state with the durable fields replaced
             # by the watermark, refined by spec.on_recover (which sees the
             # torn bit); its timer is a delay from the recovery instant
@@ -1298,9 +1477,11 @@ class BatchedSim:
             # nemesis duplication: interleave a coin-gated copy of every
             # candidate (position 2c+1 mirrors 2c); the copy rolls its own
             # loss and latency below
+            # triage: a per-lane scaled rate on the same uniform stream
             dcoin = prng.uniform(
                 net_key, NET_SITE_DUP, index=self._bidx[None, :]
-            ) < prng.f32(cfg.nem_dup_rate)
+            ) < (_scaled_rate(cfg.nem_dup_rate, ctl, "dup") if triage
+                 else prng.f32(cfg.nem_dup_rate))
             dup_fires = (cand_valid & dcoin).sum(dim=1, dtype=i32)
 
             def il(x):
@@ -1342,19 +1523,25 @@ class BatchedSim:
                 & (self._src_of_c[None, :] == clog_src[:, None])
                 & (cand_dst == clog_dst[:, None])
             )
+            if triage:
+                clog_hit = clog_hit & clog_en[:, None]
             keep = keep & ~clog_hit
         if cfg.nem_loss_rate > 0:
             # the nemesis loss coin, rolled last: only on messages that
             # survived base loss, dead destinations, partitions and clogs
             u2 = prng.uniform(net_key, NET_SITE_NEM_LOSS, index=cidx)
-            nem_lost = keep & (u2 < prng.f32(cfg.nem_loss_rate))
+            nem_lost = keep & (
+                u2 < (_scaled_rate(cfg.nem_loss_rate, ctl, "loss") if triage
+                      else prng.f32(cfg.nem_loss_rate))
+            )
             loss_drops = nem_lost.sum(dim=1, dtype=i32)
             keep = keep & ~nem_lost
         if cfg.nem_reorder_rate > 0:
             # bounded reordering: an extra uniform delay in [0, window]
             rcoin = keep & (
                 prng.uniform(net_key, NET_SITE_REORDER, index=cidx)
-                < prng.f32(cfg.nem_reorder_rate)
+                < (_scaled_rate(cfg.nem_reorder_rate, ctl, "reorder")
+                   if triage else prng.f32(cfg.nem_reorder_rate))
             )
             extra = prng.randint(
                 net_key, NET_SITE_REORDER_EXTRA, 0,
@@ -1363,8 +1550,9 @@ class BatchedSim:
             lat = torch.where(rcoin, lat + extra, lat)
             reorder_fires = rcoin.sum(dim=1, dtype=i32)
         if spike_on:
+            spike_open = spiking & spike_en if triage else spiking
             lat = torch.where(
-                spiking[:, None], lat + cfg.nem_spike_extra_us, lat
+                spike_open[:, None], lat + cfg.nem_spike_extra_us, lat
             )
         if self._B:
             # the heavy-tail straggler coin: a surviving message sometimes
@@ -1490,31 +1678,34 @@ class BatchedSim:
         # -- 6b. chaos fire counts
         cols = [zl] * len(FIRE_KINDS)
         if any_crash:
-            cols[FIRE_INDEX["crash"]] = do_crash.to(i32)
-            cols[FIRE_INDEX["restart"]] = do_restart.to(i32)
+            cols[FIRE_INDEX["crash"]] = ap_crash.to(i32)
+            cols[FIRE_INDEX["restart"]] = ap_restart.to(i32)
             if cfg.nem_crash_enabled and cfg.nem_crash_wipe_rate > 0:
-                cols[FIRE_INDEX["wipe"]] = (do_crash & wipe_coin).to(i32)
+                ap_wipe = ap_crash & wipe_coin
+                if triage:
+                    ap_wipe = ap_wipe & _clause_on(ctl, "wipe")
+                cols[FIRE_INDEX["wipe"]] = ap_wipe.to(i32)
         if cfg.any_partition_enabled:
-            cols[FIRE_INDEX["partition"]] = do_split.to(i32)
-            cols[FIRE_INDEX["heal"]] = do_heal.to(i32)
+            cols[FIRE_INDEX["partition"]] = ap_split.to(i32)
+            cols[FIRE_INDEX["heal"]] = ap_heal.to(i32)
         if clog_on:
-            cols[FIRE_INDEX["clog"]] = do_clog.to(i32)
+            cols[FIRE_INDEX["clog"]] = ap_clog.to(i32)
         if spike_on:
-            cols[FIRE_INDEX["spike"]] = do_spike.to(i32)
+            cols[FIRE_INDEX["spike"]] = ap_spike.to(i32)
         if reconf_on:
-            cols[FIRE_INDEX["remove"]] = do_remove.to(i32)
-            cols[FIRE_INDEX["join"]] = do_join.to(i32)
+            cols[FIRE_INDEX["remove"]] = ap_remove.to(i32)
+            cols[FIRE_INDEX["join"]] = ap_join.to(i32)
         if disk_on:
-            cols[FIRE_INDEX["disk_slow"]] = do_dslow.to(i32)
-            cols[FIRE_INDEX["disk_crash"]] = do_dcrash.to(i32)
-            cols[FIRE_INDEX["disk_recover"]] = do_drecover.to(i32)
+            cols[FIRE_INDEX["disk_slow"]] = ap_dslow.to(i32)
+            cols[FIRE_INDEX["disk_crash"]] = ap_dcrash.to(i32)
+            cols[FIRE_INDEX["disk_recover"]] = ap_drecover.to(i32)
         cols[FIRE_INDEX["loss"]] = loss_drops
         cols[FIRE_INDEX["dup"]] = dup_fires
         cols[FIRE_INDEX["reorder"]] = reorder_fires
         fires = state.fires + torch.stack(cols, dim=1)
 
         # clause x occurrence fire bits: a window's bit is set when its
-        # open half applies
+        # open half applies (suppressed occurrences stay unset)
         occ_fired = state.occ_fired
         if occ_fired is not None:
             ocols = [occ_fired[:, i] for i in range(len(OCC_CLAUSES))]
@@ -1526,17 +1717,17 @@ class BatchedSim:
                 ocols[row] = torch.where(fired, ocols[row] | bit, ocols[row])
 
             if cfg.nem_crash_enabled:
-                occ_mark(OCC_ROW["crash"], do_crash, nst.crash_k)
+                occ_mark(OCC_ROW["crash"], ap_crash, nst.crash_k)
             if cfg.nem_partition_enabled:
-                occ_mark(OCC_ROW["partition"], do_split, nst.part_k)
+                occ_mark(OCC_ROW["partition"], ap_split, nst.part_k)
             if clog_on:
-                occ_mark(OCC_ROW["clog"], do_clog, nst.clog_k)
+                occ_mark(OCC_ROW["clog"], ap_clog, nst.clog_k)
             if spike_on:
-                occ_mark(OCC_ROW["spike"], do_spike, nst.spike_k)
+                occ_mark(OCC_ROW["spike"], ap_spike, nst.spike_k)
             if reconf_on:
-                occ_mark(OCC_ROW["reconfig"], do_remove, nst.reconfig_k)
+                occ_mark(OCC_ROW["reconfig"], ap_remove, nst.reconfig_k)
             if disk_on:
-                occ_mark(OCC_ROW["disk"], do_dslow, nst.disk_k)
+                occ_mark(OCC_ROW["disk"], ap_dslow, nst.disk_k)
             occ_fired = torch.stack(ocols, dim=1)
 
         # -- 7. invariants + lane lifecycle
@@ -1550,7 +1741,12 @@ class BatchedSim:
         violation_step = torch.where(
             new_violation, state.steps, state.violation_step
         )
-        eh, oh = divmod(int(cfg.horizon_us), REBASE_US)
+        # horizon in (epoch, offset) space; triage lanes carry their own
+        # (the shrinker's time-truncation axis)
+        if triage:
+            eh, oh = ctl.h_epoch, ctl.h_off
+        else:
+            eh, oh = divmod(int(cfg.horizon_us), REBASE_US)
         reached_horizon = (state.epoch > eh) | (
             (state.epoch == eh) & (clock >= oh)
         )
@@ -1602,7 +1798,7 @@ class BatchedSim:
                 for f in spec.time_fields
             })
 
-        return SimState(
+        new_state = SimState(
             clock=clock,
             epoch=epoch,
             key=key,
@@ -1645,8 +1841,57 @@ class BatchedSim:
                 kind=new_kind,
                 payload=new_payload,
             ),
-            strag=new_strag, nem=new_nem, ctl=None, cov=None, lin=None,
+            strag=new_strag, nem=new_nem, ctl=state.ctl, cov=None, lin=None,
             queue=None, refill=None,
+        )
+        if not record:
+            return new_state
+
+        # the step's trace record: effects only (suppressed triage
+        # occurrences leave no row), event times in the post-rebase basis
+        def none(dtype=i32):
+            return torch.full((L,), -1 if dtype == i32 else False,
+                              dtype=dtype, device=self.device)
+
+        def node_or_none(fired, node):
+            return torch.where(fired, node, -1)
+
+        rec = dict(
+            crash=none(), restart=none(), split=none(torch.bool),
+            heal=none(torch.bool), side_mask=zl, clog_src=none(),
+            clog_dst=none(), unclog=none(torch.bool),
+            spike_on=none(torch.bool), spike_off=none(torch.bool),
+            remove=none(), join=none(), disk_slow=none(), disk_crash=none(),
+            disk_recover=none(), disk_torn=none(torch.bool),
+        )
+        if any_crash:
+            rec.update(crash=node_or_none(ap_crash, victim),
+                       restart=node_or_none(ap_restart, restart_node))
+        if cfg.any_partition_enabled:
+            rec.update(
+                split=ap_split, heal=ap_heal,
+                side_mask=(side.to(i32) * (1 << narange)).sum(dim=1, dtype=i32),
+            )
+        if clog_on:
+            rec.update(clog_src=node_or_none(ap_clog, src_d),
+                       clog_dst=node_or_none(ap_clog, dst_d), unclog=ap_unclog)
+        if spike_on:
+            rec.update(spike_on=ap_spike, spike_off=ap_unspike)
+        if reconf_on:
+            rec.update(remove=node_or_none(ap_remove, victim_d),
+                       join=node_or_none(ap_join, join_node))
+        if disk_on:
+            rec.update(
+                disk_slow=node_or_none(ap_dslow, dvictim),
+                disk_crash=node_or_none(ap_dcrash, dvictim),
+                disk_recover=node_or_none(ap_drecover, dvictim),
+                disk_torn=(ap_dcrash | ap_drecover) & torn,
+            )
+        return new_state, TraceRecord(
+            clock=clock, epoch=epoch, t_evt=t_evt - shift[:, None],
+            msg_fired=has_msg, msg_src=m_src, msg_kind=m_kind,
+            msg_payload=m_pay, timer_fired=due_t,
+            violation=new_violation, deadlock=deadlocked, **rec,
         )
 
     def _fresh(self, rkeys, t_next, skew_ppm=None):
@@ -1695,13 +1940,15 @@ class BatchedSim:
     def run(
         self, seeds, max_steps: int = 100_000,
         dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+        ctl: Optional[TriageCtl] = None,
     ) -> SimState:
-        """Run lanes until every lane is done (or max_steps)."""
+        """Run lanes until every lane is done (or max_steps). `ctl` gives
+        a triage sim's lanes their shrink controls."""
         if dispatch_steps <= 0:
             raise ValueError(
                 f"dispatch_steps must be positive, got {dispatch_steps}"
             )
-        return self.run_state(self.init(seeds), max_steps, dispatch_steps)
+        return self.run_state(self.init(seeds, ctl), max_steps, dispatch_steps)
 
     def run_state(
         self, state: SimState, max_steps: int,
@@ -1729,6 +1976,66 @@ class BatchedSim:
         for _ in range(n_steps):
             state = self._step(state)
         return state
+
+    def run_traced(
+        self, seed: int, max_steps: int = 20_000,
+        ctl: Optional[TriageCtl] = None,
+    ):
+        """Re-run one seed with full event capture (the violation
+        microscope): (final state, TraceRecord with [T, 1, ...] leaves) of
+        exactly T = max_steps ungated steps, the JAX face's traced scan.
+        The records come out of the same step a sweep runs, so the traced
+        lane is the batch lane's trajectory. `ctl` (triage sims) traces a
+        shrunk candidate."""
+        state = self.init([seed], ctl)
+        recs = []
+        while len(recs) < max_steps:
+            state, rec = self._step(state, record=True)
+            recs.append(rec)
+            if len(recs) % DONE_CHECK_STEPS == 0 and bool(state.done.all()):
+                break
+        if len(recs) < max_steps:
+            state, tail = self._idle_steps(state, max_steps - len(recs))
+            recs.extend(tail)
+        return state, TraceRecord(*(
+            None if leaves[0] is None else torch.cat(
+                [x.reshape((-1, state.clock.shape[0]) + x.shape[1:])
+                 for x in leaves]
+            )
+            for leaves in zip(*recs)
+        ))
+
+    def _idle_steps(self, state: SimState, n: int):
+        """`n` more ungated steps of a state whose lanes are all done, as
+        (final state, list of [R, L, ...] records). Such a step changes
+        `key` alone (key' = fold(key, 1)) and its record depends on the
+        state and that key only, and lanes never interact, so R such steps
+        run as ONE step of R*L lanes: lane block j holds the state under
+        the key of idle step j. Same step, same records, R times fewer
+        launches."""
+        L = state.clock.shape[0]
+        keys = [int(k) for k in state.key.cpu().tolist()]
+        recs = []
+        left = n
+        while left > 0:
+            R = min(left, IDLE_BLOCK_STEPS.get(self.device.type,
+                                               IDLE_BLOCK_STEPS_DEFAULT))
+            block = []  # [R, L] key chain of these steps
+            for _ in range(R):
+                block.append(keys)
+                keys = [fold32(k, 1) for k in keys]
+            rep_state = tree_map(
+                lambda t: t.repeat((R,) + (1,) * (t.dim() - 1)), state
+            )._replace(key=torch.as_tensor(
+                np.asarray(block, np.int64).reshape(R * L),
+                device=self.device,
+            ))
+            _, rec = self._step(rep_state, record=True)
+            recs.append(rec)
+            left -= R
+        return state._replace(key=torch.as_tensor(
+            np.asarray(keys, np.int64), device=self.device
+        )), recs
 
 
 def abs_time_us(state: SimState) -> np.ndarray:

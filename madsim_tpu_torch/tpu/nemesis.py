@@ -9,15 +9,16 @@ The port of the device face of `madsim_tpu/tpu/nemesis.py`:
   * `coverage_report(summary, cfg)` renders the chaos-coverage line of a
     batch summary, flagging enabled clauses that never fired.
 
-`device_chaos_events` and `assert_device_matches_schedule` need the
-traced step and the pure host schedule, and wait for ROADMAP queue 1
-item 9.
+  * `device_chaos_events(sim, seed)` reads one seed's chaos stream off
+    the traced step, and `assert_device_matches_schedule` holds it equal,
+    event for event, to the plan's pure schedule (occurrence-filtered
+    under a triage ctl): the twin check that survives shrinking.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..nemesis import (
     ClockSkew,
@@ -28,10 +29,12 @@ from ..nemesis import (
     LatencySpike,
     LinkClog,
     MsgLoss,
+    NemesisEvent,
     OCC_CLAUSES,
     Partition,
     Reconfig,
     Reorder,
+    filter_schedule,
 )
 from .spec import SimConfig
 
@@ -115,6 +118,130 @@ def compile_plan(plan: FaultPlan, base: Optional[SimConfig] = None) -> SimConfig
             nem_disk_extra_us=disk.extra_us,
         )
     return dataclasses.replace(cfg, **kw)
+
+
+# normalized comparison tuples: (t_us, kind, a, b); wipe flags, skew ppm
+# and spike magnitudes are schedule-side detail the trace does not carry
+_CHAOS_KINDS = (
+    "crash", "restart", "split", "heal", "clog", "unclog",
+    "spike_on", "spike_off", "remove", "join",
+    "disk_slow", "disk_crash", "disk_recover",
+)
+
+
+def schedule_tuples(
+    events: Sequence[NemesisEvent], horizon_us: Optional[int] = None
+) -> List[Tuple[int, str, int, int]]:
+    """Normalize a pure schedule for stream comparison (skew rows are t=0
+    assignments, not events: compare those through plan.skew_ppm)."""
+    out = []
+    for ev in events:
+        if ev.kind == "skew":
+            continue
+        if horizon_us is not None and ev.t_us >= horizon_us:
+            continue
+        if ev.kind in ("split", "heal"):
+            out.append((ev.t_us, ev.kind, ev.side_mask, -1))
+        elif ev.kind in ("clog", "unclog"):
+            out.append((ev.t_us, ev.kind, ev.node, ev.dst))
+        elif ev.kind in ("spike_on", "spike_off"):
+            out.append((ev.t_us, ev.kind, -1, -1))
+        elif ev.kind in ("disk_crash", "disk_recover"):
+            # the torn flag is part of the stream contract
+            out.append((ev.t_us, ev.kind, ev.node, int(ev.torn)))
+        else:  # crash / restart / remove / join / disk_slow
+            out.append((ev.t_us, ev.kind, ev.node, -1))
+    return out
+
+
+def device_chaos_events(
+    sim, seed: int, max_steps: int = 20_000,
+    horizon_us: Optional[int] = None, ctl=None,
+) -> List[Tuple[int, str, int, int]]:
+    """One seed's schedule-level chaos stream as the engine executed it,
+    in `schedule_tuples` form, read off the traced step. With `horizon_us`
+    (pass the config's horizon) events at or past it are dropped: the
+    engine fires at most one event past the horizon before the lane
+    freezes. `ctl` (triage sims) reads a shrunk candidate's stream."""
+    from .trace import trace_seed
+
+    clog_pair = (-1, -1)
+    out: List[Tuple[int, str, int, int]] = []
+    for ev in trace_seed(sim, seed, max_steps=max_steps, ctl=ctl):
+        if ev.kind not in _CHAOS_KINDS:
+            continue
+        if horizon_us is not None and ev.t_us >= horizon_us:
+            continue
+        if ev.kind in ("crash", "restart", "remove", "join", "disk_slow"):
+            out.append((ev.t_us, ev.kind, ev.node, -1))
+        elif ev.kind in ("disk_crash", "disk_recover"):
+            out.append((ev.t_us, ev.kind, ev.node, int(ev.detail == "torn")))
+        elif ev.kind in ("split", "heal"):
+            out.append((ev.t_us, ev.kind, _side_mask_of(ev), -1))
+        elif ev.kind == "clog":
+            clog_pair = (ev.node, ev.src)
+            out.append((ev.t_us, "clog", ev.node, ev.src))
+        elif ev.kind == "unclog":
+            out.append((ev.t_us, "unclog", clog_pair[0], clog_pair[1]))
+        else:
+            out.append((ev.t_us, ev.kind, -1, -1))
+    return out
+
+
+def _side_mask_of(ev) -> int:
+    """A split event's side-A mask, parsed back from its trace detail
+    (heal events record none: -2)."""
+    if ev.kind == "heal":
+        return -2
+    a = ev.detail.split("|")[0].strip()
+    mask = 0
+    for tok in a.strip("[] ").split(","):
+        tok = tok.strip()
+        if tok:
+            mask |= 1 << int(tok)
+    return mask
+
+
+def assert_device_matches_schedule(
+    sim, plan: FaultPlan, seed: int, horizon_us: int,
+    max_steps: int = 20_000, ctl=None, occ_off=None,
+) -> int:
+    """The twin check: the engine's chaos stream for `seed` equals the pure
+    schedule event for event (times, kinds, victims, sides, clog pairs)
+    below the horizon; returns the number of compared events. With `ctl`
+    and `occ_off` (triage) the device runs the shrunk candidate and the
+    schedule is occurrence-filtered the same way; pass a plan already
+    stripped of dropped clauses."""
+    want = schedule_tuples(
+        filter_schedule(
+            plan.schedule(seed, horizon_us, sim.spec.n_nodes), occ_off
+        ),
+        horizon_us,
+    )
+    got = device_chaos_events(
+        sim, seed, max_steps=max_steps, horizon_us=horizon_us, ctl=ctl
+    )
+    # heal events carry no mask in the trace, and same-microsecond ties
+    # across clauses come in clause order from the trace but sorted from
+    # the schedule: a sorted compare is order-exact wherever times differ
+    def norm(evs):
+        return sorted(
+            (t, k, -2 if k == "heal" else a, b) for (t, k, a, b) in evs
+        )
+
+    if norm(want) != norm(got):
+        for i, (w, g) in enumerate(zip(norm(want), norm(got))):
+            if w != g:
+                raise AssertionError(
+                    f"chaos stream diverges at event {i}: schedule {w} vs "
+                    f"device {g}\n  full schedule: {want}\n  full device: "
+                    f"{got}"
+                )
+        raise AssertionError(
+            f"chaos stream length mismatch: schedule {len(want)} events vs "
+            f"device {len(got)}\n  schedule: {want}\n  device: {got}"
+        )
+    return len(want)
 
 
 def enabled_fire_kinds(cfg: SimConfig) -> Tuple[str, ...]:

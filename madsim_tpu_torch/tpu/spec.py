@@ -55,6 +55,7 @@ REBASE_US = 1 << 28
 INF_GUARD = 1 << 30
 
 
+
 def derate_horizon(cap_us: int, skew_max_ppm: int) -> int:
     """Derate a narrow-dtype safe horizon for clock skew (timer floors
     shrink by up to max_ppm * 1e-6, so the horizon cap shrinks with them)."""
@@ -442,3 +443,18 @@ class SimConfig:
     @property
     def any_partition_enabled(self) -> bool:
         return self.partition_enabled or self.nem_partition_enabled
+
+
+def simconfig_from_toml(text: str) -> SimConfig:
+    """Parse a SimConfig from its `to_toml` document (round-trip exact).
+    Unknown keys fail loudly: a document from a newer tree must not be
+    half-applied."""
+    import tomllib
+
+    doc = tomllib.loads(text)
+    unknown = set(doc) - {f.name for f in dataclasses.fields(SimConfig)}
+    if unknown:
+        raise ValueError(
+            f"SimConfig TOML: unknown SimConfig fields {sorted(unknown)}"
+        )
+    return SimConfig(**doc)

@@ -97,3 +97,19 @@ def test_third_slice_paths_card_equals_cpu(cuda_device, name):
     assert set(card) == set(cpu)
     for k in cpu:
         np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_card_shrink_bundle_matches_pinned_digest(cuda_device):
+    """The planted re-stamp shrink on the card writes the bundle whose
+    digest the CPU tests hold equal to the JAX face's."""
+    import chip_smoke
+    from madsim_tpu_torch import triage
+    from madsim_tpu_torch.tpu.digest import PINNED_BUNDLE, bundle_digest
+
+    seed, sha = PINNED_BUNDLE
+    sr = triage.shrink_seed(chip_smoke.triage_workload(), seed,
+                            spec_ref=chip_smoke.TRIAGE_SPEC_REF,
+                            device=cuda_device)
+    assert sr.dispatches <= 10
+    assert bundle_digest(sr.bundle) == sha

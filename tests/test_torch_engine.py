@@ -233,14 +233,28 @@ def test_construction_refuses_out_of_slice_config(what, kw):
 @pytest.mark.parametrize("opt", ["triage", "coverage", "lineage", "devloop",
                                  "two_handler"])
 def test_construction_refuses_out_of_slice_option(opt):
-    """The observability, triage and device-loop planes stay refused with
-    their ROADMAP item; a two-handler spec (once refused, item 4) runs 40
-    steps leaf-equal to the JAX engine."""
+    """The coverage, lineage and device-loop planes stay refused with their
+    ROADMAP item; a two-handler spec (once refused, item 4) and a triage
+    sim with its default ctl (once refused, item 10) run 40 steps
+    leaf-equal to the JAX engine (the ctl's float32 rate scales compared
+    exactly)."""
     from madsim_tpu.tpu.spec import replace_handlers as jax_replace_handlers
     from madsim_tpu_torch.tpu.spec import replace_handlers
 
     spec, cfg = make_raft_spec(5), SimConfig(horizon_us=1_000_000)
     kw = {"device": "cpu"}
+    if opt == "triage":
+        jst = JaxSim(jax_raft_spec(5), JaxConfig(horizon_us=1_000_000),
+                     triage=True).run(jnp.arange(8, dtype=jnp.uint32),
+                                      max_steps=40, dispatch_steps=40)
+        pst = BatchedSim(spec, cfg, triage=True, **kw).run(
+            range(8), max_steps=40, dispatch_steps=40)
+        want = {k: np.asarray(v).astype(
+                    np.float64 if np.asarray(v).dtype.kind == "f" else np.int64)
+                for k, v in named_leaves(jst)}
+        assert any(k.startswith("ctl.") for k in want)
+        assert_leaves_equal(want, state_to_numpy(pst), opt)
+        return
     if opt == "two_handler":
         jspec = jax_raft_spec(5)
         jspec = jax_replace_handlers(jspec, on_message=jspec.on_message)

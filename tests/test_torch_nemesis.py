@@ -135,11 +135,18 @@ def test_plan_validation_raises_the_same(name, clauses):
 
 
 def test_host_faces_refused_with_item():
-    plan = storm(tn)
-    for call in (lambda: plan.schedule(1, 1_000_000, 5),
-                 lambda: plan.skew_ppm(1, 5), lambda: plan.to_net_config()):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    """The pure schedule faces are ported (item 9): `schedule` and
+    `skew_ppm` equal the JAX package's for the storm plan; the host
+    runtime's network face stays refused."""
+    plan, jplan = storm(tn), storm(jn)
+    for seed in (1, 7):
+        assert plan.skew_ppm(seed, 5) == jplan.skew_ppm(seed, 5)
+        got = [dataclasses.asdict(e) for e in plan.schedule(seed, 5_000_000, 5)]
+        want = [dataclasses.asdict(e)
+                for e in jplan.schedule(seed, 5_000_000, 5)]
+        assert got == want and len(got) > 10
+    with pytest.raises(NotImplementedError, match="host runtime"):
+        plan.to_net_config()
 
 
 # ------------------------------------------------------- integer + coins
