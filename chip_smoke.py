@@ -7,8 +7,8 @@ Run from the repo root on a machine with one CUDA card:
 It drives the port's main path — the 5-node Raft fuzz sweep through
 `BatchedSim.run` and `summarize`, then FaultPlan chaos, the four other
 workloads, the membership, durability and straggler paths with their
-workloads, and the triage path (trace, shrink, replay) — and checks it, in
-ten phases:
+workloads, the triage path (trace, shrink, replay), and continuous
+batching with the coverage plane — and checks it, in eleven phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -27,7 +27,7 @@ ten phases:
    later steps): torch.profiler over 20 steady steps at 32768 lanes —
    kernels launched per step, device idle share, top device kernels — and
    the same steps with and without deterministic mode's
-   uninitialized-memory fills, leaves equal; phases 6-10 then run without
+   uninitialized-memory fills, leaves equal; phases 6-11 then run without
    the fills;
 6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
    its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
@@ -68,12 +68,25 @@ ten phases:
    shrink_on_violation=True)`. The first violating seed is traced (its
    final state equals its batch lane in every leaf but `key`, its
    TraceRecord stream equals the CPU's leaf for leaf, and its events end
-   in VIOLATION at the lane's violation step), shrunk in at most 10
-   batched dispatches into a bundle whose digest is
+   in VIOLATION at the lane's violation step), shrunk by the default refill
+   evaluator in at most 10 batched dispatches into a bundle whose digest is
    `digest.PINNED_BUNDLE`, replayed twice by `repro.replay_device` at the
    bundle's step and time, and its shrunk plan passes the twin schedule
    check under the bundle's ctl. A triage sim under the default ctl
-   reproduces phase 2's bench run leaf for leaf (ctl aside).
+   reproduces phase 2's bench run leaf for leaf (ctl aside);
+11. continuous batching (after phase 10, before phase 8): the spread mix
+   (`digest.spread_mix`, after `madsim_tpu/tune.py:499-552`: Crash + 5%
+   loss, one admission in 8 at the 1-virtual-second horizon, the rest at
+   a tenth of it; triage and coverage on). 32768 admissions run as one
+   32768-lane chunked reference and as refill sweeps over 512 lanes (held
+   to occupancy >= 0.90 and a lane-step advantage >= 2.0 over the chunked
+   path at chunk 512) and over 4096 lanes (ungated; dropped, and said so,
+   when the probe says the phase would overrun its budget); every
+   per-admission row of each sweep equals the chunked reference's. The
+   pinned 256-admission refill run is leaf-equal card/CPU (queue and log
+   included) and its row digest is `digest.PINNED_REFILL`; 20 bench steps
+   at 32768 lanes with coverage off and on give coverage's step cost, with
+   every non-cov leaf equal.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -141,15 +154,37 @@ PHASE9_STEPS = {
     "wal_correct": 1194, "wal_buggy": 2387,
     "twopc_tail_correct": 2071, "twopc_tail_buggy": 2087,
 }
-# phase 9's runs must end by then (its two 64-lane card/CPU parity runs
-# and phase 10's at most PHASE10_BUDGET_S follow); phase 8 then gets what
-# is left of TARGET_S
+# phase 9's runs must end by then (its two 64-lane card/CPU parity runs,
+# phase 10's at most PHASE10_BUDGET_S and phase 11's PHASE11_BUDGET_S
+# follow); phase 8 then gets what is left of TARGET_S
 PHASE10_BUDGET_S = 200.0
-PHASE9_END_S = 960.0 - PHASE10_BUDGET_S
+PHASE11_BUDGET_S = 60.0
+PHASE9_END_S = 960.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
 # phase 10: the triage sweep's seeds, and the spec reference its bundle
 # carries (resolved from the repo root by repro.resolve_spec)
 TRIAGE_SEEDS = 24
 TRIAGE_SPEC_REF = "chip_smoke:planted_restamp_spec"
+# phase 11: the refill spread mix (digest.spread_mix) at the JAX smoke's
+# horizon, its admissions, the refill lanes held to the occupancy floor,
+# the wider lane count run beside them (ungated: at 8 waves the drain tail
+# of the last long admissions keeps its occupancy low), and the
+# per-admission step budget
+REFILL_H_US = 1_000_000
+REFILL_ADMISSIONS = 32768
+REFILL_LANES = 512
+REFILL_WIDE_LANES = 4096
+REFILL_MAX_STEPS = 50_000
+# iterations of each refill sweep and steps of the chunked reference (this
+# script's CPU rehearsal: per-seed step counts do not depend on lanes, and
+# a list-scheduling model of them gives the refill engine's iterations
+# exactly), to estimate the phase's wall from a probed step
+REFILL_EST_STEPS = {REFILL_LANES: 1037, REFILL_WIDE_LANES: 187,
+                    "chunked": 129}
+# the bars: occupancy (the JAX smoke's floor) and the lane-step advantage
+# over the chunked path at chunk = REFILL_LANES
+REFILL_OCCUPANCY_FLOOR = 0.90
+REFILL_ADVANTAGE_FLOOR = 2.0
+COV_STEPS = 20
 # the buggy run whose seeds 0..63 are held against a 64-lane run (the
 # two-handler path and the straggler pool; one such run fits the time)
 PHASE9_INDEPENDENCE = "twopc_tail"
@@ -465,7 +500,7 @@ def main() -> dict:
     # -- 5. profile over steady steps, in a child process: a CUDA profiler
     # session leaves its process's later host steps slower (PERF.md,
     # section 5), so the process that profiles is not the one that runs
-    # phases 6-10
+    # phases 6-11
     child = subprocess.run(
         [sys.executable, os.path.abspath(__file__), PROFILE_FLAG,
          str(virtual_secs), str(head["step_ms"])],
@@ -503,12 +538,13 @@ def main() -> dict:
     import torch.utils.deterministic as tdet
 
     tdet.fill_uninitialized_memory = False
-    phase(5, "phases 6-10 run with uninitialized-memory fills off")
+    phase(5, "phases 6-11 run with uninitialized-memory fills off")
     report["profile"] = prof_out
     report["golden"] = phase6_golden(cuda)
     report["storm"] = phase7_storm(cuda)
     report["membership"] = phase9_membership(cuda)
     report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
+    report["refill"] = phase11_refill(cuda, card)
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
     return report
@@ -736,8 +772,10 @@ def phase8_workloads(cuda) -> dict:
         sim = BatchedSim(wl.spec, wl.config, device=cuda)
         ms = probe(sim, lanes)[0]
         est_s = est_steps[name] * ms / 1e3
-        budget_s = (TARGET_S - (time.perf_counter() - T_START)) / (
-            len(WORKLOADS) - i)
+        # each run also spends ~5 s outside its timed sweep (probe, build,
+        # summary), which the split keeps back
+        left = len(WORKLOADS) - i
+        budget_s = (TARGET_S - (time.perf_counter() - T_START)) / left - 5.0
         cut = ""
         if est_s > budget_s:
             virtual_secs = max(1.0, round(10.0 * budget_s / est_s, 1))
@@ -1022,13 +1060,14 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         setattr(sim, name, wrapped)
 
     # the sweep's and the shrinker's sims, pre-built so the trace leg's
-    # (state, records) and the shrink's batched dispatches (its run calls;
-    # its traced tail steps without run) can be read and timed
+    # (state, records) and the shrink's batched dispatches (the default
+    # refill evaluator's run_refill calls; its traced tail steps without
+    # them) can be read and timed
     sim = BatchedSim(wl.spec, wl.config, device=cuda)
     tsim = BatchedSim(wl.spec, wl.config, triage=True, device=cuda)
     traced, dispatched = [], []
     timed_calls(sim, "run_traced", traced)
-    timed_calls(tsim, "run", dispatched)
+    timed_calls(tsim, "run_refill", dispatched)
     log = []
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_bundles-")
     try:
@@ -1121,7 +1160,7 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         check(found is not None, f"triage: unexpected shrink report {last!r}")
         atoms_before, atoms_after, dispatches = map(int, found.groups())
         dispatch_s = [wall for _, wall in dispatched]
-        dispatch_steps = [int(st.steps.max()) for st, _ in dispatched]
+        dispatch_steps = [int(st.refill.iters) for st, _ in dispatched]
         check(dispatches == len(dispatch_s) and dispatches <= 10,
               f"triage: {dispatches} dispatches reported, {len(dispatch_s)} "
               "counted; at most 10 allowed")
@@ -1133,7 +1172,8 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         check(dg == PINNED_BUNDLE[1],
               f"triage: bundle digest {dg} != pinned {PINNED_BUNDLE[1]}")
         phase(10, f"shrink: {atoms_before} atoms -> {atoms_after} in "
-                  f"{dispatches} dispatches of {dispatch_steps} steps "
+                  f"{dispatches} refill dispatches of {dispatch_steps} "
+                  f"iterations "
                   f"({[round(x, 3) for x in dispatch_s]} s), "
                   f"{sum(dispatch_s) / dispatches * 1e3:.3f} ms/dispatch, "
                   f"{sum(dispatch_s) / sum(dispatch_steps) * 1e3:.3f} "
@@ -1183,6 +1223,175 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         "phase_s": time.perf_counter() - t_phase,
     }
 
+
+def phase11_refill(cuda, card: str) -> dict:
+    """Continuous batching on the card: the spread mix's refill sweeps at
+    REFILL_LANES (held to the occupancy and lane-step bars) and at
+    REFILL_WIDE_LANES (dropped, and said so, when the probe says the phase
+    would overrun), each against the chunked reference's rows; the pinned
+    small refill run card against CPU; coverage's step cost on the bench
+    config. Its summary line names the card."""
+    from madsim_tpu_torch.tpu import BatchedSim, make_raft_spec
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.digest import (
+        PINNED_REFILL, refill_digest, refill_run, spread_ctl, spread_mix,
+    )
+    from madsim_tpu_torch.tpu.engine import refill_results
+    from madsim_tpu_torch.tpu.raft import raft_bench_config
+
+    t_phase = time.perf_counter()
+    A, h = REFILL_ADMISSIONS, REFILL_H_US
+    spec = make_raft_spec()
+
+    def mix_sim():
+        return BatchedSim(spec, spread_mix(h), triage=True, coverage=True,
+                          device=cuda)
+
+    seeds = np.arange(A, dtype=np.int64)
+    ctl = spread_ctl(h, A)
+
+    # -- the chunked reference: the admissions as lanes of one run
+    csim = mix_sim()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cst = csim.run(seeds, REFILL_MAX_STEPS, ctl=ctl)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    check(bool(cst.done.all()), "refill: the chunked reference hit max_steps")
+    ref = {f: getattr(cst, f).cpu().numpy() for f in (
+        "violated", "deadlocked", "violation_at", "violation_epoch",
+        "violation_step", "steps", "events", "overflow", "dead_drops",
+        "clock", "epoch", "fires", "occ_fired")}
+    ref.update(cov_bitmap=cst.cov.bitmap.cpu().numpy(),
+               cov_hiwater=cst.cov.hiwater.cpu().numpy(),
+               cov_transitions=cst.cov.transitions.cpu().numpy())
+    chunk_steps = int(cst.steps.max())
+    del cst
+    phase(11, f"chunked reference {A} lanes, spread mix at "
+              f"{h / 1e6} virtual s: {chunk_steps} steps in {chunk_s:.3f} s "
+              f"({chunk_s / chunk_steps * 1e3:.3f} ms/step)")
+
+    # -- the refill sweeps; the wide one only when the probe says it fits
+    ms = probe(mix_sim(), REFILL_LANES)[0]
+    # a refill iteration costs ~1.1 probed steps (measured on one H100);
+    # the small card/CPU run and the coverage probes take ~16 s
+    est_s = (REFILL_EST_STEPS[REFILL_LANES] + REFILL_EST_STEPS[
+        REFILL_WIDE_LANES]) * ms * 1.15 / 1e3 + 16.0
+    left_s = PHASE11_BUDGET_S - (time.perf_counter() - t_phase)
+    widths = [REFILL_LANES]
+    if est_s <= left_s:
+        widths.append(REFILL_WIDE_LANES)
+    else:
+        phase(11, f"the {REFILL_WIDE_LANES}-lane sweep is dropped: the "
+                  f"phase's rest was estimated at {est_s:.0f} s of "
+                  f"{left_s:.0f} s left ({ms:.2f} ms/step)")
+    sweeps = {}
+    for L in widths:
+        sim = mix_sim()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sim.run_refill(seeds, lanes=L, max_steps=REFILL_MAX_STEPS,
+                            ctl=ctl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = refill_results(st)
+        del st
+        check(res["truncated"] == 0 and (res["retired"] >= 0).all(),
+              f"refill {L}: {res['truncated']} admissions truncated")
+        bad = [f for f, v in ref.items() if not np.array_equal(v, res[f])]
+        check(not bad, f"refill {L}: rows differ from the chunked "
+                       f"reference: {bad}")
+        steps = ref["steps"].astype(np.int64).reshape(-1, L)
+        chunk_total = int((steps.max(axis=1) * L).sum())
+        row = {
+            "lanes": L, "iters": res["iters"], "wall_s": wall,
+            "ms_per_iter": wall / res["iters"] * 1e3,
+            "admissions_per_s": A / wall, "occupancy": res["occupancy"],
+            "truncated": res["truncated"],
+            "chunked_occupancy": steps.sum() / chunk_total,
+            "lane_step_advantage": chunk_total / res["total_lane_steps"],
+            "host_read_s": sim.refill_read_s,
+            "host_read_ms_per_iter": sim.refill_read_s / res["iters"] * 1e3,
+        }
+        sweeps[L] = row
+        phase(11, f"refill {A} admissions over {L} lanes: {row['iters']} "
+                  f"iterations in {wall:.3f} s ({row['ms_per_iter']:.3f} "
+                  f"ms/iteration; probe {ms:.3f} ms/step at "
+                  f"{REFILL_LANES} lanes), {row['admissions_per_s']:.1f} "
+                  f"admissions/s, occupancy {row['occupancy']:.4f} "
+                  f"(chunked at chunk {L}: {row['chunked_occupancy']:.4f}), "
+                  f"lane-step advantage {row['lane_step_advantage']:.3f}, "
+                  f"truncated {row['truncated']}, host read "
+                  f"{row['host_read_ms_per_iter']:.3f} ms/iteration; "
+                  f"{len(ref)} row fields equal the chunked reference")
+    gated = sweeps[REFILL_LANES]
+    check(gated["occupancy"] >= REFILL_OCCUPANCY_FLOOR,
+          f"refill: occupancy {gated['occupancy']:.4f} < "
+          f"{REFILL_OCCUPANCY_FLOOR}")
+    check(gated["lane_step_advantage"] >= REFILL_ADVANTAGE_FLOOR,
+          f"refill: lane-step advantage {gated['lane_step_advantage']:.3f} "
+          f"< {REFILL_ADVANTAGE_FLOOR}")
+
+    # -- the pinned small refill run, card against CPU
+    rspec, rcfg, rseeds, rctl, rlanes, rmax = refill_run()
+    t0 = time.perf_counter()
+    faces = {}
+    for dev in (cuda, "cpu"):
+        rst = BatchedSim(rspec, rcfg, triage=True, coverage=True,
+                         device=dev).run_refill(rseeds, lanes=rlanes,
+                                                max_steps=rmax, ctl=rctl)
+        faces[str(dev)] = (state_to_numpy(rst), refill_results(rst))
+    small_s = time.perf_counter() - t0
+    (g, gres), (c, cres) = faces[str(cuda)], faces["cpu"]
+    bad = leaves_equal(g, c)
+    check(not bad and "refill.retired" in g and "queue.seeds" in g,
+          f"refill: card and CPU refill states differ: {bad}")
+    dg = refill_digest(gres)
+    check(dg == PINNED_REFILL and refill_digest(cres) == dg,
+          f"refill: row digest {dg} != pinned {PINNED_REFILL}")
+    phase(11, f"pinned refill run {len(rseeds)} admissions over {rlanes} "
+              f"lanes: {len(g)} leaves (queue and log included) equal "
+              f"card/CPU, row digest {dg[:16]} == pinned ({small_s:.3f} s "
+              "for both)")
+
+    # -- coverage's cost: the bench config's steps, off / on / on / off
+    # after one discarded off probe (the first 32768-lane probe also
+    # grows the allocator's cache)
+    kw = dict(n_nodes=5, client_rate=0.1, log_capacity=16)
+    step_ms, states = {False: [], True: []}, {}
+    for i, cov in enumerate((False, False, True, True, False)):
+        ms_cov, cst = probe(BatchedSim(make_raft_spec(**kw),
+                                       raft_bench_config(10.0),
+                                       coverage=cov, device=cuda),
+                            LANES, COV_STEPS)
+        if i:
+            step_ms[cov].append(ms_cov)
+        states[cov] = state_to_numpy(cst)
+        del cst
+    on = {k: v for k, v in states[True].items() if not k.startswith("cov.")}
+    bad = leaves_equal(on, states[False])
+    check(not bad and len(states[True]) == len(on) + 3,
+          f"coverage on/off: non-cov leaves differ: {bad}")
+    cov_ms = statistics.mean(step_ms[True]) - statistics.mean(step_ms[False])
+    phase(11, f"coverage cost, bench config {LANES} lanes x {COV_STEPS} "
+              f"steps: off {[round(x, 3) for x in step_ms[False]]} ms/step, "
+              f"on {[round(x, 3) for x in step_ms[True]]} ms/step "
+              f"({cov_ms:+.3f} ms/step); every non-cov leaf equal")
+    phase(11, f"on {card}: refill over {REFILL_LANES} lanes "
+              f"{gated['admissions_per_s']:.1f} admissions/s at occupancy "
+              f"{gated['occupancy']:.4f}, lane-step advantage "
+              f"{gated['lane_step_advantage']:.3f}, host read "
+              f"{gated['host_read_ms_per_iter']:.3f} ms/iteration; coverage "
+              f"{cov_ms:+.3f} ms/step "
+              f"[{time.perf_counter() - t_phase:.0f} s in phase 11]")
+    return {
+        "h_us": h, "admissions": A, "chunked_s": chunk_s,
+        "chunked_steps": chunk_steps, "probe_step_ms": ms,
+        "sweeps": {str(L): row for L, row in sweeps.items()},
+        "small_run_s": small_s, "small_digest": dg,
+        "cov_off_ms": step_ms[False], "cov_on_ms": step_ms[True],
+        "phase_s": time.perf_counter() - t_phase,
+    }
 
 if __name__ == "__main__":
     if sys.argv[1:2] == [PROFILE_FLAG]:

@@ -5,21 +5,29 @@ from .batch import (  # noqa: F401
     BatchResult,
     BatchViolation,
     BatchWorkload,
+    LaneCoverage,
+    batch_test,
+    pipelined,
     run_batch,
 )
 from .chain import ChainState, chain_workload, make_chain_spec  # noqa: F401
 from .engine import (  # noqa: F401
     BatchedSim,
+    Coverage,
     MsgPool,
     NemesisState,
+    RefillLog,
+    RefillQueue,
     SimState,
     StragPool,
     TraceRecord,
     TriageCtl,
     abs_time_us,
     default_ctl,
+    refill_results,
     scale_delay_ppm,
     summarize,
+    summarize_refill,
 )
 from .isr import IsrState, isr_workload, make_isr_spec  # noqa: F401
 from .kv import (  # noqa: F401
@@ -48,6 +56,7 @@ from .spec import (  # noqa: F401
     fuse_two_handlers,
     pool_kw_for,
     replace_handlers,
+    simconfig_dict_from_toml,
     simconfig_from_toml,
     wraps_event,
 )

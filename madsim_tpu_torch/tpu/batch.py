@@ -1,19 +1,27 @@
 """run_batch: whole seed sweeps as device batches.
 
-The port of `madsim_tpu/tpu/batch.py`'s chunked sweep: every seed becomes a
-lane of one BatchedSim batch (in chunks of `chunk` lanes), and the result
-carries per-seed rows plus the batch summary. A workload's deep
-`lane_check` oracle runs on the violating lanes plus a clean sample. After
-the sweep, the first violating seed can be shrunk into a repro bundle
-(`shrink_on_violation`, madsim_tpu_torch/triage.py), the first
-`max_traces` violating seeds re-run traced (tpu/trace.py), and violating
-seeds re-run on the workload's host reproducer when it has one. Coverage,
-refill, tuning and mesh sharding are later slices (ROADMAP.md queue 1).
+The port of `madsim_tpu/tpu/batch.py`: every seed becomes a lane of a
+BatchedSim batch (in chunks of `chunk` lanes), or, with `refill=<lanes>`,
+an admission of a continuously batched sweep over that many lanes (a lane
+that finishes admits the next queued seed); either way the result carries
+per-seed rows plus the batch summary, equal between the two paths. With
+`coverage=True` it also carries each seed's coverage (`LaneCoverage`). A
+workload's deep `lane_check` oracle runs on the violating lanes plus a
+clean sample (chunked path only). After the sweep, the first violating
+seed can be shrunk into a repro bundle (`shrink_on_violation`,
+madsim_tpu_torch/triage.py), the first `max_traces` violating seeds re-run
+traced (tpu/trace.py), and violating seeds re-run on the workload's host
+reproducer when it has one. `@batch_test` runs the env-configured seed
+range as one sweep, the analog of `#[madsim::test]`. Tuning and mesh
+sharding are later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -22,7 +30,8 @@ import numpy as np
 from ..testing import single_seed_repro_command
 from .convert import state_to_numpy
 from .engine import (
-    BatchedSim, DEFAULT_DISPATCH_STEPS, SimState, _not_ported, summarize,
+    BatchedSim, DEFAULT_DISPATCH_STEPS, SimState, _not_ported,
+    refill_results, summarize, summarize_refill,
 )
 from .nemesis import coverage_report, enabled_fire_kinds
 from .spec import ProtocolSpec, SimConfig
@@ -46,6 +55,38 @@ class BatchWorkload:
     # state, lane indices) -> dict of integer counters incl. "violations"
     lane_check: Optional[Callable[[Any, Sequence[int]], dict]] = None
     lane_check_sample: int = 8
+
+
+def popcount_rows(bitmaps: np.ndarray) -> np.ndarray:
+    """Per-row set-bit counts of a u32 bitmap array [..., COV_WORDS] (a
+    copy of `madsim_tpu/explore.py:popcount_rows`)."""
+    return np.unpackbits(
+        np.ascontiguousarray(bitmaps, np.uint32).view(np.uint8), axis=-1
+    ).sum(axis=-1)
+
+
+@dataclasses.dataclass
+class LaneCoverage:
+    """Per-seed coverage of a sweep (run_batch(coverage=True)), in seed
+    order: each lane's event-class bitmap, its clause x occurrence fire
+    words (None when no schedule clause is enabled), and the scalar
+    features."""
+
+    bitmap: np.ndarray  # u32 [L, engine.COV_WORDS]
+    occ_fired: Optional[np.ndarray]  # u32 [L, len(OCC_CLAUSES)] | None
+    hiwater: np.ndarray  # int32 [L]
+    transitions: np.ndarray  # int32 [L]
+
+    def union_bits(self) -> int:
+        """Distinct event-class bits exercised across all lanes."""
+        return int(popcount_rows(np.bitwise_or.reduce(self.bitmap, axis=0)))
+
+    @classmethod
+    def concat(cls, parts: Sequence[tuple]) -> "LaneCoverage":
+        """Join per-chunk (bitmap, occ_fired, hiwater, transitions)."""
+        cols = list(zip(*parts))
+        return cls(*(None if c[0] is None else np.concatenate(c)
+                     for c in cols))
 
 
 class BatchDeterminismError(AssertionError):
@@ -117,13 +158,19 @@ class BatchResult:
     workload: Optional[BatchWorkload] = None
     bundle: Any = None  # triage.ReproBundle | None
     bundle_path: Optional[str] = None
+    # per-seed coverage (run_batch(coverage=True) only)
+    coverage: Optional[LaneCoverage] = None
     # the sweep loop's wall time in ms (dispatch through the last readback)
     device_ms: float = 0.0
-    # busy lane-steps / lane-steps, each chunk's denominator its longest
-    # lane's step count
+    # busy lane-steps / lane-steps: exact on the refill path (the engine's
+    # counters); on the chunked path each chunk's denominator is its
+    # longest lane's step count
     occupancy: Optional[float] = None
-    retired_step: Optional[np.ndarray] = None  # int32 [L] final step counts
-    violation_step: Optional[np.ndarray] = None  # int32 [L] (-1 = none)
+    # per seed: the step it retired at (refill: the sweep iteration;
+    # chunked: the lane's own final step count) and its first violating
+    # step (-1 = none)
+    retired_step: Optional[np.ndarray] = None  # int32 [L]
+    violation_step: Optional[np.ndarray] = None  # int32 [L]
 
     @property
     def violations(self) -> int:
@@ -166,6 +213,70 @@ class BatchResult:
             )
 
 
+
+
+def pipelined(items, dispatch, decode, serial: bool = False):
+    """Double-buffered dispatch/decode loop, shared by run_batch and the
+    shrinker: item k+1 is dispatched before entry k is decoded, so host
+    decoding overlaps device work, and entries are decoded in item order,
+    so any aggregation in `decode` equals the serial loop's. The first
+    non-None value `decode` returns ends the loop (an in-flight entry is
+    dropped undecoded) and is returned. `serial=True` decodes each entry
+    right after its dispatch."""
+    pending = None
+    for item in items:
+        entry = dispatch(item)
+        if serial:
+            hit = decode(entry)
+            if hit is not None:
+                return hit
+        else:
+            if pending is not None:
+                hit = decode(pending)
+                if hit is not None:
+                    return hit
+            pending = entry
+    if pending is not None:
+        return decode(pending)
+    return None
+
+
+def _fold_summary(totals: dict, weights: dict, s: dict, size: int) -> None:
+    """Fold one chunk's summary into the sweep's totals: minima of first
+    violation steps, maxima of high waters, lane-weighted means, sums of
+    the rest (the refill occupancy is set once, after the loop)."""
+    for k, v in s.items():
+        if not isinstance(v, (int, float)) or k == "occupancy":
+            continue
+        if k == "first_violation_step":
+            totals[k] = min(totals.get(k, v), v)
+        elif k == "coverage_hiwater":
+            totals[k] = max(totals.get(k, v), v)
+        elif k.startswith("mean_"):
+            totals[k] = totals.get(k, 0) + v * size
+            weights[k] = weights.get(k, 0) + size
+        else:
+            totals[k] = totals.get(k, 0) + v
+
+
+def _finish_totals(totals: dict, weights: dict, violated: np.ndarray,
+                   cfg: SimConfig, occupancy: float, sweep_ms: float,
+                   cov: Optional[LaneCoverage]) -> None:
+    """The sweep-wide summary keys both paths add after their loop."""
+    for k, w in weights.items():
+        totals[k] = totals[k] / w
+    totals["violation_lanes"] = np.nonzero(violated)[0].tolist()[:32]
+    totals["n_devices"] = 1
+    if enabled_fire_kinds(cfg):
+        totals["chaos_coverage"] = coverage_report(totals, cfg)
+    totals["device_ms"] = round(sweep_ms, 3)
+    if cov is not None:
+        # the union over all seeds (per-chunk counts would double-count
+        # bits that chunks share)
+        totals["coverage_bits"] = cov.union_bits()
+    totals["occupancy"] = round(occupancy, 4)
+
+
 def run_batch(
     seeds: Sequence[int],
     workload: BatchWorkload,
@@ -176,11 +287,14 @@ def run_batch(
     check_determinism: bool = False,
     shrink_on_violation: bool = False,
     shrink_kwargs: Optional[Dict[str, Any]] = None,
+    pipeline: Optional[bool] = None,
+    coverage: bool = False,
+    refill: Optional[int] = None,
     dispatch_steps: Optional[int] = None,
     sim: Optional[BatchedSim] = None,
     device="cuda",
-    refill: Optional[int] = None,
     mesh: Any = None,
+    tuning: Any = None,
 ) -> BatchResult:
     """Fuzz every seed as device lanes; re-run violating seeds on the host.
 
@@ -190,26 +304,46 @@ def run_batch(
     `shrink_kwargs`; written under triage.default_bundle_dir() unless
     `out_dir` says otherwise) and reports it in BatchViolation; a failed
     shrink warns and keeps the sweep's result. The first `max_traces`
-    violating seeds re-run traced into `result.traces`. `sim` passes a
-    pre-built BatchedSim (it must be built for the workload's spec and
-    config); `device` is used only when run_batch builds the sim.
-    Per-seed results do not depend on `chunk`: no draw folds the lane
-    index."""
+    violating seeds re-run traced into `result.traces`. `pipeline` (default
+    on) dispatches chunk k+1 before decoding chunk k; results are those of
+    the serial loop. `coverage` turns on the coverage plane: the result
+    carries a `LaneCoverage` and the summary a `coverage_bits` union count.
+    `refill=<lanes>` runs each chunk of seeds as the queue of one
+    continuously batched sweep over that many lanes; every per-seed row
+    equals the chunked path's, and `occupancy` is exact. A refill sweep
+    keeps no per-seed final node state, so a workload with a `lane_check`
+    must run chunked. `sim` passes a pre-built BatchedSim (built for the
+    workload's spec and config, with the same coverage); `device` is used
+    only when run_batch builds the sim. Per-seed results do not depend on
+    `chunk` or `refill`: no draw folds the lane index."""
     seeds_arr = np.asarray(list(seeds), dtype=np.uint32)
     if seeds_arr.ndim != 1 or seeds_arr.size == 0:
         raise ValueError("seeds must be a non-empty 1-D sequence")
-    if refill:
-        raise _not_ported("run_batch(refill=...)", "item 11")
+    if tuning is not None:
+        raise _not_ported("run_batch(tuning=...)", "item 12")
     if mesh is not None:
         raise _not_ported("run_batch(mesh=...)", "item 14")
     chunk = DEFAULT_CHUNK if chunk is None else int(chunk)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    pipeline = True if pipeline is None else bool(pipeline)
+    refill = int(refill or 0)
+    if refill and workload.lane_check is not None:
+        raise ValueError(
+            "run_batch(refill=...) keeps no per-admission node state, so "
+            "lane_check deep oracles cannot run — use the chunked path "
+            "(refill=0) or strip the workload's lane_check"
+        )
     if dispatch_steps is None:
         dispatch_steps = DEFAULT_DISPATCH_STEPS
     cfg = workload.config or SimConfig()
     if sim is None:
-        sim = BatchedSim(workload.spec, cfg, device=device)
+        sim = BatchedSim(workload.spec, cfg, coverage=coverage, device=device)
+    elif sim.coverage != bool(coverage):
+        raise ValueError(
+            f"run_batch(coverage={coverage}) with a pre-built sim whose "
+            f"coverage={sim.coverage} — build the sim to match"
+        )
     elif sim.spec is not workload.spec or sim.config.hash() != cfg.hash():
         raise ValueError(
             "run_batch(sim=...) was built for a different (spec, config) "
@@ -217,30 +351,41 @@ def run_batch(
             f"cfg={sim.config.hash()[:12]} but the workload is "
             f"{workload.spec.name!r} cfg={cfg.hash()[:12]}"
         )
+    if refill:
+        return _run_batch_refill(
+            seeds_arr, workload, sim, refill, chunk=chunk, pipeline=pipeline,
+            coverage=coverage, check_determinism=check_determinism,
+            repro_on_host=repro_on_host, max_host_repros=max_host_repros,
+            max_traces=max_traces, shrink_on_violation=shrink_on_violation,
+            shrink_kwargs=shrink_kwargs, dispatch_steps=dispatch_steps,
+        )
 
     violated_parts: List[np.ndarray] = []
     deadlocked_parts: List[np.ndarray] = []
     vstep_parts: List[np.ndarray] = []
     steps_parts: List[np.ndarray] = []
+    cov_parts: List[tuple] = []
     occ_num = occ_den = 0
     state: Optional[SimState] = None
     totals: Dict[str, Any] = {}
     weights: Dict[str, int] = {}
     t_sweep = time.perf_counter()
 
-    for off in range(0, seeds_arr.size, chunk):
+    def dispatch(off: int):
         part = seeds_arr[off: off + chunk]
         st = sim.run(
             part, max_steps=workload.max_steps, dispatch_steps=dispatch_steps
         )
-        if check_determinism:
-            rerun = sim.run(
-                part, max_steps=workload.max_steps,
-                dispatch_steps=dispatch_steps,
-            )
-            _assert_runs_bitwise_equal(
-                st, rerun, f"seeds[{off}:{off + part.size}]"
-            )
+        rerun = sim.run(
+            part, max_steps=workload.max_steps, dispatch_steps=dispatch_steps
+        ) if check_determinism else None
+        return off, part.size, st, rerun
+
+    def decode(entry) -> None:
+        nonlocal state, occ_num, occ_den
+        off, size, st, rerun = entry
+        if rerun is not None:
+            _assert_runs_bitwise_equal(st, rerun, f"seeds[{off}:{off + size}]")
         state = st
         violated_parts.append(st.violated.cpu().numpy())
         deadlocked_parts.append(st.deadlocked.cpu().numpy())
@@ -249,6 +394,14 @@ def run_batch(
         steps_parts.append(chunk_steps)
         occ_num += int(chunk_steps.astype(np.int64).sum())
         occ_den += int(chunk_steps.max(initial=0)) * chunk_steps.shape[0]
+        if coverage:
+            cov_parts.append((
+                st.cov.bitmap.cpu().numpy().astype(np.uint32),
+                None if st.occ_fired is None
+                else st.occ_fired.cpu().numpy().astype(np.uint32),
+                st.cov.hiwater.cpu().numpy(),
+                st.cov.transitions.cpu().numpy(),
+            ))
         s = summarize(st, workload.spec)
         if workload.lane_check is not None:
             # deep host-side oracle: every violating lane + a clean sample
@@ -261,28 +414,15 @@ def run_batch(
                 for k2, v2 in workload.lane_check(st, picked).items():
                     if isinstance(v2, (int, np.integer)):
                         s["lane_check_" + k2] = int(v2)
-        for k, v in s.items():
-            if not isinstance(v, (int, float)):
-                continue
-            if k == "first_violation_step":
-                totals[k] = min(totals.get(k, v), v)
-            elif k.startswith("mean_"):
-                totals[k] = totals.get(k, 0) + v * part.size
-                weights[k] = weights.get(k, 0) + part.size
-            else:
-                totals[k] = totals.get(k, 0) + v
-    for k, w in weights.items():
-        totals[k] = totals[k] / w
-    sweep_ms = (time.perf_counter() - t_sweep) * 1e3
+        _fold_summary(totals, weights, s, size)
 
+    pipelined(range(0, seeds_arr.size, chunk), dispatch, decode,
+              serial=not pipeline)
+    sweep_ms = (time.perf_counter() - t_sweep) * 1e3
     violated = np.concatenate(violated_parts)
-    totals["violation_lanes"] = np.nonzero(violated)[0].tolist()[:32]
-    totals["n_devices"] = 1
-    if enabled_fire_kinds(cfg):
-        totals["chaos_coverage"] = coverage_report(totals, cfg)
-    totals["device_ms"] = round(sweep_ms, 3)
+    cov = LaneCoverage.concat(cov_parts) if coverage else None
     occupancy = occ_num / occ_den if occ_den else 1.0
-    totals["occupancy"] = round(occupancy, 4)
+    _finish_totals(totals, weights, violated, cfg, occupancy, sweep_ms, cov)
     result = BatchResult(
         seeds=seeds_arr,
         violated=violated,
@@ -290,11 +430,25 @@ def run_batch(
         summary=totals,
         state=state,
         workload=workload,
+        coverage=cov,
         device_ms=sweep_ms,
         occupancy=occupancy,
         retired_step=np.concatenate(steps_parts),
         violation_step=np.concatenate(vstep_parts),
     )
+    return _post_sweep(result, sim, workload, shrink_on_violation,
+                       shrink_kwargs, max_traces, repro_on_host,
+                       max_host_repros)
+
+
+def _post_sweep(
+    result: BatchResult, sim: BatchedSim, workload: BatchWorkload,
+    shrink_on_violation: bool, shrink_kwargs: Optional[Dict[str, Any]],
+    max_traces: int, repro_on_host: bool, max_host_repros: int,
+) -> BatchResult:
+    """The tail both paths share: auto-triage, violation traces, host
+    repros. (The JAX face's telemetry leg is not ported: ROADMAP.md queue
+    1, item 9.)"""
     if result.violations and shrink_on_violation:
         # auto-triage of the first violating seed; a triage failure must
         # never eat the primary result (which seeds violated)
@@ -306,7 +460,7 @@ def run_batch(
             warnings.warn(
                 f"shrink_on_violation failed ({type(e).__name__}: {e}); "
                 "reporting the unshrunken violation",
-                stacklevel=2,
+                stacklevel=3,
             )
     if result.violations and max_traces > 0:
         # the microscope: the same step the sweep ran, one lane, traced
@@ -324,3 +478,156 @@ def run_batch(
             except BaseException as e:  # noqa: BLE001 - a raising repro IS a repro
                 result.host_repros[seed] = e
     return result
+
+
+def _run_batch_refill(
+    seeds_arr: np.ndarray, workload: BatchWorkload, sim: BatchedSim,
+    lanes: int, chunk: int, pipeline: bool, coverage: bool,
+    check_determinism: bool, repro_on_host: bool, max_host_repros: int,
+    max_traces: int, shrink_on_violation: bool,
+    shrink_kwargs: Optional[Dict[str, Any]],
+    dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+) -> BatchResult:
+    """run_batch's continuously batched sweep: each `chunk` of seeds is the
+    queue of one `run_refill` over `lanes` lanes, dispatched through the
+    same `pipelined` loop as the chunked path; rows are decoded in
+    admission (= seed) order."""
+    if lanes < 1:
+        raise ValueError(f"refill lane count must be >= 1, got {lanes}")
+    res_parts: List[dict] = []
+    totals: Dict[str, Any] = {}
+    weights: Dict[str, int] = {}
+    occ_num = occ_den = 0
+    state: Optional[SimState] = None
+    t_sweep = time.perf_counter()
+
+    def run_part(part: np.ndarray) -> SimState:
+        return sim.run_refill(part, lanes=lanes, max_steps=workload.max_steps,
+                              dispatch_steps=dispatch_steps)
+
+    def dispatch(off: int):
+        part = seeds_arr[off: off + chunk]
+        st = run_part(part)
+        rerun = run_part(part) if check_determinism else None
+        return off, part.size, st, rerun
+
+    def decode(entry) -> None:
+        nonlocal state, occ_num, occ_den
+        off, size, st, rerun = entry
+        if rerun is not None:
+            _assert_runs_bitwise_equal(
+                st, rerun, f"seeds[{off}:{off + size}] (refill)"
+            )
+        state = st
+        res = refill_results(st)
+        res_parts.append(res)
+        occ_num += res["busy_lane_steps"]
+        occ_den += res["total_lane_steps"]
+        _fold_summary(totals, weights, summarize_refill(res), size)
+
+    pipelined(range(0, seeds_arr.size, chunk), dispatch, decode,
+              serial=not pipeline)
+    sweep_ms = (time.perf_counter() - t_sweep) * 1e3
+
+    def rows(f):
+        return np.concatenate([r[f] for r in res_parts])
+
+    violated = rows("violated")
+    cov = LaneCoverage.concat([
+        (r["cov_bitmap"], r["occ_fired"], r["cov_hiwater"],
+         r["cov_transitions"]) for r in res_parts
+    ]) if coverage else None
+    occupancy = occ_num / occ_den if occ_den else 1.0
+    cfg = workload.config or SimConfig()
+    _finish_totals(totals, weights, violated, cfg, occupancy, sweep_ms, cov)
+    totals["refill_lanes"] = lanes
+    result = BatchResult(
+        seeds=seeds_arr,
+        violated=violated,
+        deadlocked=rows("deadlocked"),
+        summary=totals,
+        state=state,
+        workload=workload,
+        coverage=cov,
+        device_ms=sweep_ms,
+        occupancy=occupancy,
+        retired_step=rows("retired"),
+        violation_step=rows("violation_step"),
+    )
+    return _post_sweep(result, sim, workload, shrink_on_violation,
+                       shrink_kwargs, max_traces, repro_on_host,
+                       max_host_repros)
+
+
+def batch_test(
+    workload: BatchWorkload,
+    default_num: int = 1024,
+    expect_violations: bool = False,
+    shrink_on_violation: bool = False,
+    shrink_kwargs: Optional[Dict[str, Any]] = None,
+    device="cuda",
+):
+    """Decorator: run the env-configured seed range as one sweep on
+    `device` and pass the BatchResult to the test.
+
+        MADSIM_TEST_SEED               first seed (default 0)
+        MADSIM_TEST_NUM                seeds to sweep (default `default_num`)
+        MADSIM_TEST_TIME_LIMIT         virtual-time limit in seconds
+                                       (overrides the workload's horizon)
+        MADSIM_TEST_CONFIG             path to a TOML file of SimConfig
+                                       fields laid over the workload's
+        MADSIM_TEST_CHECK_DETERMINISM  run every chunk twice + compare
+
+    Unless `expect_violations`, a violation raises BatchViolation with the
+    repro seeds (and the bundle, when `shrink_on_violation`).
+
+        @batch_test(raft_workload(), device="cpu")
+        def test_fuzz(result): ...
+    """
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args: Any, **kwargs: Any) -> Any:
+            env = os.environ
+            first = int(env.get("MADSIM_TEST_SEED", "0"))
+            num = int(env.get("MADSIM_TEST_NUM", str(default_num)))
+            check = env.get("MADSIM_TEST_CHECK_DETERMINISM", "") in (
+                "1", "true", "TRUE",
+            )
+            wl = workload
+            overrides: Dict[str, Any] = {}
+            if "MADSIM_TEST_TIME_LIMIT" in env:
+                overrides["horizon_us"] = int(
+                    float(env["MADSIM_TEST_TIME_LIMIT"]) * 1e6
+                )
+            if "MADSIM_TEST_CONFIG" in env:
+                from .spec import simconfig_dict_from_toml
+
+                with open(env["MADSIM_TEST_CONFIG"], encoding="utf-8") as f:
+                    overrides.update(simconfig_dict_from_toml(
+                        f.read(), context="MADSIM_TEST_CONFIG"
+                    ))
+            if overrides:
+                wl = dataclasses.replace(wl, config=dataclasses.replace(
+                    wl.config or SimConfig(), **overrides
+                ))
+            result = run_batch(
+                range(first, first + num), wl, check_determinism=check,
+                shrink_on_violation=shrink_on_violation,
+                shrink_kwargs=shrink_kwargs, device=device,
+            )
+            if not expect_violations:
+                result.raise_on_violation()
+            return fn(result, *args, **kwargs)
+
+        # pytest reads the signature of __wrapped__ and would ask for a
+        # fixture named after the injected first parameter: advertise the
+        # signature without it
+        del wrapper.__wrapped__
+        sig = inspect.signature(fn)
+        wrapper.__signature__ = sig.replace(  # type: ignore[attr-defined]
+            parameters=list(sig.parameters.values())[1:]
+        )
+        return wrapper
+
+    return deco

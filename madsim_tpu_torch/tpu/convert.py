@@ -3,8 +3,9 @@
 A simulator's weights are its state, so this is the port's weight loader:
 `state_from_numpy` takes the leaves of a JAX-face `SimState` as numpy
 arrays, keyed by dotted field path (`"clock"`, `"node.term"`,
-`"msgs.valid_p"`, `"strag.deliver"`, `"dur.log_len"`, ...; absent planes
-simply have no keys) and stored as the
+`"msgs.valid_p"`, `"strag.deliver"`, `"dur.log_len"`, `"cov.bitmap"`,
+`"queue.seeds"`, `"refill.cursor"`, ...; absent planes simply have no
+keys) and stored as the
 JAX face stores them, and builds the port's `SimState` on a device.
 `state_to_numpy` goes the other way, into the same paths with every integer
 value widened to int64 (and the triage ctl's float32 rate scales to
@@ -23,7 +24,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .engine import MsgPool, NemesisState, SimState, StragPool, TriageCtl
+from .engine import (
+    Coverage, MsgPool, NemesisState, RefillLog, RefillQueue, SimState,
+    StragPool, TriageCtl,
+)
 
 _WIDE = {
     np.dtype(np.uint32): torch.int64,
@@ -67,7 +71,8 @@ def state_from_numpy(
             f"{list(node_type._fields)}"
         )
     planes = {"node": node_type, "msgs": MsgPool, "strag": StragPool,
-              "nem": NemesisState, "ctl": TriageCtl}
+              "nem": NemesisState, "ctl": TriageCtl, "cov": Coverage,
+              "queue": RefillQueue, "refill": RefillLog}
     durf = fields("dur")
     if durf:
         planes["dur"] = collections.namedtuple("DurState", durf)

@@ -19,6 +19,12 @@ Raft under Crash + Partition (`chip_smoke.triage_workload`, the bug and
 plan of tests/test_triage.py), seed 0, `spec_ref`
 "chip_smoke:planted_restamp_spec"; tests/test_torch_triage.py holds the
 port's CPU shrink and the JAX face's to it.
+
+`PINNED_REFILL` holds the `refill_digest` (sha256 of the per-admission
+rows of `engine.refill_results`) of `refill_run()`: the continuous-batching
+spread mix (`spread_mix`, after `madsim_tpu/tune.py:499-552`) at 1 virtual
+second, 256 admissions over 16 refill lanes, triage and coverage on.
+tests/test_torch_refill.py computes it from the JAX face's run.
 """
 
 from __future__ import annotations
@@ -29,15 +35,16 @@ import json
 from typing import Dict
 
 import numpy as np
+import torch
 
 from .. import nemesis
-from ..nemesis import FIRE_KINDS
+from ..nemesis import FIRE_KINDS, OCC_CLAUSES, RATE_CLAUSES
 from .chain import make_chain_spec
 from .kv import make_kv_spec
 from .nemesis import compile_plan
 from .paxos import make_paxos_spec
 from .raft import make_raft_spec, raft_bench_config
-from .spec import SimConfig
+from .spec import REBASE_US, SimConfig
 from .twopc import make_twopc_spec
 
 # the FIRE_KINDS prefix width the golden digests were blessed at: later
@@ -158,3 +165,74 @@ def bundle_digest(bundle) -> str:
 PINNED_BUNDLE = (
     0, "73496e75ea62bd1a05db236477dc88caf63c5676b955e4dab411ad748406d741",
 )
+
+
+def spread_mix(horizon_us: int) -> SimConfig:
+    """The continuous-batching headline mix's config
+    (`madsim_tpu/tune.py:spread_mix_sim`): Crash(h/6..h/2, down h/8..h/3)
+    + MsgLoss(0.05) compiled over SimConfig(horizon_us=h), run on the
+    default `make_raft_spec()`."""
+    h = int(horizon_us)
+    plan = nemesis.FaultPlan(name="tune-mix", clauses=(
+        nemesis.Crash(interval_lo_us=h // 6, interval_hi_us=h // 2,
+                      down_lo_us=h // 8, down_hi_us=h // 3),
+        nemesis.MsgLoss(rate=0.05),
+    ))
+    return compile_plan(plan, SimConfig(horizon_us=h))
+
+
+def spread_ctl(horizon_us: int, admissions: int, spread: int = 10,
+               long_every: int = 8):
+    """Per-admission TriageCtl rows of the spread mix
+    (`madsim_tpu/tune.py:spread_ctl_rows`): one admission in `long_every`
+    at the full horizon, the rest at horizon / `spread`; every clause on."""
+    from .engine import TriageCtl
+
+    h = np.where(np.arange(int(admissions)) % int(long_every) == 0,
+                 int(horizon_us), int(horizon_us) // int(spread))
+    n = len(h)
+    return TriageCtl(
+        off=torch.zeros((n,), dtype=torch.int32),
+        occ=torch.zeros((n, len(OCC_CLAUSES)), dtype=torch.int32),
+        rate_scale=torch.ones((n, len(RATE_CLAUSES)), dtype=torch.float32),
+        h_epoch=torch.as_tensor((h // REBASE_US).astype(np.int32)),
+        h_off=torch.as_tensor((h % REBASE_US).astype(np.int32)),
+    )
+
+
+# the pinned refill run: (horizon us, admissions, refill lanes, per-
+# admission step budget)
+REFILL_RUN = (1_000_000, 256, 16, 50_000)
+
+
+def refill_run():
+    """(spec, config, seeds, ctl rows, lanes, max_steps) of the pinned
+    refill run; run it on `BatchedSim(spec, cfg, triage=True,
+    coverage=True)`."""
+    h, admissions, lanes, max_steps = REFILL_RUN
+    return (make_raft_spec(), spread_mix(h), list(range(admissions)),
+            spread_ctl(h, admissions), lanes, max_steps)
+
+
+# refill_results rows the refill digest hashes, in this order
+REFILL_ROWS = (
+    "retired", "violated", "deadlocked", "violation_at", "violation_epoch",
+    "violation_step", "steps", "events", "overflow", "dead_drops",
+    "nonmember_drops", "unsynced_loss", "clock", "epoch", "fires",
+    "occ_fired", "cov_bitmap", "cov_hiwater", "cov_transitions",
+)
+
+
+def refill_digest(res: dict) -> str:
+    """sha256 over a refill sweep's per-admission rows (values as int64)
+    and its occupancy counters."""
+    h = hashlib.sha256()
+    for f in REFILL_ROWS:
+        if res.get(f) is not None:
+            h.update(f.encode())
+            h.update(np.ascontiguousarray(np.asarray(res[f]).astype(np.int64)))
+    h.update(np.asarray([res["iters"], res["busy_lane_steps"]], np.int64))
+    return h.hexdigest()
+
+
+PINNED_REFILL = "23a65be876412c845f03c8a3df7f902b18f5ddf0eef351556e4c110529a6527d"

@@ -30,9 +30,20 @@ bool planes rest packed, as on the JAX face (`alive_p`, `link_ok_p`,
 `member_p`, `msgs.valid_p`); the straggler pool's `valid` stays unpacked,
 as there.
 
-Configurations the port does not carry yet (the coverage, lineage and
-device-loop planes) are refused at construction with the ROADMAP item that
-will port them.
+`BatchedSim(..., coverage=True)` also accumulates each lane's coverage:
+the bitmap of event classes it exercised, its pool-occupancy high water
+and its count of state-changing events (tests/test_torch_coverage.py).
+
+A refill sweep (`init_refill`/`run_refill`, continuous batching) runs a
+queue of admissions over fewer lanes: a lane that violates, reaches its
+horizon or its step budget retires, its result row is harvested, and it
+re-initialises from the next queued seed (and ctl genome) inside the step
+loop. Every admission's row equals the chunked sweep's row for its seed
+(tests/test_torch_refill.py).
+
+Configurations the port does not carry yet (the lineage and device-loop
+planes) are refused at construction with the ROADMAP item that will port
+them.
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
 """
@@ -40,6 +51,7 @@ Every entry point runs on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import collections
+import time
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -85,7 +97,7 @@ from ..nemesis import (
 )
 from .spec import (
     INF_GUARD, INF_US, REBASE_US, HardCap, ProtocolSpec, RateFloor, SimConfig,
-    derate_horizon, expand_to, tree_map, tree_select,
+    derate_horizon, expand_to, popcount, tree_leaves, tree_map, tree_select,
 )
 
 DEFAULT_DISPATCH_STEPS = 10_000
@@ -98,6 +110,15 @@ DONE_CHECK_STEPS = 32
 # with the lanes past ~1024
 IDLE_BLOCK_STEPS = {"cpu": 1024}
 IDLE_BLOCK_STEPS_DEFAULT = 16384
+
+# coverage: each lane ORs one bit per exercised event class into a bitmap
+# of COV_WORDS u32 words; the class is the murmur3 fold of COV_FIELDS from
+# COV_SALT (the JAX face's constants, held equal by
+# tests/test_torch_coverage.py)
+COV_WORDS = 256
+COV_BITS = COV_WORDS * 32
+COV_SALT = 0x5EEDC0DE
+COV_FIELDS = ("node", "src", "kind", "bucket")
 
 
 class MsgPool(NamedTuple):
@@ -181,6 +202,105 @@ class TriageCtl(NamedTuple):
     #           scales (the coin is `u < rate * scale` on the same stream)
     h_epoch: Any  # int32 [L] per-lane horizon, epoch part
     h_off: Any  # int32 [L] per-lane horizon, offset part
+
+
+class Coverage(NamedTuple):
+    """Per-lane coverage accumulators (present iff
+    `BatchedSim(coverage=True)`): the event-class bitmap, the message-pool
+    occupancy high-water mark (main pool + straggler pool), and the count
+    of delivered or timer events whose handler changed the node's state."""
+
+    bitmap: Any  # u32 [L, COV_WORDS]
+    hiwater: Any  # int32 [L]
+    transitions: Any  # int32 [L]
+
+
+class RefillQueue(NamedTuple):
+    """The admission queue of a refill sweep: one row per admission (a
+    seed, and in triage mode its ctl genome). It never changes during the
+    sweep; only `RefillLog.cursor` moves."""
+
+    seeds: Any  # u32 [A]
+    off: Any  # int32 [A] | None (triage only, as the ctl rows below)
+    occ: Any  # int32 [A, len(OCC_CLAUSES)] | None
+    rate_scale: Any  # float32 [A, len(RATE_CLAUSES)] | None
+    h_epoch: Any  # int32 [A] | None
+    h_off: Any  # int32 [A] | None
+
+
+class RefillLog(NamedTuple):
+    """A refill sweep's bookkeeping: the queue cursor, each lane's current
+    admission, the per-admission step budget, the occupancy counters, and
+    the per-admission result rows, written once at the step the admission's
+    lane retires (`refill_results` harvests lanes still live at the end)."""
+
+    cursor: Any  # int32 [] next queue row to admit
+    admitted: Any  # int32 [L] each lane's current admission
+    step_cap: Any  # int32 [] per-admission step budget (the chunked
+    #           path's max_steps: an admission reaching it retires
+    #           truncated)
+    iters: Any  # int32 [] sweep iterations run
+    busy: Any  # int32 [L] active steps per lane
+    retired: Any  # int32 [A] sweep iteration of retirement (-1 = live)
+    violated: Any  # bool [A]
+    deadlocked: Any  # bool [A]
+    violation_at: Any  # int32 [A]
+    violation_epoch: Any  # int32 [A]
+    violation_step: Any  # int32 [A] (the admission's own step count)
+    steps: Any  # int32 [A]
+    events: Any  # int32 [A]
+    overflow: Any  # int32 [A]
+    dead_drops: Any  # int32 [A]
+    nonmember_drops: Any  # int32 [A]
+    unsynced_loss: Any  # int32 [A]
+    clock: Any  # int32 [A]
+    epoch: Any  # int32 [A]
+    fires: Any  # int32 [A, len(FIRE_KINDS)]
+    occ_fired: Any  # u32 [A, len(OCC_CLAUSES)] | None
+    cov_bitmap: Any  # u32 [A, COV_WORDS] | None (coverage sims)
+    cov_hiwater: Any  # int32 [A] | None
+    cov_transitions: Any  # int32 [A] | None
+
+
+# the lane counters a retiring lane's admission row is harvested from
+# (RefillLog field -> SimState field), in RefillLog order
+_HARVEST = (
+    "violated", "deadlocked", "violation_at", "violation_epoch",
+    "violation_step", "steps", "events", "overflow", "dead_drops",
+    "nonmember_drops", "unsynced_loss", "clock", "epoch", "fires",
+)
+
+
+def _harvest_sources(state) -> dict:
+    """RefillLog field -> the [L, ...] lane tensor it is harvested from."""
+    out = {f: getattr(state, f) for f in _HARVEST}
+    if state.occ_fired is not None:
+        out["occ_fired"] = state.occ_fired
+    if state.cov is not None:
+        out.update(cov_bitmap=state.cov.bitmap, cov_hiwater=state.cov.hiwater,
+                   cov_transitions=state.cov.transitions)
+    return out
+
+
+def bit_length32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit length of u32 values (int64 in [0, 2^32)): the JAX face's
+    `32 - clz(x)`, by a 5-step binary search in integers."""
+    n = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        t = x >> s
+        hit = t != 0
+        x = torch.where(hit, t, x)
+        n = n + hit.to(x.dtype) * s
+    return (n + (x != 0).to(x.dtype)).to(torch.int32)
+
+
+def _or_rows(x: torch.Tensor) -> torch.Tensor:
+    """Bitwise OR over dim 0 (torch has no OR reduction): halving."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] | x[h:2 * h]
+        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
+    return x[0]
 
 
 def default_ctl(L: int, horizon_us: int, device="cpu") -> TriageCtl:
@@ -298,10 +418,10 @@ class SimState(NamedTuple):
     strag: Any  # StragPool | None
     nem: Any  # NemesisState | None
     ctl: Any  # TriageCtl | None (BatchedSim(..., triage=True) only)
-    cov: Any  # None (coverage)
+    cov: Any  # Coverage | None (BatchedSim(..., coverage=True) only)
     lin: Any  # None (lineage)
-    queue: Any  # None (refill queue)
-    refill: Any  # None (refill log)
+    queue: Any  # RefillQueue | None (refill sweeps only)
+    refill: Any  # RefillLog | None (refill sweeps only)
     loop: Any = None  # None (device-loop carry)
 
     @property
@@ -381,6 +501,7 @@ class BatchedSim:
         self.spec = spec
         self.config = config or SimConfig()
         self.triage = bool(triage)
+        self.coverage = bool(coverage)
         cfg = self.config
         N = spec.n_nodes
         # -- the JAX face's construction checks that apply to this slice,
@@ -553,8 +674,6 @@ class BatchedSim:
                 f"would go stale): remove {sorted(bad_dur)}"
             )
         # -- valid configurations this slice does not carry yet
-        if coverage:
-            raise _not_ported("BatchedSim(coverage=True)", "item 9")
         if lineage:
             raise _not_ported("BatchedSim(lineage=True)", "item 9")
         if devloop is not None:
@@ -655,6 +774,10 @@ class BatchedSim:
         self._bidx = torch.arange(self._Cb, device=dev)
         if self._B:
             self._sidx = torch.arange(self._B, device=dev)
+        self._warange = torch.arange(COV_WORDS, device=dev)
+        # host seconds refill steps spent in their one device read (the
+        # wait for the step's queued device work included)
+        self.refill_read_s = 0.0
         self.step = self._step
 
     # ------------------------------------------------------------------ init
@@ -807,8 +930,12 @@ class BatchedSim:
                 kind=full((L, CK), 0),
                 payload=full((L, CK, spec.payload_width), 0),
             ),
-            strag=strag, nem=nem, ctl=ctl, cov=None, lin=None, queue=None,
-            refill=None,
+            strag=strag, nem=nem, ctl=ctl,
+            cov=Coverage(
+                bitmap=full((L, COV_WORDS), 0, torch.int64),
+                hiwater=zi, transitions=zi,
+            ) if self.coverage else None,
+            lin=None, queue=None, refill=None,
         )
 
     # ----------------------------------------------- durability watermark
@@ -1752,6 +1879,47 @@ class BatchedSim:
         )
         done = state.done | deadlocked | reached_horizon | violated
 
+        # -- 7b. coverage (coverage sims only), before the rebase so that
+        # shifted time fields do not count as state changes. A delivery's
+        # class is fold(COV_SALT, node, src, kind, bucket), a timer's
+        # fold(COV_SALT, node, -1, -1, 0); bucket = bit_length(payload[0]
+        # as u32). The -1 words are int32, which prng.u32 reads as
+        # 0xFFFFFFFF, as JAX does.
+        cov = state.cov
+        if cov is not None:
+            evt_cov = has_msg | due_t  # [L,N]
+            src_w = torch.where(has_msg, m_src, -1)
+            kind_w = torch.where(has_msg, m_kind, -1)
+            p0 = prng.u32(torch.where(has_msg, m_pay[:, :, 0], 0))
+            bucket = torch.where(has_msg, bit_length32(p0), 0)
+            ck = prng.fold(COV_SALT, node_ids)
+            for w in (src_w, kind_w, bucket):
+                ck = prng.fold(ck, w)
+            idx = prng.mix(ck) % COV_BITS  # [L,N]
+            word = torch.where(evt_cov, idx // 32, -1)  # -1: no event
+            wbit = torch.ones_like(idx) << (idx % 32)
+            # a dense OR per node, as on the JAX face: under deterministic
+            # algorithms a CUDA scatter runs as a sorting index_put, which
+            # stepped slower on one H100 (PERF.md)
+            bm = cov.bitmap
+            for ni in range(N):
+                bm = bm | torch.where(self._warange == word[:, ni:ni + 1],
+                                      wbit[:, ni:ni + 1], 0)
+            occupancy = new_valid.any(dim=1).sum(dim=1, dtype=i32)
+            if self._B:
+                occupancy = occupancy + new_strag.valid.sum(dim=1, dtype=i32)
+            changed = torch.zeros_like(evt_cov)
+            for old_leaf, new_leaf in zip(tree_leaves(node0),
+                                          tree_leaves(node)):
+                changed = changed | (old_leaf != new_leaf).reshape(
+                    L, N, -1).any(dim=2)
+            cov = Coverage(
+                bitmap=bm,
+                hiwater=torch.maximum(cov.hiwater, occupancy),
+                transitions=cov.transitions
+                + (evt_cov & changed).sum(dim=1, dtype=i32),
+            )
+
         # -- 8. epoch rebase: unbounded virtual time, int32 offsets
         do_shift = (~done) & (clock >= REBASE_US)
         shift = torch.where(do_shift, REBASE_US, 0).to(i32)  # [L]
@@ -1841,9 +2009,12 @@ class BatchedSim:
                 kind=new_kind,
                 payload=new_payload,
             ),
-            strag=new_strag, nem=new_nem, ctl=state.ctl, cov=None, lin=None,
-            queue=None, refill=None,
+            strag=new_strag, nem=new_nem, ctl=state.ctl, cov=cov, lin=None,
+            queue=state.queue, refill=state.refill,
         )
+        # -- 9. refill sweeps: retire finished lanes, admit queued work
+        if state.refill is not None:
+            new_state = self._refill_apply(state, new_state, active, gate_key)
         if not record:
             return new_state
 
@@ -1920,6 +2091,158 @@ class BatchedSim:
                 for f in self.spec.time_fields
             })
         return ns, timer
+
+    # ------------------------------------------------- continuous batching
+
+    def _refill_apply(self, state: SimState, ns: SimState,
+                      active: torch.Tensor, gate: bool) -> SimState:
+        """Retire the lanes that finished this step and admit queued work.
+
+        The occupancy counters tick (on a gated step only while some lane
+        was live at its start: the JAX loop would not have run it); an
+        admission at its step budget retires truncated. The JAX face then
+        branches on the device (`lax.cond(any(just))`); here the host
+        reads the retiring lanes, the lanes' admissions and the cursor once
+        per step and, when some lane retires, harvests its counters into
+        its admission's result row and re-initialises the first
+        (A - cursor) retiring lanes, in lane order, from the next queue
+        rows through the real `init`. `init` of those k seeds gives the
+        rows an L-lane init gives them (no draw folds the lane index), and
+        every per-lane leaf is replaced (the queue and the log are not
+        per-lane), so an admission's trajectory is the chunked path's for
+        its seed. Rows move by gather (`index_select`) and `where` on
+        selectors the host builds, not by `index_copy`, which under
+        deterministic algorithms runs on CUDA as a sorting index_put
+        (several times slower per refill step on the card, PERF.md)."""
+        rf, q = state.refill, state.queue
+        dev = ns.done.device
+        L, A = ns.done.shape[0], q.seeds.shape[0]
+        tick = (~state.done).any().to(torch.int32) if gate else 1
+        rf = rf._replace(iters=rf.iters + tick,
+                         busy=rf.busy + active.to(torch.int32))
+        done = ns.done | (ns.steps >= rf.step_cap)
+        ns = ns._replace(done=done)
+        just = done & ~state.done
+        t0 = time.perf_counter()
+        host = torch.cat([just.to(torch.int64), rf.admitted.to(torch.int64),
+                          rf.cursor.reshape(1).to(torch.int64)]).cpu().numpy()
+        self.refill_read_s += time.perf_counter() - t0
+        lanes = np.nonzero(host[:L])[0]
+        if not lanes.size:
+            return ns._replace(refill=rf)
+        admitted, cursor = host[L:2 * L].copy(), int(host[2 * L])
+        n_take = min(lanes.size, A - cursor)
+        take = lanes[:n_take]
+        # selectors, -1 = keep: the lane each result row is harvested from,
+        # and the fresh row each refilled lane takes
+        row_src = np.full(A, -1, np.int64)
+        row_src[admitted[lanes]] = lanes
+        lane_src = np.full(L, -1, np.int64)
+        lane_src[take] = np.arange(n_take)
+        admitted[take] = cursor + np.arange(n_take)
+        sel = torch.as_tensor(np.concatenate([row_src, lane_src, admitted]),
+                              device=dev)
+
+        def mover(src_idx):
+            keep = src_idx < 0
+            idx = src_idx.clamp(min=0)
+            return lambda dst, src: torch.where(
+                expand_to(keep, dst), dst, src.index_select(0, idx))
+
+        harvest = mover(sel[:A])
+        upd = {"retired": harvest(rf.retired, (rf.iters - 1).expand(L))}
+        for f, src in _harvest_sources(ns).items():
+            upd[f] = harvest(getattr(rf, f), src)
+        if n_take > 0:
+            adm = torch.arange(cursor, cursor + n_take, device=dev)
+            ctl = None
+            if self.triage:
+                ctl = TriageCtl(q.off[adm], q.occ[adm], q.rate_scale[adm],
+                                q.h_epoch[adm], q.h_off[adm])
+            fresh = self.init(q.seeds[adm], ctl)
+            lane_only = dict(queue=None, refill=None, loop=None)
+            ns = tree_map(
+                mover(sel[A:A + L]),
+                ns._replace(**lane_only), fresh._replace(**lane_only),
+            )._replace(queue=q, loop=state.loop)
+            upd.update(cursor=rf.cursor + n_take,
+                       admitted=sel[A + L:].to(torch.int32))
+        return ns._replace(refill=rf._replace(**upd))
+
+    def init_refill(self, seeds, lanes: int, ctl: Optional[TriageCtl] = None,
+                    step_cap: int = 100_000) -> SimState:
+        """A refill state: `lanes` lanes fed from a queue of all `seeds`
+        (one admission per seed). Admissions 0..L-1 start resident, the
+        rest admit in retirement order. `ctl` (triage sims) gives every
+        admission its own ctl row; `step_cap` is the per-admission step
+        budget, the chunked path's max_steps. The queue holds copies of
+        the caller's seeds and ctl."""
+        dev = self.device
+        seeds = self._seeds_tensor(seeds)
+        if seeds.dim() != 1 or seeds.shape[0] == 0:
+            raise ValueError("init_refill needs a non-empty 1-D seed array")
+        A = int(seeds.shape[0])
+        L = max(1, min(int(lanes), A))
+        if ctl is not None and not self.triage:
+            raise ValueError(
+                "a refill ctl queue requires BatchedSim(..., triage=True)"
+            )
+        if self.triage:
+            if ctl is None:
+                ctl = default_ctl(A, self.config.horizon_us, dev)
+            if int(ctl.off.shape[0]) != A:
+                raise ValueError(
+                    f"refill ctl has {int(ctl.off.shape[0])} rows for "
+                    f"{A} admissions — one genome per admission"
+                )
+            ctl = TriageCtl(*(t.to(dev).clone() for t in ctl))
+        if step_cap <= 0:
+            raise ValueError(f"step_cap must be positive, got {step_cap}")
+        state = self.init(
+            seeds[:L], None if ctl is None else TriageCtl(*(t[:L] for t in ctl))
+        )
+
+        def full(shape, v=0, dtype=torch.int32):
+            return torch.full(shape, v, dtype=dtype, device=dev)
+
+        queue = RefillQueue(seeds.clone(), *(
+            (None,) * len(TriageCtl._fields) if ctl is None else ctl
+        ))
+        zi = full((A,))
+        log = RefillLog(
+            cursor=full((), L), admitted=torch.arange(L, dtype=torch.int32,
+                                                      device=dev),
+            step_cap=full((), step_cap), iters=full((), 0), busy=full((L,)),
+            retired=full((A,), -1), violated=full((A,), False, torch.bool),
+            deadlocked=full((A,), False, torch.bool),
+            violation_at=full((A,), INF_US), violation_epoch=zi,
+            violation_step=full((A,), -1), steps=zi, events=zi, overflow=zi,
+            dead_drops=zi, nonmember_drops=zi, unsynced_loss=zi, clock=zi,
+            epoch=zi, fires=full((A, len(FIRE_KINDS))),
+            occ_fired=(full((A, len(OCC_CLAUSES)), 0, torch.int64)
+                       if self._occ_track else None),
+            cov_bitmap=(full((A, COV_WORDS), 0, torch.int64)
+                        if self.coverage else None),
+            cov_hiwater=zi if self.coverage else None,
+            cov_transitions=zi if self.coverage else None,
+        )
+        return state._replace(queue=queue, refill=log)
+
+    def run_refill(
+        self, seeds, lanes: int, max_steps: int = 100_000,
+        dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+        ctl: Optional[TriageCtl] = None, total_steps: Optional[int] = None,
+    ) -> SimState:
+        """Run all `seeds` as admissions of one continuously batched sweep
+        over `lanes` lanes; decode with `refill_results` /
+        `summarize_refill`. `max_steps` is the per-admission step budget
+        with the chunked path's semantics (an admission reaching it retires
+        truncated); `total_steps` bounds the sweep's iterations (default
+        max_steps * A, which cannot bind)."""
+        state = self.init_refill(seeds, lanes, ctl, step_cap=max_steps)
+        if total_steps is None:
+            total_steps = int(max_steps) * int(state.queue.seeds.shape[0])
+        return self.run_state(state, total_steps, dispatch_steps)
 
     # ------------------------------------------------------------------ run
 
@@ -2073,7 +2396,7 @@ def _join64(hi, lo) -> int:
 def _summary_reduction(state: SimState) -> dict:
     """Every per-summary reduction, on the device."""
     violated = state.violated
-    return {
+    out = {
         "violations": violated.sum(),
         "deadlocked": state.deadlocked.sum(),
         "events64": _sum64(state.events),
@@ -2095,6 +2418,12 @@ def _summary_reduction(state: SimState) -> dict:
             )) & 1
         ).sum(dim=0),
     }
+    if state.cov is not None:
+        out["cov_union"] = _or_rows(state.cov.bitmap)  # [COV_WORDS]
+        out["cov_union_bits"] = popcount(out["cov_union"]).sum()
+        out["cov_hiwater"] = state.cov.hiwater.amax()
+        out["cov_transitions64"] = _sum64(state.cov.transitions)
+    return out
 
 
 def summarize(state: SimState, spec: Optional[ProtocolSpec] = None) -> dict:
@@ -2136,6 +2465,10 @@ def summarize(state: SimState, spec: Optional[ProtocolSpec] = None) -> dict:
                 n = int(occ_counts[row, k])
                 if n:
                     out[f"occfires_{clause}_k{k}"] = n
+    if state.cov is not None:
+        out["coverage_bits"] = int(red["cov_union_bits"])
+        out["coverage_hiwater"] = int(red["cov_hiwater"])
+        out["coverage_transitions"] = _join64(*red["cov_transitions64"])
     if spec is not None and spec.lane_metrics is not None:
         for name, arr in spec.lane_metrics(state.node).items():
             a = arr.cpu().numpy()
@@ -2143,4 +2476,95 @@ def summarize(state: SimState, spec: Optional[ProtocolSpec] = None) -> dict:
                 out[name] = int(a.sum())
             else:
                 out[name] = float(a.mean())
+    return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def refill_results(state: SimState) -> dict:
+    """Decode a finished refill sweep into per-admission numpy rows, in
+    admission (= seed) order, so they compare row for row with a chunked
+    sweep's lanes. Admissions still live when the sweep's step budget ran
+    out are harvested here from their lane's final state (the chunked
+    path's truncation). Also the lane occupancy: busy lane-steps / lane-
+    steps. The JAX face's keys and dtypes (u32 bitmaps and occurrence
+    words)."""
+    rf = state.refill
+    if rf is None:
+        raise ValueError("refill_results needs a run_refill final state")
+    out = {}
+    for f in ("retired",) + _HARVEST + ("occ_fired", "cov_bitmap",
+                                        "cov_hiwater", "cov_transitions"):
+        v = getattr(rf, f)
+        # copies: the final harvest below writes rows in place
+        out[f] = None if v is None else (
+            _np(v).astype(np.uint32) if f in ("occ_fired", "cov_bitmap")
+            else _np(v).copy()
+        )
+    live = ~_np(state.done)
+    li = _np(rf.admitted)[live]
+    if li.size:
+        for f, src in _harvest_sources(state).items():
+            out[f][li] = _np(src)[live]
+    iters = int(rf.iters)
+    busy = int(_np(rf.busy).astype(np.int64).sum())
+    L = int(rf.busy.shape[0])
+    out.update(
+        admissions=int(out["violated"].shape[0]), lanes=L, iters=iters,
+        busy_lane_steps=busy, total_lane_steps=iters * L,
+        occupancy=busy / max(iters * L, 1), truncated=int(live.sum()),
+    )
+    return out
+
+
+def summarize_refill(res: dict) -> dict:
+    """summarize()'s keys over `refill_results` rows, aggregated over
+    admissions (lane_metrics need final node state, which a refilled lane
+    no longer holds)."""
+    A = int(res["admissions"])
+    violated = res["violated"]
+
+    def total(f):
+        return int(res[f].astype(np.int64).sum())
+
+    out = {
+        "lanes": A,
+        "violations": int(violated.sum()),
+        "violation_lanes": np.nonzero(violated)[0].tolist()[:32],
+        "deadlocked": int(res["deadlocked"].sum()),
+        "total_events": total("events"),
+        "total_overflow": total("overflow"),
+        "total_dead_drops": total("dead_drops"),
+        "total_nonmember_drops": total("nonmember_drops"),
+        "total_unsynced_loss": total("unsynced_loss"),
+        "mean_steps": total("steps") / A,
+        "mean_virtual_secs": (
+            total("epoch") * REBASE_US + total("clock")
+        ) / A / 1e6,
+        "occupancy": round(float(res["occupancy"]), 4),
+    }
+    if out["violations"]:
+        out["first_violation_step"] = int(
+            res["violation_step"][violated].min()
+        )
+    fires = res["fires"].astype(np.int64).sum(axis=0)
+    for i, name in enumerate(FIRE_KINDS):
+        out[f"fires_{name}"] = int(fires[i])
+    if res.get("occ_fired") is not None:
+        occ_counts = ((
+            res["occ_fired"][:, :, None]
+            >> np.arange(32, dtype=np.uint32)[None, None, :]
+        ) & np.uint32(1)).sum(axis=0)
+        for row, clause in enumerate(OCC_CLAUSES):
+            for k in range(32):
+                n = int(occ_counts[row, k])
+                if n:
+                    out[f"occfires_{clause}_k{k}"] = n
+    if res.get("cov_bitmap") is not None:
+        union = np.bitwise_or.reduce(res["cov_bitmap"], axis=0)
+        out["coverage_bits"] = int(np.unpackbits(union.view(np.uint8)).sum())
+        out["coverage_hiwater"] = int(res["cov_hiwater"].max())
+        out["coverage_transitions"] = total("cov_transitions")
     return out

@@ -33,7 +33,12 @@ def u32(x):
     """A u32 value as int64 in [0, 2^32) (a Python int stays an int).
 
     Signed int32 inputs reinterpret their two's complement bits, exactly as
-    `jnp.asarray(x, uint32)` does."""
+    `jnp.asarray(x, uint32)` does. Precondition: an int64 input must
+    already lie in [0, 2^32); it passes through unmasked (masking every
+    int64 input would add an op to every draw). A -1 held in int64 is not
+    0xFFFFFFFF here: as a `fold` word the multiply happens to mask it, as a
+    key or a `mix` input it does not. Hold such values as int32
+    (tests/test_torch_coverage.py pins both dtypes)."""
     if isinstance(x, (int, np.integer)):
         return int(x) & M32
     if x.dtype == torch.int64:

@@ -445,16 +445,22 @@ class SimConfig:
         return self.partition_enabled or self.nem_partition_enabled
 
 
-def simconfig_from_toml(text: str) -> SimConfig:
-    """Parse a SimConfig from its `to_toml` document (round-trip exact).
-    Unknown keys fail loudly: a document from a newer tree must not be
-    half-applied."""
+def simconfig_dict_from_toml(text: str, context: str = "SimConfig TOML") -> dict:
+    """Parse a TOML document into SimConfig field overrides: the loader
+    behind repro bundles (`simconfig_from_toml`) and the MADSIM_TEST_CONFIG
+    overlay (`batch_test`). Unknown keys fail loudly: a document from a
+    newer tree must not be half-applied."""
     import tomllib
 
     doc = tomllib.loads(text)
     unknown = set(doc) - {f.name for f in dataclasses.fields(SimConfig)}
     if unknown:
         raise ValueError(
-            f"SimConfig TOML: unknown SimConfig fields {sorted(unknown)}"
+            f"{context}: unknown SimConfig fields {sorted(unknown)}"
         )
-    return SimConfig(**doc)
+    return doc
+
+
+def simconfig_from_toml(text: str) -> SimConfig:
+    """Parse a SimConfig from its `to_toml` document (round-trip exact)."""
+    return SimConfig(**simconfig_dict_from_toml(text))

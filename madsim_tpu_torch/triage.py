@@ -20,11 +20,12 @@ Every candidate of a ddmin generation is a lane of one batch of
 `BatchedSim(..., triage=True)`, whose per-lane `TriageCtl` switches the
 faults off: a whole shrink costs a handful of batched dispatches.
 
-The port evaluates generations on the chunked path (lanes padded to
-`lane_width`, the same seed in every lane). The JAX face defaults to its
-continuously batched evaluator (`refill=True`); the port has no refill
-plane yet (ROADMAP queue 1 item 11), so its `shrink_seed` defaults to
-`refill=False`. Verdicts, and so bundles, are bit-identical either way.
+By default (`refill=True`, as on the JAX face) a generation's candidates
+are the admissions of one continuously batched sweep over `lane_width`
+lanes: a lane whose candidate violates or reaches its bisected horizon
+admits the next one. `refill=False` keeps the chunked evaluator (lanes
+padded to `lane_width`, the same seed in every lane). Verdicts, and so
+bundles, are bit-identical either way.
 """
 
 from __future__ import annotations
@@ -395,35 +396,69 @@ class ShrinkResult:
 
 
 class _Eval:
-    """Evaluates shrink candidates as lanes of batched dispatches: rows pad
-    to `lane_width` (pad lanes replay the first row; their results are
-    discarded), every lane runs the same seed, and a generation larger
-    than `lane_width` takes several dispatches."""
+    """Evaluates shrink candidates as lanes of batched dispatches, every
+    lane on the same seed: with `refill`, a generation is the queue of one
+    refill sweep over `lane_width` lanes (padded to a `lane_width`
+    multiple, which fixes its rows); otherwise rows pad to `lane_width`
+    per chunked dispatch (pad lanes replay the first row; their results
+    are discarded)."""
 
     def __init__(
         self, sim, seed: int, max_steps: int, lane_width: int,
-        refill: bool = False, mesh=None,
+        refill: bool = True, mesh=None,
     ):
-        if refill:
-            raise _not_ported("the refill shrink evaluator (refill=True)",
-                              "item 11")
         if mesh is not None:
             raise _not_ported("a sharded shrink (mesh=...)", "item 14")
         self.sim = sim
         self.seed = int(seed)
         self.max_steps = int(max_steps)
         self.lane_width = max(2, int(lane_width))
+        self.refill = bool(refill)
         self.dispatches = 0
+
+    @staticmethod
+    def _verdicts(n, violated, step, t_us) -> List[Dict[str, int]]:
+        return [
+            {
+                "violated": bool(violated[i]),
+                "step": int(step[i]),
+                "t_us": int(t_us[i]) if violated[i] else -1,
+            }
+            for i in range(n)
+        ]
+
+    def _run_refill(
+        self, rows: List[Tuple[int, List[int], List[float], int]]
+    ) -> List[Dict[str, int]]:
+        """One generation as the admissions of one refill sweep."""
+        from .tpu.engine import refill_results
+        from .tpu.spec import REBASE_US
+
+        rows_p = rows + [rows[0]] * ((-len(rows)) % self.lane_width)
+        seeds = np.full((len(rows_p),), self.seed, np.uint32)
+        st = self.sim.run_refill(seeds, lanes=self.lane_width,
+                                 max_steps=self.max_steps,
+                                 ctl=_ctl_of_rows(rows_p))
+        self.dispatches += 1
+        res = refill_results(st)
+        t_us = (res["violation_epoch"].astype(np.int64) * REBASE_US
+                + res["violation_at"].astype(np.int64))
+        return self._verdicts(len(rows), res["violated"],
+                              res["violation_step"], t_us)
 
     def run(
         self, rows: List[Tuple[int, List[int], List[float], int]]
     ) -> List[Dict[str, int]]:
         """rows: (off_bits, occ_masks, rate_scales, horizon_us) per
         candidate. Returns per-candidate {violated, step, t_us}."""
+        from .tpu.batch import pipelined
         from .tpu.spec import REBASE_US
 
+        if self.refill:
+            return self._run_refill(rows)
         out: List[Dict[str, int]] = []
-        for lo in range(0, len(rows), self.lane_width):
+
+        def dispatch(lo: int):
             part = rows[lo:lo + self.lane_width]
             n = len(part)
             part = part + [part[0]] * (self.lane_width - n)
@@ -432,19 +467,20 @@ class _Eval:
                 seeds, max_steps=self.max_steps, ctl=_ctl_of_rows(part)
             )
             self.dispatches += 1
-            violated = state.violated.cpu().numpy()
-            step = state.violation_step.cpu().numpy()
+            return n, state
+
+        def decode(entry) -> None:
+            n, state = entry
             t_us = (
                 state.violation_epoch.cpu().numpy().astype(np.int64)
                 * REBASE_US
                 + state.violation_at.cpu().numpy().astype(np.int64)
             )
-            for i in range(n):
-                out.append({
-                    "violated": bool(violated[i]),
-                    "step": int(step[i]),
-                    "t_us": int(t_us[i]) if violated[i] else -1,
-                })
+            out.extend(self._verdicts(n, state.violated.cpu().numpy(),
+                                      state.violation_step.cpu().numpy(),
+                                      t_us))
+
+        pipelined(range(0, len(rows), self.lane_width), dispatch, decode)
         return out
 
 
@@ -532,7 +568,7 @@ def shrink_seed(
     sim=None,
     log: Optional[Callable[[str], None]] = None,
     base_ctl: Optional[Dict[str, Any]] = None,
-    refill: bool = False,
+    refill: bool = True,
     mesh=None,
     causal: bool = False,
     tuning: Any = None,
@@ -552,11 +588,11 @@ def shrink_seed(
     (saved when the rate combination already confirmed it). The trace
     tail is a separate single-lane traced run of the final candidate.
 
-    `sim` passes a pre-built `BatchedSim(spec, config, triage=True)`;
+    `refill` (the default) evaluates each generation as one refill sweep,
+    `refill=False` as chunked dispatches; bundles are bit-identical either
+    way. `sim` passes a pre-built `BatchedSim(spec, config, triage=True)`;
     otherwise one is built on `device`. Not ported yet, each refused with
-    its ROADMAP item: `refill=True` (the JAX face's default evaluator;
-    bundles are bit-identical either way), `mesh`, `tuning` and
-    `causal=True`."""
+    its ROADMAP item: `mesh`, `tuning` and `causal=True`."""
     from .tpu.engine import BatchedSim
     from .tpu.spec import SimConfig
 

@@ -95,11 +95,21 @@ def test_check_determinism_catches_an_impure_spec():
 
 
 def test_run_batch_refuses_out_of_slice_options():
+    """Tuning (item 12) and mesh sharding (item 14) stay refused; refill
+    (once refused, item 11) refuses only a lane_check workload, as on the
+    JAX face; a pre-built sim must match the workload and the coverage."""
     _, twl = _faces(False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        run_batch(SEEDS, twl, refill=4, device="cpu")
+        run_batch(SEEDS, twl, tuning="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         run_batch(SEEDS, twl, mesh="auto", device="cpu")
+    checked = dataclasses.replace(
+        twl, lane_check=lambda st, lanes: {"violations": 0})
+    with pytest.raises(ValueError, match="lane_check"):
+        run_batch(SEEDS, checked, refill=4, device="cpu")
+    with pytest.raises(ValueError, match="coverage"):
+        run_batch(SEEDS, twl, coverage=True,
+                  sim=BatchedSim(twl.spec, twl.config, device="cpu"))
     other = BatchedSim(twl.spec, dataclasses.replace(twl.config, loss_rate=0.2),
                        device="cpu")
     with pytest.raises(ValueError, match="different"):

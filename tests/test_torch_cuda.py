@@ -113,3 +113,27 @@ def test_card_shrink_bundle_matches_pinned_digest(cuda_device):
                             device=cuda_device)
     assert sr.dispatches <= 10
     assert bundle_digest(sr.bundle) == sha
+
+
+@pytest.mark.cuda
+def test_card_refill_run_matches_pinned_digest_and_cpu(cuda_device):
+    """The pinned spread-mix refill run (triage + coverage) on the card:
+    its row digest is PINNED_REFILL, and its whole final state, queue and
+    log included, equals the CPU's."""
+    from madsim_tpu_torch.tpu.digest import (
+        PINNED_REFILL, refill_digest, refill_run,
+    )
+    from madsim_tpu_torch.tpu.engine import refill_results
+
+    spec, cfg, seeds, ctl, lanes, max_steps = refill_run()
+    states = {}
+    for dev in (cuda_device, "cpu"):
+        st = BatchedSim(spec, cfg, triage=True, coverage=True,
+                        device=dev).run_refill(seeds, lanes=lanes,
+                                               max_steps=max_steps, ctl=ctl)
+        assert refill_digest(refill_results(st)) == PINNED_REFILL
+        states[str(dev)] = state_to_numpy(st)
+    card, cpu = states[str(cuda_device)], states["cpu"]
+    assert set(card) == set(cpu) and "refill.retired" in card
+    for k in cpu:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)

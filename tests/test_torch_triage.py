@@ -13,7 +13,8 @@ The same inputs, made from seeds, go through both faces on the CPU:
     lane_width 4) writes a bundle equal to the JAX face's, whose digest is
     `digest.PINNED_BUNDLE`, and bundles replay across faces at the
     recorded step and time;
-  * each argument that needs an unported plane raises NotImplementedError.
+  * each argument that needs an unported plane raises NotImplementedError
+    (the refill evaluator is ported; its sharded form is not).
 
 Tolerances: exact everywhere (integer leaves widened to int64, the ctl's
 float32 rate scales compared as float64, bundle JSON byte for byte).
@@ -477,8 +478,8 @@ def test_shrink_rejects_a_non_violating_seed():
 # ------------------------------------------------------- refusals
 
 REFUSED = [
-    ("refill", lambda wl: triage.shrink_seed(wl, 0, refill=True,
-                                             device="cpu"), "item 11"),
+    ("refill", lambda wl: run_batch(range(2), wl, refill=2, mesh="auto",
+                                    device="cpu"), "item 14"),
     ("mesh", lambda wl: triage.shrink_seed(wl, 0, mesh="auto",
                                            device="cpu"), "item 14"),
     ("tuning", lambda wl: triage.shrink_seed(wl, 0, tuning="auto",
