@@ -8,7 +8,8 @@ It drives the port's main path — the 5-node Raft fuzz sweep through
 `BatchedSim.run` and `summarize`, then FaultPlan chaos, the four other
 workloads, the membership, durability and straggler paths with their
 workloads, the triage path (trace, shrink, replay), and continuous
-batching with the coverage plane — and checks it, in eleven phases:
+batching with the coverage plane, and the causal-lineage plane — and
+checks it, in twelve phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -27,12 +28,16 @@ batching with the coverage plane — and checks it, in eleven phases:
    later steps): torch.profiler over 20 steady steps at 32768 lanes —
    kernels launched per step, device idle share, top device kernels — and
    the same steps with and without deterministic mode's
-   uninitialized-memory fills, leaves equal; phases 6-11 then run without
+   uninitialized-memory fills, leaves equal; phases 6-12 then run without
    the fills;
 6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
    its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
    canonical digest must equal the JAX package's GOLDEN value; the Raft
-   run is also held leaf for leaf (`nem.*` included) against the CPU;
+   run has the causal-lineage plane on (`lineage=True`, which must leave
+   the digest at GOLDEN), is held leaf for leaf (`nem.*`, `lin.*` and
+   `msgs.sent_eid` included) against the CPU, and its lineage leaves hash
+   to `digest.PINNED_LINEAGE`; lineage's share of that run's step is
+   probed at the same 16 lanes;
 7. storm sweep: the bench Raft spec under `compile_plan` of an eight-clause
    plan (the documented raft-storm plan plus LinkClog, LatencySpike and
    MsgLoss) at 32768 lanes x 5 nodes, 10 virtual seconds (cut when a probed
@@ -61,7 +66,9 @@ batching with the coverage plane — and checks it, in eleven phases:
    unsynced state, and seeds 0..63 of the buggy 2PC run equal a 64-lane
    card run in every leaf but `key`. Then a 64-lane two-handler Raft run at
    unequal ring depths and a 64-lane Raft run under Reconfig + DiskFault
-   (crash-wipe, skew and the tail composed in) are leaf-equal card/CPU;
+   (crash-wipe, skew and the tail composed in) are leaf-equal card/CPU,
+   lineage off and on; with lineage on every non-lineage leaf equals the
+   lineage-off card run's;
 10. triage (after phase 9, before phase 8): the planted deposed-leader
    re-stamp Raft under Crash + Partition (`triage_workload`, 5 virtual s)
    through `run_batch(range(24), ..., max_traces=1,
@@ -69,11 +76,14 @@ batching with the coverage plane — and checks it, in eleven phases:
    final state equals its batch lane in every leaf but `key`, its
    TraceRecord stream equals the CPU's leaf for leaf, and its events end
    in VIOLATION at the lane's violation step), shrunk by the default refill
-   evaluator in at most 10 batched dispatches into a bundle whose digest is
-   `digest.PINNED_BUNDLE`, replayed twice by `repro.replay_device` at the
-   bundle's step and time, and its shrunk plan passes the twin schedule
-   check under the bundle's ctl. A triage sim under the default ctl
-   reproduces phase 2's bench run leaf for leaf (ctl aside);
+   evaluator in at most 10 batched dispatches with `causal=True` into a v3
+   bundle whose causal sha is `digest.PINNED_CAUSAL` and whose digest is
+   `digest.PINNED_BUNDLE_V3` (and, with its causal field cleared,
+   `digest.PINNED_BUNDLE`), replayed twice by `repro.replay_device` at the
+   bundle's step and time and a third time with lineage on (`explain=8`),
+   which must reproduce the bundle's causal sha, and its shrunk plan passes
+   the twin schedule check under the bundle's ctl. A triage sim under the
+   default ctl reproduces phase 2's bench run leaf for leaf (ctl aside);
 11. continuous batching (after phase 10, before phase 8): the spread mix
    (`digest.spread_mix`, after `madsim_tpu/tune.py:499-552`: Crash + 5%
    loss, one admission in 8 at the 1-virtual-second horizon, the rest at
@@ -84,9 +94,13 @@ batching with the coverage plane — and checks it, in eleven phases:
    when the probe says the phase would overrun its budget); every
    per-admission row of each sweep equals the chunked reference's. The
    pinned 256-admission refill run is leaf-equal card/CPU (queue and log
-   included) and its row digest is `digest.PINNED_REFILL`; 20 bench steps
-   at 32768 lanes with coverage off and on give coverage's step cost, with
-   every non-cov leaf equal.
+   included) and its row digest is `digest.PINNED_REFILL`; two alternating
+   pairs of 20-step bench probes at 32768 lanes with coverage off and on
+   give coverage's step cost, with every non-cov leaf equal;
+12. lineage's step cost (after phase 11, before phase 8): eight alternating
+   pairs of 20-step bench probes at 32768 lanes with lineage off and on,
+   every non-lineage leaf equal; the difference of the medians counts as
+   resolved only when it exceeds the spread of the off probes.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -157,9 +171,12 @@ PHASE9_STEPS = {
 # phase 9's runs must end by then (its two 64-lane card/CPU parity runs,
 # phase 10's at most PHASE10_BUDGET_S and phase 11's PHASE11_BUDGET_S
 # follow); phase 8 then gets what is left of TARGET_S
-PHASE10_BUDGET_S = 200.0
+# (phase 10's two causal legs, the shrink's lineage replay and the
+# replay's, took 23.8 s together on one H100: both are in its budget and
+# in the anchor below, so phase 9's horizons stay where they were)
+PHASE10_BUDGET_S = 224.0
 PHASE11_BUDGET_S = 60.0
-PHASE9_END_S = 960.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
+PHASE9_END_S = 984.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
 # phase 10: the triage sweep's seeds, and the spec reference its bundle
 # carries (resolved from the repo root by repro.resolve_spec)
 TRIAGE_SEEDS = 24
@@ -184,7 +201,14 @@ REFILL_EST_STEPS = {REFILL_LANES: 1037, REFILL_WIDE_LANES: 187,
 # over the chunked path at chunk = REFILL_LANES
 REFILL_OCCUPANCY_FLOOR = 0.90
 REFILL_ADVANTAGE_FLOOR = 2.0
-COV_STEPS = 20
+# a plane's step cost (coverage in phase 11, lineage in phases 6 and 12):
+# steps per probe, and alternating off/on probe pairs (ab_probe)
+AB_STEPS = 20
+COV_PAIRS = 2
+LINEAGE_PAIRS_SMALL = 4
+LINEAGE_PAIRS = 8
+# phase 10's replay prints (and cross-checks) the last links of the slice
+EXPLAIN_LINKS = 8
 # the buggy run whose seeds 0..63 are held against a 64-lane run (the
 # two-handler path and the straggler pool; one such run fits the time)
 PHASE9_INDEPENDENCE = "twopc_tail"
@@ -320,6 +344,49 @@ def probe(sim, lanes: int, steps: int = 10):
         st = sim.step(st)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / steps * 1e3, st
+
+
+def ab_probe(make_sim, lanes: int, pairs: int) -> dict:
+    """Step ms of a plane off and on (`make_sim(on)` builds the sim):
+    `pairs` alternating pairs of AB_STEPS-step probes (off, on / on,
+    off / ...) after one discarded off probe, which also grows the
+    allocator's cache. Returns both lists, their medians, the spread of
+    the off probes (the distance between their quartiles), the pairs the
+    plane made slower, and each side's last state's leaves."""
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+
+    ms = {False: [], True: []}
+    states = {}
+    order = [False] + [on for i in range(pairs)
+                       for on in ((False, True) if i % 2 == 0
+                                  else (True, False))]
+    for i, on in enumerate(order):
+        t, st = probe(make_sim(on), lanes, AB_STEPS)
+        if i:
+            ms[on].append(t)
+        states[on] = state_to_numpy(st)
+        del st
+    q = statistics.quantiles(ms[False], n=4)
+    return {
+        "off_ms": ms[False], "on_ms": ms[True],
+        "off_median": statistics.median(ms[False]),
+        "on_median": statistics.median(ms[True]),
+        "off_iqr": q[2] - q[0],
+        "slower_pairs": sum(b > a for a, b in zip(ms[False], ms[True])),
+        "pairs": pairs, "states": states,
+    }
+
+
+def ab_line(r: dict) -> str:
+    """One phase-line rendering of an ab_probe result."""
+    d = r["on_median"] - r["off_median"]
+    verdict = ("resolved" if abs(d) > r["off_iqr"]
+               else "unresolved: within the off probes' spread")
+    return (f"off {[round(x, 3) for x in r['off_ms']]} / on "
+            f"{[round(x, 3) for x in r['on_ms']]} ms/step, medians "
+            f"{r['off_median']:.3f} / {r['on_median']:.3f} ({d:+.3f} ms/step,"
+            f" {verdict} {r['off_iqr']:.3f}), on slower in "
+            f"{r['slower_pairs']} of {r['pairs']} pairs")
 
 
 def card_line() -> str:
@@ -500,7 +567,7 @@ def main() -> dict:
     # -- 5. profile over steady steps, in a child process: a CUDA profiler
     # session leaves its process's later host steps slower (PERF.md,
     # section 5), so the process that profiles is not the one that runs
-    # phases 6-11
+    # phases 6-12
     child = subprocess.run(
         [sys.executable, os.path.abspath(__file__), PROFILE_FLAG,
          str(virtual_secs), str(head["step_ms"])],
@@ -538,13 +605,14 @@ def main() -> dict:
     import torch.utils.deterministic as tdet
 
     tdet.fill_uninitialized_memory = False
-    phase(5, "phases 6-11 run with uninitialized-memory fills off")
+    phase(5, "phases 6-12 run with uninitialized-memory fills off")
     report["profile"] = prof_out
     report["golden"] = phase6_golden(cuda)
     report["storm"] = phase7_storm(cuda)
     report["membership"] = phase9_membership(cuda)
     report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
     report["refill"] = phase11_refill(cuda, card)
+    report["lineage"] = phase12_lineage_cost(cuda, card)
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
     return report
@@ -651,31 +719,57 @@ def phase5_profile(virtual_secs: float, head_step_ms: float) -> dict:
 
 
 def phase6_golden(cuda) -> dict:
-    """The JAX package's five GOLDEN digests, reproduced on the card."""
+    """The JAX package's five GOLDEN digests, reproduced on the card; the
+    Raft run with the lineage plane on, held to the CPU and to
+    PINNED_LINEAGE."""
     from madsim_tpu_torch.tpu import BatchedSim
     from madsim_tpu_torch.tpu.convert import state_to_numpy
-    from madsim_tpu_torch.tpu.digest import GOLDEN, canonical_digest, golden_run
+    from madsim_tpu_torch.tpu.digest import (
+        GOLDEN, PINNED_LINEAGE, canonical_digest, golden_run, lineage_digest,
+    )
 
     out = {}
     for name in ("raft", "paxos", "kv", "twopc", "chain"):
         spec, cfg, seeds, steps = golden_run(name)
-        st, wall = timed_run(BatchedSim(spec, cfg, device=cuda), seeds, steps)
+        lineage = name == "raft"
+        st, wall = timed_run(BatchedSim(spec, cfg, lineage=lineage,
+                                        device=cuda), seeds, steps)
         g = state_to_numpy(st)
         check(bool((g["steps"] == steps).all()) and not g["done"].any(),
               f"golden {name}: the run did not take exactly {steps} live steps")
         dg = canonical_digest(g)
         check(dg == GOLDEN[name],
               f"golden {name}: card digest {dg} != GOLDEN {GOLDEN[name]}")
+        row = {"lanes": len(seeds), "steps": steps, "card_s": wall,
+               "step_ms": wall / steps * 1e3, "digest": dg,
+               "lineage": lineage}
         extra = ""
-        if name == "raft":
-            c = state_to_numpy(BatchedSim(spec, cfg, device="cpu").run(
+        if lineage:
+            c = state_to_numpy(BatchedSim(spec, cfg, lineage=True,
+                                          device="cpu").run(
                 seeds, steps, dispatch_steps=steps))
             bad = leaves_equal(g, c)
             check(not bad, f"golden raft: card and CPU leaves differ: {bad}")
+            ld = lineage_digest(g)
+            check(ld == PINNED_LINEAGE,
+                  f"golden raft: lineage digest {ld} != pinned "
+                  f"{PINNED_LINEAGE}")
             n_nem = sum(1 for k in g if k.startswith("nem."))
-            extra = f", {len(g)} leaves ({n_nem} nem.*) equal card/CPU"
-        out[name] = {"lanes": len(seeds), "steps": steps, "card_s": wall,
-                     "step_ms": wall / steps * 1e3, "digest": dg}
+            n_lin = sum(1 for k in g if k.startswith("lin.")
+                        or k.endswith(".sent_eid"))
+            # lineage's share of this run's step: the same 16 lanes
+            ab = ab_probe(lambda on: BatchedSim(spec, cfg, lineage=on,
+                                                device=cuda),
+                          len(seeds), LINEAGE_PAIRS_SMALL)
+            del ab["states"]
+            row.update(probe=ab, lineage_digest=ld, lineage_share=(
+                ab["on_median"] - ab["off_median"]) / ab["on_median"])
+            extra = (f", lineage on: {len(g)} leaves ({n_nem} nem.*, {n_lin} "
+                     f"lineage) equal card/CPU, lineage digest {ld[:16]} == "
+                     f"pinned; probes of {len(seeds)} lanes x {AB_STEPS} "
+                     f"steps lineage {ab_line(ab)}; lineage's share "
+                     f"{row['lineage_share']:+.3f}")
+        out[name] = row
         phase(6, f"golden {name}: {len(seeds)} lanes x {steps} steps in "
                  f"{wall:.3f} s, digest {dg[:16]} == GOLDEN{extra}")
     return out
@@ -980,9 +1074,15 @@ def membership_plan():
     ))
 
 
+def is_lineage_leaf(name: str) -> bool:
+    return name.startswith("lin.") or name.endswith(".sent_eid")
+
+
 def phase9_parity(cuda) -> dict:
     """64-lane card/CPU leaf equality of the two-handler path at unequal
-    ring depths and of Raft under Reconfig + DiskFault."""
+    ring depths and of Raft under Reconfig + DiskFault (the straggler
+    pool), lineage off and on; with lineage on, every non-lineage leaf
+    equals the lineage-off card run's."""
     from madsim_tpu_torch.tpu import BatchedSim, SimConfig, make_raft_spec
     from madsim_tpu_torch.tpu.convert import state_to_numpy
     from madsim_tpu_torch.tpu.nemesis import compile_plan
@@ -1008,35 +1108,57 @@ def phase9_parity(cuda) -> dict:
     out = {}
     steps = PHASE9_PARITY_STEPS
     for name, (spec, cfg) in runs.items():
-        st, wall = timed_run(BatchedSim(spec, cfg, device=cuda),
-                             range(SEEDS_SMALL), steps)
-        g = state_to_numpy(st)
-        c = state_to_numpy(BatchedSim(spec, cfg, device="cpu").run(
-            range(SEEDS_SMALL), steps))
-        bad = leaves_equal(g, c)
-        check(not bad, f"{name}: card and CPU leaves differ: {bad}")
-        check(int(g["steps"].max()) == steps, f"{name}: ran short")
-        out[name] = {"lanes": SEEDS_SMALL, "steps": steps, "card_s": wall,
-                     "leaves": len(g)}
+        row = {"lanes": SEEDS_SMALL, "steps": steps}
+        faces = {}
+        for lineage in (False, True):
+            st, wall = timed_run(BatchedSim(spec, cfg, lineage=lineage,
+                                            device=cuda),
+                                 range(SEEDS_SMALL), steps)
+            g = state_to_numpy(st)
+            c = state_to_numpy(BatchedSim(spec, cfg, lineage=lineage,
+                                          device="cpu").run(
+                range(SEEDS_SMALL), steps))
+            tag = "lineage on" if lineage else "lineage off"
+            bad = leaves_equal(g, c)
+            check(not bad, f"{name} ({tag}): card and CPU leaves differ: "
+                           f"{bad}")
+            check(int(g["steps"].max()) == steps, f"{name}: ran short")
+            faces[lineage] = g
+            row["lineage_card_s" if lineage else "card_s"] = wall
+        on, off = faces[True], faces[False]
+        n_lin = sum(1 for k in on if is_lineage_leaf(k))
+        bad = leaves_equal(
+            {k: v for k, v in on.items() if not is_lineage_leaf(k)}, off)
+        check(not bad and n_lin >= 3 and on["msgs.sent_eid"].any(),
+              f"{name}: lineage on changed non-lineage leaves {bad}")
+        row.update(leaves=len(off), lineage_leaves=n_lin)
+        out[name] = row
         phase(9, f"{name}: {SEEDS_SMALL} lanes x {steps} steps, "
-                 f"{len(g)} leaves equal card/CPU")
+                 f"{len(off)} leaves equal card/CPU; lineage on "
+                 f"({row['lineage_card_s']:.3f} s on the card against "
+                 f"{row['card_s']:.3f} s off): {len(on)} leaves ({n_lin} "
+                 "lineage) equal card/CPU, every non-lineage leaf equals "
+                 "the lineage-off card run's")
     return out
 
 
 def phase10_triage(cuda, bench64: dict, card: str) -> dict:
-    """The triage path on the card: sweep, trace, shrink, replay, twin
-    check; and the default ctl against phase 2's bench run. Its summary
-    line names the card (`card`, as nvidia-smi reports it)."""
+    """The triage path on the card: sweep, trace, shrink (with the causal
+    digest), replay (with the causal slice), twin check; and the default
+    ctl against phase 2's bench run. Its summary line names the card
+    (`card`, as nvidia-smi reports it)."""
+    import dataclasses
     import re
     import shutil
     import tempfile
 
-    from madsim_tpu_torch import repro
+    from madsim_tpu_torch import causal, repro
     from madsim_tpu_torch.tpu import BatchedSim, run_batch
     from madsim_tpu_torch.tpu import nemesis as ttn
     from madsim_tpu_torch.tpu.convert import state_to_numpy
     from madsim_tpu_torch.tpu.digest import (
-        PINNED, PINNED_BUNDLE, bundle_digest, canonical_digest, pinned_run,
+        PINNED, PINNED_BUNDLE, PINNED_BUNDLE_V3, PINNED_CAUSAL, bundle_digest,
+        canonical_digest, pinned_run,
     )
     from madsim_tpu_torch.tpu.engine import (
         DONE_CHECK_STEPS, IDLE_BLOCK_STEPS_DEFAULT, TraceRecord,
@@ -1047,7 +1169,8 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
     wl = triage_workload()
 
     def timed_calls(sim, name, calls):
-        """Wrap sim.<name> to record (result, wall seconds) of each call."""
+        """Wrap sim.<name> (or a module's function) to record (result, wall
+        seconds) of each call."""
         inner = getattr(sim, name)
 
         def wrapped(*a, **kw):
@@ -1065,9 +1188,12 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
     # them) can be read and timed
     sim = BatchedSim(wl.spec, wl.config, device=cuda)
     tsim = BatchedSim(wl.spec, wl.config, triage=True, device=cuda)
-    traced, dispatched = [], []
+    traced, dispatched, explained = [], [], []
     timed_calls(sim, "run_traced", traced)
     timed_calls(tsim, "run_refill", dispatched)
+    # the causal legs: the shrink's and the replay's lineage replays
+    explain = causal.explain
+    timed_calls(causal, "explain", explained)
     log = []
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_bundles-")
     try:
@@ -1077,6 +1203,7 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
             range(TRIAGE_SEEDS), wl, sim=sim, max_traces=1,
             shrink_on_violation=True, shrink_kwargs={
                 "out_dir": out_dir, "spec_ref": TRIAGE_SPEC_REF, "sim": tsim,
+                "causal": True,
                 "log": lambda m: log.append((time.perf_counter(), m)),
             },
         )
@@ -1168,9 +1295,17 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         # line (its dispatches, its traced tail, the bundle's save)
         shrink_s = shrink_end - (t0 + result.device_ms / 1e3)
         bundle = result.bundle
+        check(len(explained) == 1, f"triage: {len(explained)} causal legs "
+                                   "in the shrink, want 1")
+        shrink_causal_s = explained[0][1]
         dg = bundle_digest(bundle)
-        check(dg == PINNED_BUNDLE[1],
-              f"triage: bundle digest {dg} != pinned {PINNED_BUNDLE[1]}")
+        dg2 = bundle_digest(dataclasses.replace(bundle, causal=None))
+        sha = (bundle.causal or {}).get("sha")
+        check(sha == PINNED_CAUSAL,
+              f"triage: causal sha {sha} != pinned {PINNED_CAUSAL}")
+        check(dg == PINNED_BUNDLE_V3 and dg2 == PINNED_BUNDLE[1],
+              f"triage: bundle digest {dg} (causal cleared: {dg2}) != pinned "
+              f"{PINNED_BUNDLE_V3} ({PINNED_BUNDLE[1]})")
         phase(10, f"shrink: {atoms_before} atoms -> {atoms_after} in "
                   f"{dispatches} refill dispatches of {dispatch_steps} "
                   f"iterations "
@@ -1182,22 +1317,37 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
                   f"{bundle.dropped_clauses}, occ_off {bundle.occ_off}, "
                   f"violation step {bundle.violation_step} t="
                   f"{bundle.violation_t_us} us, horizon {bundle.horizon_us} "
-                  f"us; bundle digest {dg[:16]} == pinned")
+                  f"us; causal leg {shrink_causal_s:.3f} s, chain "
+                  f"{bundle.causal['chain_len']} of a {bundle.causal['cone_size']}"
+                  f"-event cone, sha {sha} == pinned; bundle digest {dg[:16]} "
+                  "== pinned v3, and with causal cleared == pinned")
 
-        # -- 4. replay twice, and the twin schedule check
+        # -- 4. replay twice, then once more with lineage on (it raises
+        # when the slice's sha differs from the bundle's), and the twin
+        # schedule check
         t3 = time.perf_counter()
+        printed = []
         rep = repro.replay_device(bundle, repeats=2, device=cuda,
-                                  out=lambda *_: None)
+                                  explain=EXPLAIN_LINKS, out=printed.append)
         replay_s = time.perf_counter() - t3
+        check(len(explained) == 2, "triage: the replay ran no causal leg")
+        replay_causal_s = explained[1][1]
         check((rep["step"], rep["t_us"]) == (bundle.violation_step,
                                             bundle.violation_t_us),
               f"triage: replay at {rep} != the bundle's")
+        check(rep["causal"] == bundle.causal and any(
+            f"chain of {EXPLAIN_LINKS} events" in p for p in printed),
+              f"triage: the replay's causal slice {rep.get('causal')} "
+              "differs from the bundle's")
         twin = ttn.assert_device_matches_schedule(
             tsim, bundle.shrunk_plan(), seed, horizon_us=bundle.horizon_us,
             max_steps=bundle.violation_step + 2, ctl=bundle.ctl(1),
             occ_off=bundle.occ_off)
         phase(10, f"replay: violation at step {rep['step']} t={rep['t_us']} "
-                  f"us in both of 2 runs, replay wall {replay_s:.3f} s; twin "
+                  f"us in both of 2 runs, then the lineage replay's last "
+                  f"{EXPLAIN_LINKS} links, sha {rep['causal']['sha']} == the "
+                  f"bundle's; replay wall {replay_s:.3f} s (causal leg "
+                  f"{replay_causal_s:.3f} s); twin "
                   f"check: {twin} chaos events equal the shrunk schedule "
                   f"[{time.perf_counter() - t_phase:.0f} s in phase 10]")
         phase(10, f"on {card}: {result.violations} of {TRIAGE_SEEDS} seeds "
@@ -1205,8 +1355,10 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
                   f"{dispatches} dispatches, {trace_ms:.3f} ms per traced "
                   f"step, {sum(dispatch_s) / dispatches * 1e3:.3f} ms per "
                   f"shrink dispatch, shrink wall {shrink_s:.3f} s, replay "
-                  f"wall {replay_s:.3f} s")
+                  f"wall {replay_s:.3f} s, causal legs {shrink_causal_s:.3f}"
+                  f" + {replay_causal_s:.3f} s")
     finally:
+        causal.explain = explain
         shutil.rmtree(out_dir, ignore_errors=True)
     return {
         "seeds": TRIAGE_SEEDS, "violating": result.violations,
@@ -1220,6 +1372,8 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         "ms_per_dispatch": sum(dispatch_s) / dispatches * 1e3,
         "shrink_s": shrink_s, "default_ctl_s": default_s,
         "replay_s": replay_s, "twin_events": twin, "bundle_digest": dg,
+        "causal_sha": sha, "shrink_causal_s": shrink_causal_s,
+        "replay_causal_s": replay_causal_s,
         "phase_s": time.perf_counter() - t_phase,
     }
 
@@ -1354,29 +1508,19 @@ def phase11_refill(cuda, card: str) -> dict:
               f"card/CPU, row digest {dg[:16]} == pinned ({small_s:.3f} s "
               "for both)")
 
-    # -- coverage's cost: the bench config's steps, off / on / on / off
-    # after one discarded off probe (the first 32768-lane probe also
-    # grows the allocator's cache)
+    # -- coverage's cost: the bench config's steps, off and on
     kw = dict(n_nodes=5, client_rate=0.1, log_capacity=16)
-    step_ms, states = {False: [], True: []}, {}
-    for i, cov in enumerate((False, False, True, True, False)):
-        ms_cov, cst = probe(BatchedSim(make_raft_spec(**kw),
-                                       raft_bench_config(10.0),
-                                       coverage=cov, device=cuda),
-                            LANES, COV_STEPS)
-        if i:
-            step_ms[cov].append(ms_cov)
-        states[cov] = state_to_numpy(cst)
-        del cst
+    ab = ab_probe(lambda on: BatchedSim(make_raft_spec(**kw),
+                                        raft_bench_config(10.0), coverage=on,
+                                        device=cuda), LANES, COV_PAIRS)
+    states = ab.pop("states")
     on = {k: v for k, v in states[True].items() if not k.startswith("cov.")}
     bad = leaves_equal(on, states[False])
     check(not bad and len(states[True]) == len(on) + 3,
           f"coverage on/off: non-cov leaves differ: {bad}")
-    cov_ms = statistics.mean(step_ms[True]) - statistics.mean(step_ms[False])
-    phase(11, f"coverage cost, bench config {LANES} lanes x {COV_STEPS} "
-              f"steps: off {[round(x, 3) for x in step_ms[False]]} ms/step, "
-              f"on {[round(x, 3) for x in step_ms[True]]} ms/step "
-              f"({cov_ms:+.3f} ms/step); every non-cov leaf equal")
+    cov_ms = ab["on_median"] - ab["off_median"]
+    phase(11, f"coverage cost, bench config {LANES} lanes x {AB_STEPS} "
+              f"steps: {ab_line(ab)}; every non-cov leaf equal")
     phase(11, f"on {card}: refill over {REFILL_LANES} lanes "
               f"{gated['admissions_per_s']:.1f} admissions/s at occupancy "
               f"{gated['occupancy']:.4f}, lane-step advantage "
@@ -1389,9 +1533,36 @@ def phase11_refill(cuda, card: str) -> dict:
         "chunked_steps": chunk_steps, "probe_step_ms": ms,
         "sweeps": {str(L): row for L, row in sweeps.items()},
         "small_run_s": small_s, "small_digest": dg,
-        "cov_off_ms": step_ms[False], "cov_on_ms": step_ms[True],
+        "cov_off_ms": ab["off_ms"], "cov_on_ms": ab["on_ms"],
         "phase_s": time.perf_counter() - t_phase,
     }
+
+
+def phase12_lineage_cost(cuda, card: str) -> dict:
+    """Lineage's step cost on the bench config at full width: LINEAGE_PAIRS
+    alternating off/on probe pairs (ab_probe), every non-lineage leaf of
+    the last lineage-on probe equal to the last lineage-off one's."""
+    from madsim_tpu_torch.tpu import BatchedSim, make_raft_spec
+    from madsim_tpu_torch.tpu.raft import raft_bench_config
+
+    t_phase = time.perf_counter()
+    kw = dict(n_nodes=5, client_rate=0.1, log_capacity=16)
+    ab = ab_probe(lambda on: BatchedSim(make_raft_spec(**kw),
+                                        raft_bench_config(10.0), lineage=on,
+                                        device=cuda), LANES, LINEAGE_PAIRS)
+    states = ab.pop("states")
+    on = {k: v for k, v in states[True].items() if not is_lineage_leaf(k)}
+    bad = leaves_equal(on, states[False])
+    check(not bad and len(states[True]) == len(on) + 3
+          and bool(states[True]["lin.eid"].any()),
+          f"lineage on/off: non-lineage leaves differ: {bad}")
+    phase(12, f"on {card}: lineage cost, bench config {LANES} lanes x "
+              f"{AB_STEPS} steps: {ab_line(ab)}; every non-lineage "
+              f"leaf equal [{time.perf_counter() - t_phase:.0f} s in phase "
+              "12]")
+    return {"lanes": LANES, "steps": AB_STEPS, **ab,
+            "phase_s": time.perf_counter() - t_phase}
+
 
 if __name__ == "__main__":
     if sys.argv[1:2] == [PROFILE_FLAG]:

@@ -9,11 +9,16 @@ from either face replays on the other.
 
     python -m madsim_tpu_torch.repro bundle.json              # on the card
     python -m madsim_tpu_torch.repro bundle.json --device cpu --trace 40
+    python -m madsim_tpu_torch.repro bundle.json --explain 8  # causal slice
+
+`--explain N` replays once more with the causal-lineage plane on and
+prints the last N links of the violation's causal slice; a bundle that
+carries a causal digest has its sha cross-checked. The device backend is
+`device`, or `tpu` as the JAX face names it.
 
 Not ported: the host-runtime schedule twin (`--backend host|both`; the
-host runtime is not part of the port), the Perfetto timeline
-(`--perfetto`, the telemetry plane) and the causal slice (`--explain`,
-lineage, ROADMAP item 9). Each raises NotImplementedError.
+host runtime is not part of the port) and the Perfetto timeline
+(`--perfetto`, the telemetry plane). Each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,7 +31,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .triage import ReproBundle, _not_ported
+from .triage import ReproBundle
+
+
+# the device backend's names: the port's, and the JAX face's
+DEVICE_BACKENDS = ("device", "tpu")
 
 
 class ReplayError(AssertionError):
@@ -75,7 +84,10 @@ def replay_device(
 ) -> Dict[str, Any]:
     """Device replay: the violation must fire at the recorded step and
     time, bit-identically across `repeats` runs. `trace=N` prints the last
-    N trace events of the replayed violation. Returns a report dict."""
+    N trace events of the replayed violation. `explain=N` replays once
+    more with the causal-lineage plane on and prints the last N links of
+    the violation's causal slice; when the bundle carries a causal digest,
+    the replayed slice's sha must equal it. Returns a report dict."""
     from .tpu.convert import state_to_numpy
     from .tpu.engine import BatchedSim
     from .tpu.spec import REBASE_US
@@ -86,8 +98,6 @@ def replay_device(
             "replay_device(perfetto=...) writes through the telemetry "
             "plane, which is not ported to madsim_tpu_torch"
         )
-    if explain > 0:
-        raise _not_ported("replay_device(explain=...) (lineage)", "item 9")
     if spec is None:
         if not bundle.spec_ref:
             raise ReplayError(
@@ -137,11 +147,29 @@ def replay_device(
         )
         for e in events[-trace:]:
             out(str(e))
+    rep = {"violated": True, "step": step, "t_us": t_us, "repeats": repeats}
+    if explain > 0:
+        from . import causal
+
+        g, sl = causal.explain(spec, cfg, bundle.seed, ctl=ctl,
+                               max_steps=step + 2, device=device)
+        digest = causal.causal_digest(sl)
+        tail = (causal.causal_slice(g, max_len=explain)
+                if len(sl.chain) > explain else sl)
+        out(causal.format_slice(tail))
+        if bundle.causal is not None and (
+            bundle.causal.get("sha") != digest["sha"]
+        ):
+            raise ReplayError(
+                "causal slice diverged from the bundle's recorded digest "
+                f"({digest['sha']} != {bundle.causal.get('sha')}) — the "
+                "lineage plane or the slice semantics drifted"
+            )
+        rep["causal"] = digest
     out(
         f"device replay OK: seed {bundle.seed} violates at step {step}, "
         f"t={t_us}us, bit-identical across {max(1, repeats)} runs"
     )
-    rep = {"violated": True, "step": step, "t_us": t_us, "repeats": repeats}
     if bundle.signature:
         provenance = ""
         if bundle.campaign is not None:
@@ -156,18 +184,23 @@ def replay_device(
 
 def replay(
     bundle: ReproBundle, backend: str = "device", spec=None,
-    repeats: int = 2, trace: int = 0, out=print, device="cuda",
+    repeats: int = 2, trace: int = 0, explain: int = 0, out=print,
+    device="cuda",
 ) -> Dict[str, Any]:
+    """Replay a bundle on `backend`: "device" (or "tpu", the JAX face's
+    name for it) replays on the batched engine; "host" and "both" need the
+    host runtime, which the port does not carry."""
     if bundle.violation_kind == "divergence" or backend in ("host", "both"):
         raise NotImplementedError(
             "host replay (the schedule twin and divergence bundles) runs on "
             "the host runtime, which is not part of madsim_tpu_torch: "
             "replay such bundles with the JAX package's repro"
         )
-    if backend != "device":
-        raise ValueError(f"unknown backend {backend!r} (device|host|both)")
+    if backend not in DEVICE_BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r} (device|tpu|host|both)")
     return replay_device(bundle, spec=spec, repeats=repeats, trace=trace,
-                         out=out, device=device)
+                         explain=explain, out=out, device=device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -178,9 +211,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     p.add_argument("bundle", help="path to a repro bundle JSON")
     p.add_argument(
-        "--backend", choices=("device", "host", "both"), default="device",
-        help="device: replay the violation on the batched engine (host and "
-        "both need the host runtime, which the port does not carry)",
+        "--backend", choices=DEVICE_BACKENDS + ("host", "both"),
+        default="device",
+        help="device (or tpu, the JAX face's name): replay the violation on "
+        "the batched engine (host and both need the host runtime, which "
+        "the port does not carry)",
     )
     p.add_argument("--device", default="cuda",
                    help="torch device of the replay (default cuda)")
@@ -192,13 +227,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="device replays to compare bitwise (default 2)")
     p.add_argument("--trace", type=int, default=0, metavar="N",
                    help="print the last N trace events of the violation")
+    p.add_argument(
+        "--explain", nargs="?", const=20, type=int, default=0, metavar="N",
+        help="replay once more with the causal-lineage plane on and print "
+        "the last N links (default 20) of the violation's causal slice; "
+        "cross-checks the bundle's causal digest when it has one",
+    )
     args = p.parse_args(argv)
     bundle = ReproBundle.load(args.bundle)
     if args.spec_ref:
         bundle.spec_ref = args.spec_ref
     try:
         replay(bundle, backend=args.backend, repeats=args.repeats,
-               trace=args.trace, device=args.device)
+               trace=args.trace, explain=args.explain, device=args.device)
     except (ReplayError, ValueError) as e:
         print(f"REPLAY FAILED: {e}", file=sys.stderr)
         return 1

@@ -14,6 +14,7 @@ from .chain import ChainState, chain_workload, make_chain_spec  # noqa: F401
 from .engine import (  # noqa: F401
     BatchedSim,
     Coverage,
+    Lineage,
     MsgPool,
     NemesisState,
     RefillLog,
@@ -37,7 +38,13 @@ from .kv import (  # noqa: F401
     make_kv_spec,
 )
 from .lease import LeaseState, lease_workload, make_lease_spec  # noqa: F401
-from .nemesis import compile_plan, coverage_report, enabled_fire_kinds  # noqa: F401
+from .nemesis import (  # noqa: F401
+    assert_device_matches_schedule,
+    compile_plan,
+    coverage_report,
+    device_chaos_events,
+    enabled_fire_kinds,
+)
 from .paxos import PaxosState, make_paxos_spec, paxos_workload  # noqa: F401
 from .raft import (  # noqa: F401
     RaftState,

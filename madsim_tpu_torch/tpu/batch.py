@@ -12,8 +12,9 @@ seed can be shrunk into a repro bundle (`shrink_on_violation`,
 madsim_tpu_torch/triage.py), the first `max_traces` violating seeds re-run
 traced (tpu/trace.py), and violating seeds re-run on the workload's host
 reproducer when it has one. `@batch_test` runs the env-configured seed
-range as one sweep, the analog of `#[madsim::test]`. Tuning and mesh
-sharding are later slices (ROADMAP.md queue 1).
+range as one sweep, the analog of `#[madsim::test]`. `mesh="auto"` (the
+default, as on the JAX face) runs unsharded on the CPU or one card; tuning
+and multi-device sharding are later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..testing import single_seed_repro_command
 from .convert import state_to_numpy
@@ -177,6 +179,20 @@ class BatchResult:
         return int(self.violated.sum())
 
     @property
+    def chaos_fires(self) -> Dict[str, int]:
+        """Per-fault-kind fire counts over the whole batch (the device
+        half of the chaos-coverage report)."""
+        return {
+            k[len("fires_"):]: v
+            for k, v in self.summary.items()
+            if k.startswith("fires_")
+        }
+
+    def chaos_report(self) -> str:
+        """The rendered chaos-coverage line ('' when no chaos enabled)."""
+        return self.summary.get("chaos_coverage", "")
+
+    @property
     def violating_seeds(self) -> List[int]:
         return [int(s) for s in self.seeds[self.violated]]
 
@@ -277,6 +293,20 @@ def _finish_totals(totals: dict, weights: dict, violated: np.ndarray,
     totals["occupancy"] = round(occupancy, 4)
 
 
+def resolve_mesh(mesh, device="cuda") -> None:
+    """Resolve `run_batch`'s and `shrink_seed`'s `mesh` argument. As the
+    JAX face's `resolve_mesh` does with one device, "auto" runs unsharded
+    (None) on the CPU or on a host with at most one card. A multi-device
+    mesh, explicit or "auto" over several cards, is not ported."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, str) and mesh == "auto" and (
+        torch.device(device).type != "cuda" or torch.cuda.device_count() <= 1
+    ):
+        return None
+    raise _not_ported("a multi-device mesh (mesh=...)", "item 14")
+
+
 def run_batch(
     seeds: Sequence[int],
     workload: BatchWorkload,
@@ -293,7 +323,7 @@ def run_batch(
     dispatch_steps: Optional[int] = None,
     sim: Optional[BatchedSim] = None,
     device="cuda",
-    mesh: Any = None,
+    mesh: Any = "auto",
     tuning: Any = None,
 ) -> BatchResult:
     """Fuzz every seed as device lanes; re-run violating seeds on the host.
@@ -314,15 +344,15 @@ def run_batch(
     keeps no per-seed final node state, so a workload with a `lane_check`
     must run chunked. `sim` passes a pre-built BatchedSim (built for the
     workload's spec and config, with the same coverage); `device` is used
-    only when run_batch builds the sim. Per-seed results do not depend on
-    `chunk` or `refill`: no draw folds the lane index."""
+    only when run_batch builds the sim. `mesh` resolves through
+    `resolve_mesh`. Per-seed results do not depend on `chunk` or `refill`:
+    no draw folds the lane index."""
     seeds_arr = np.asarray(list(seeds), dtype=np.uint32)
     if seeds_arr.ndim != 1 or seeds_arr.size == 0:
         raise ValueError("seeds must be a non-empty 1-D sequence")
     if tuning is not None:
         raise _not_ported("run_batch(tuning=...)", "item 12")
-    if mesh is not None:
-        raise _not_ported("run_batch(mesh=...)", "item 14")
+    resolve_mesh(mesh, device if sim is None else sim.device)
     chunk = DEFAULT_CHUNK if chunk is None else int(chunk)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")

@@ -4,8 +4,8 @@ A simulator's weights are its state, so this is the port's weight loader:
 `state_from_numpy` takes the leaves of a JAX-face `SimState` as numpy
 arrays, keyed by dotted field path (`"clock"`, `"node.term"`,
 `"msgs.valid_p"`, `"strag.deliver"`, `"dur.log_len"`, `"cov.bitmap"`,
-`"queue.seeds"`, `"refill.cursor"`, ...; absent planes simply have no
-keys) and stored as the
+`"lin.eid"`, `"msgs.sent_eid"`, `"queue.seeds"`, `"refill.cursor"`, ...;
+absent planes simply have no keys) and stored as the
 JAX face stores them, and builds the port's `SimState` on a device.
 `state_to_numpy` goes the other way, into the same paths with every integer
 value widened to int64 (and the triage ctl's float32 rate scales to
@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from .engine import (
-    Coverage, MsgPool, NemesisState, RefillLog, RefillQueue, SimState,
-    StragPool, TriageCtl,
+    Coverage, Lineage, MsgPool, NemesisState, RefillLog, RefillQueue,
+    SimState, StragPool, TriageCtl,
 )
 
 _WIDE = {
@@ -72,7 +72,7 @@ def state_from_numpy(
         )
     planes = {"node": node_type, "msgs": MsgPool, "strag": StragPool,
               "nem": NemesisState, "ctl": TriageCtl, "cov": Coverage,
-              "queue": RefillQueue, "refill": RefillLog}
+              "lin": Lineage, "queue": RefillQueue, "refill": RefillLog}
     durf = fields("dur")
     if durf:
         planes["dur"] = collections.namedtuple("DurState", durf)

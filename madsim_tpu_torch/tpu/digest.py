@@ -20,6 +20,15 @@ plan of tests/test_triage.py), seed 0, `spec_ref`
 "chip_smoke:planted_restamp_spec"; tests/test_torch_triage.py holds the
 port's CPU shrink and the JAX face's to it.
 
+`PINNED_LINEAGE` holds the `lineage_digest` (sha256 of the lineage leaves,
+which `canonical_digest` ignores, as the JAX one does) of the Raft golden
+run with `lineage=True`; that run's canonical digest stays `GOLDEN["raft"]`.
+`PINNED_CAUSAL` is the causal-slice sha of the planted re-stamp bundle shrunk
+with `causal=True`, and `PINNED_BUNDLE_V3` that whole bundle's digest (with
+its causal field set to None it is `PINNED_BUNDLE`'s).
+tests/test_torch_lineage.py and tests/test_torch_causal.py compute them
+from the JAX face.
+
 `PINNED_REFILL` holds the `refill_digest` (sha256 of the per-admission
 rows of `engine.refill_results`) of `refill_run()`: the continuous-batching
 spread mix (`spread_mix`, after `madsim_tpu/tune.py:499-552`) at 1 virtual
@@ -164,6 +173,33 @@ def bundle_digest(bundle) -> str:
 # the planted re-stamp shrink's bundle: (seed, bundle_digest)
 PINNED_BUNDLE = (
     0, "73496e75ea62bd1a05db236477dc88caf63c5676b955e4dab411ad748406d741",
+)
+# the same shrink with causal=True: its causal digest's sha, and the whole
+# bundle's digest
+PINNED_CAUSAL = "1a4ff0d441498bc0"
+PINNED_BUNDLE_V3 = (
+    "2c5ca3daf7a4cafa8d8735659fd2f0d6d48c21e3dfc5675c41528aba27b452ba"
+)
+
+# the lineage plane's leaves (dotted paths), in the order lineage_digest
+# hashes them
+LINEAGE_LEAVES = ("lin.lam", "lin.eid", "msgs.sent_eid", "strag.sent_eid")
+
+
+def lineage_digest(leaves: Dict[str, np.ndarray]) -> str:
+    """sha256 over a state's lineage leaves (dotted-path numpy leaves; a
+    leaf the state lacks is skipped), each named and widened to int64."""
+    h = hashlib.sha256()
+    for k in LINEAGE_LEAVES:
+        if k in leaves:
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(np.asarray(leaves[k]).astype(np.int64)))
+    return h.hexdigest()
+
+
+# the Raft golden run with lineage=True
+PINNED_LINEAGE = (
+    "177fd1ffdfea154ac15aabc066e94bb3b1434e512a221f5260b812fbdb209ae4"
 )
 
 

@@ -41,9 +41,15 @@ re-initialises from the next queued seed (and ctl genome) inside the step
 loop. Every admission's row equals the chunked sweep's row for its seed
 (tests/test_torch_refill.py).
 
-Configurations the port does not carry yet (the lineage and device-loop
-planes) are refused at construction with the ROADMAP item that will port
-them.
+`BatchedSim(..., lineage=True)` also carries the causal-lineage plane:
+per-node Lamport clocks, the lane's global event counter and a 16-bit
+send-event stamp on every pooled message. It is observe-only: every other
+leaf equals the same sim's with lineage off (tests/test_torch_lineage.py),
+and a traced replay's records are the happens-before edge list that
+`madsim_tpu_torch.causal` decodes.
+
+The device-loop plane is not carried yet; it is refused at construction
+with the ROADMAP item that will port it.
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
 """
@@ -96,8 +102,9 @@ from ..nemesis import (
     TRIAGE_BIT,
 )
 from .spec import (
-    INF_GUARD, INF_US, REBASE_US, HardCap, ProtocolSpec, RateFloor, SimConfig,
-    derate_horizon, expand_to, popcount, tree_leaves, tree_map, tree_select,
+    EID_NONE, INF_GUARD, INF_US, REBASE_US, HardCap, ProtocolSpec, RateFloor,
+    SimConfig, derate_horizon, expand_to, popcount, tree_leaves, tree_map,
+    tree_select,
 )
 
 DEFAULT_DISPATCH_STEPS = 10_000
@@ -132,7 +139,7 @@ class MsgPool(NamedTuple):
     deliver: Any  # int32 [L,CK] (offset us)
     kind: Any  # int32 [L,CK]
     payload: Any  # int32 [L,CK,P]
-    sent_eid: Any = None  # lineage stamp (not ported: always None)
+    sent_eid: Any = None  # int32 [L,CK] u16 send-event stamp | None (lineage)
 
     @property
     def valid(self):
@@ -150,7 +157,7 @@ class StragPool(NamedTuple):
     dst: Any  # int32 [L,B]
     kind: Any  # int32 [L,B]
     payload: Any  # int32 [L,B,P]
-    sent_eid: Any = None  # lineage stamp (not ported: always None)
+    sent_eid: Any = None  # int32 [L,B] u16 send-event stamp | None (lineage)
 
 
 class NemesisState(NamedTuple):
@@ -213,6 +220,20 @@ class Coverage(NamedTuple):
     bitmap: Any  # u32 [L, COV_WORDS]
     hiwater: Any  # int32 [L]
     transitions: Any  # int32 [L]
+
+
+class Lineage(NamedTuple):
+    """Per-lane causal-lineage plane (present iff `BatchedSim(lineage=True)`).
+
+    `lam` is a per-node Lamport clock over the lane's global event-id
+    scale: a timer fire ticks it by one, a delivery sets it to max(lam,
+    send eid) + 1, where the send eid is the delivered message's emitting
+    event's id. `eid` is the lane's global event counter: every delivery
+    and timer fire takes the next id, in node order within a step. Neither
+    feeds a draw or a handler."""
+
+    lam: Any  # int32 [L,N]
+    eid: Any  # u32-in-int64 [L] next event id
 
 
 class RefillQueue(NamedTuple):
@@ -374,9 +395,12 @@ class TraceRecord(NamedTuple):
     disk_crash: Any  # int32 [L] disk died on node, -1 = none
     disk_recover: Any  # int32 [L] node recovered from its watermark, -1 = none
     disk_torn: Any  # bool [L] the occurrence's torn coin (crash, recover)
-    lam: Any = None  # lineage plane (not ported: always None)
-    evt_eid: Any = None
-    sent_eid: Any = None
+    # lineage sims only, else None: post-step Lamport clocks, this step's
+    # event ids (EID_NONE: no event) and each delivery's full send eid
+    # (EID_NONE: no delivery)
+    lam: Any = None  # int32 [L,N]
+    evt_eid: Any = None  # u32-in-int64 [L,N]
+    sent_eid: Any = None  # u32-in-int64 [L,N]
 
 
 class SimState(NamedTuple):
@@ -419,7 +443,7 @@ class SimState(NamedTuple):
     nem: Any  # NemesisState | None
     ctl: Any  # TriageCtl | None (BatchedSim(..., triage=True) only)
     cov: Any  # Coverage | None (BatchedSim(..., coverage=True) only)
-    lin: Any  # None (lineage)
+    lin: Any  # Lineage | None (BatchedSim(..., lineage=True) only)
     queue: Any  # RefillQueue | None (refill sweeps only)
     refill: Any  # RefillLog | None (refill sweeps only)
     loop: Any = None  # None (device-loop carry)
@@ -502,6 +526,7 @@ class BatchedSim:
         self.config = config or SimConfig()
         self.triage = bool(triage)
         self.coverage = bool(coverage)
+        self.lineage = bool(lineage)
         cfg = self.config
         N = spec.n_nodes
         # -- the JAX face's construction checks that apply to this slice,
@@ -674,8 +699,6 @@ class BatchedSim:
                 f"would go stale): remove {sorted(bad_dur)}"
             )
         # -- valid configurations this slice does not carry yet
-        if lineage:
-            raise _not_ported("BatchedSim(lineage=True)", "item 9")
         if devloop is not None:
             raise _not_ported("BatchedSim(devloop=...)", "item 12")
 
@@ -905,6 +928,7 @@ class BatchedSim:
                 dst=full((L, B), 0),
                 kind=full((L, B), 0),
                 payload=full((L, B, spec.payload_width), 0),
+                sent_eid=full((L, B), 0) if self.lineage else None,
             )
         all_n = bitpack.full_mask_word(N)
         return SimState(
@@ -929,13 +953,17 @@ class BatchedSim:
                 deliver=full((L, CK), INF_US),
                 kind=full((L, CK), 0),
                 payload=full((L, CK, spec.payload_width), 0),
+                sent_eid=full((L, CK), 0) if self.lineage else None,
             ),
             strag=strag, nem=nem, ctl=ctl,
             cov=Coverage(
                 bitmap=full((L, COV_WORDS), 0, torch.int64),
                 hiwater=zi, transitions=zi,
             ) if self.coverage else None,
-            lin=None, queue=None, refill=None,
+            lin=Lineage(
+                lam=full((L, N), 0), eid=full((L,), 0, torch.int64),
+            ) if self.lineage else None,
+            queue=None, refill=None,
         )
 
     # ----------------------------------------------- durability watermark
@@ -1089,6 +1117,35 @@ class BatchedSim:
         else:
             consumed_main = has_msg
         node_ids = torch.broadcast_to(narange, (L, N))
+
+        # -- 3b. causal lineage (lineage sims only). Every delivery and
+        # timer fire takes the lane's next event id, in node order within
+        # the step. The delivered slot's 16-bit stamp widens back to the
+        # full send eid: the largest value <= eid - 1 congruent to it mod
+        # 2^16 (exact while fewer than 65536 lane events happen during one
+        # flight; causal.graph_from_trace checks it). u32 values are int64
+        # masked after every subtraction. Observe-only: nothing here feeds
+        # a draw or a handler.
+        lin = state.lin
+        if lin is not None:
+            evt_lin = has_msg | due_t  # [L,N]
+            evt_i = evt_lin.to(torch.int64)
+            # exclusive prefix count over the nodes, exact in int64
+            rank = torch.cumsum(evt_i, dim=1) - evt_i
+            evt_eid_full = (lin.eid[:, None] + rank) & prng.M32  # [L,N]
+            new_lin_eid = (lin.eid + evt_i.sum(dim=1)) & prng.M32
+            m_seid16 = torch.gather(msgs.sent_eid, 1, slot)
+            if self._B:
+                m_seid16 = torch.where(
+                    strag_win, torch.gather(strag.sent_eid, 1, s_slot),
+                    m_seid16,
+                )
+            prev_e = ((lin.eid - 1) & prng.M32)[:, None]
+            m_seid = (prev_e - ((prev_e - m_seid16) & 0xFFFF)) & prng.M32
+            new_lam = torch.where(
+                has_msg, torch.maximum(lin.lam, m_seid.to(i32)) + 1,
+                torch.where(due_t, lin.lam + 1, lin.lam),
+            )
 
         # -- 4. handlers + state select (the masks are disjoint)
         any_crash = cfg.any_crash_enabled
@@ -1773,6 +1830,17 @@ class BatchedSim:
         new_deliver = put(old_deliver, deliver_at)
         new_kind = put(msgs.kind, cand_kind)
         new_payload = put(msgs.payload, cand_pay)
+        new_sent_eid = None
+        if lin is not None:
+            # a send carries its emitting event's id (the candidate's
+            # source node is a constant per position, and a duplicate
+            # shares its original's); slots no destination references
+            # reset to 0 (canonical state)
+            cand_seid16 = (
+                evt_eid_full.index_select(1, self._src_of_c) & 0xFFFF
+            ).to(i32)  # [L,C]
+            new_sent_eid = put(torch.where(referenced, msgs.sent_eid, 0),
+                               cand_seid16)
 
         new_strag = None
         if self._B:
@@ -1800,6 +1868,9 @@ class BatchedSim:
                 dst=sput(strag.dst, cand_dst.to(i32)),
                 kind=sput(strag.kind, cand_kind),
                 payload=sput(strag.payload, cand_pay),
+                sent_eid=None if lin is None else sput(
+                    torch.where(svalid, strag.sent_eid, 0), cand_seid16
+                ),
             )
 
         # -- 6b. chaos fire counts
@@ -2008,8 +2079,11 @@ class BatchedSim:
                 deliver=new_deliver,
                 kind=new_kind,
                 payload=new_payload,
+                sent_eid=new_sent_eid,
             ),
-            strag=new_strag, nem=new_nem, ctl=state.ctl, cov=cov, lin=None,
+            strag=new_strag, nem=new_nem, ctl=state.ctl, cov=cov,
+            lin=None if lin is None else Lineage(lam=new_lam,
+                                                 eid=new_lin_eid),
             queue=state.queue, refill=state.refill,
         )
         # -- 9. refill sweeps: retire finished lanes, admit queued work
@@ -2057,6 +2131,12 @@ class BatchedSim:
                 disk_crash=node_or_none(ap_dcrash, dvictim),
                 disk_recover=node_or_none(ap_drecover, dvictim),
                 disk_torn=(ap_dcrash | ap_drecover) & torn,
+            )
+        if lin is not None:
+            rec.update(
+                lam=new_lam,
+                evt_eid=torch.where(evt_lin, evt_eid_full, EID_NONE),
+                sent_eid=torch.where(has_msg, m_seid, EID_NONE),
             )
         return new_state, TraceRecord(
             clock=clock, epoch=epoch, t_evt=t_evt - shift[:, None],

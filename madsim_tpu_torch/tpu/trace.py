@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .engine import BatchedSim, TraceRecord
-from .spec import REBASE_US
+from .spec import EID_NONE, REBASE_US
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +38,9 @@ class TraceEvent:
     msg_name: str = ""  # human name for msg_kind, if provided
     payload: Optional[tuple] = None
     detail: str = ""
-    # causal lineage fields (lineage is not ported: always -1)
+    # causal lineage (traces of `BatchedSim(lineage=True)` only, else -1):
+    # this event's global id, the delivered message's send-event id, and
+    # the acting node's post-event Lamport clock (madsim_tpu_torch.causal)
     eid: int = -1
     sent_eid: int = -1
     lam: int = -1
@@ -104,6 +106,18 @@ def extract_trace(
     clock = r["clock"].astype(np.int64) + epoch * REBASE_US
     t_evt = r["t_evt"].astype(np.int64) + epoch[:, None] * REBASE_US
     msg_fired, timer_fired = r["msg_fired"], r["timer_fired"]
+    has_lin = "evt_eid" in r
+
+    def lineage(t, n, deliver):
+        """The lineage fields of node n's event at step t."""
+        if not has_lin:
+            return {}
+        eid, seid = int(r["evt_eid"][t, n]), int(r["sent_eid"][t, n])
+        out = {"eid": -1 if eid == EID_NONE else eid,
+               "lam": int(r["lam"][t, n])}
+        if deliver:
+            out["sent_eid"] = -1 if seid == EID_NONE else seid
+        return out
 
     T, N = msg_fired.shape
     events: List[TraceEvent] = []
@@ -135,10 +149,12 @@ def extract_trace(
                         if kind_names and 0 <= mk < len(kind_names) else ""
                     ),
                     payload=tuple(int(x) for x in r["msg_payload"][t, n]),
+                    **lineage(t, n, True),
                 ))
             if timer_fired[t, n]:
                 node_events.append(TraceEvent(
                     step=t, t_us=int(t_evt[t, n]), kind="timer", node=n,
+                    **lineage(t, n, False),
                 ))
         node_events.sort(key=lambda e: e.t_us)
         events.extend(node_events)

@@ -407,8 +407,9 @@ class _Eval:
         self, sim, seed: int, max_steps: int, lane_width: int,
         refill: bool = True, mesh=None,
     ):
-        if mesh is not None:
-            raise _not_ported("a sharded shrink (mesh=...)", "item 14")
+        from .tpu.batch import resolve_mesh
+
+        resolve_mesh(mesh, sim.device)
         self.sim = sim
         self.seed = int(seed)
         self.max_steps = int(max_steps)
@@ -591,15 +592,19 @@ def shrink_seed(
     `refill` (the default) evaluates each generation as one refill sweep,
     `refill=False` as chunked dispatches; bundles are bit-identical either
     way. `sim` passes a pre-built `BatchedSim(spec, config, triage=True)`;
-    otherwise one is built on `device`. Not ported yet, each refused with
-    its ROADMAP item: `mesh`, `tuning` and `causal=True`."""
+    otherwise one is built on `device`. `causal=True` adds the bundle's
+    causal digest (`causal.causal_digest` of the violation's slice): one
+    more single-lane traced replay of the final candidate, on a separate
+    lineage sim on the shrink sim's device, so the shrink's dispatches
+    never carry the lineage plane. The JAX face also records that digest
+    in its telemetry; the telemetry plane is not ported. `mesh="auto"`
+    resolves as `run_batch`'s does. Not ported yet, each refused with its
+    ROADMAP item: a multi-device `mesh` and `tuning`."""
     from .tpu.engine import BatchedSim
     from .tpu.spec import SimConfig
 
     if tuning is not None:
         raise _not_ported("shrink_seed(tuning=...)", "item 12")
-    if causal:
-        raise _not_ported("shrink_seed(causal=True) (lineage)", "item 9")
     say = log or (lambda msg: None)
     spec = workload.spec
     cfg = workload.config or SimConfig()
@@ -774,6 +779,15 @@ def shrink_seed(
         plan=plan_to_json(shrink_plan(plan, dropped, rate_scale)),
         trace_tail=tail,
     )
+    if causal:
+        from . import causal as causal_mod
+
+        _, sl = causal_mod.explain(
+            spec, cfg, int(seed),
+            ctl=build_ctl(1, final_h, dropped, occ_off, rate_scale),
+            max_steps=max(final["step"] + 2, 64), device=sim.device,
+        )
+        bundle.causal = causal_mod.causal_digest(sl)
     path = None
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)

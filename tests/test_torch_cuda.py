@@ -137,3 +137,27 @@ def test_card_refill_run_matches_pinned_digest_and_cpu(cuda_device):
     assert set(card) == set(cpu) and "refill.retired" in card
     for k in cpu:
         np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_card_lineage_refill_matches_cpu_and_lineage_off(cuda_device):
+    """The lineage plane on the card's refill path: a 12-admission sweep
+    over 4 lanes with lineage on equals the CPU's in every leaf (lineage
+    leaves of re-admitted lanes included), and its non-lineage leaves equal
+    the lineage-off card sweep's."""
+    from madsim_tpu_torch.tpu.digest import spread_mix
+    from madsim_tpu_torch.tpu.raft import make_raft_spec
+
+    spec, cfg = make_raft_spec(), spread_mix(600_000)
+    states = {}
+    for dev, lin in ((cuda_device, True), ("cpu", True), (cuda_device, False)):
+        st = BatchedSim(spec, cfg, lineage=lin, device=dev).run_refill(
+            range(12), lanes=4, max_steps=4_000)
+        states[(str(dev), lin)] = state_to_numpy(st)
+    card, cpu = states[(str(cuda_device), True)], states[("cpu", True)]
+    off = states[(str(cuda_device), False)]
+    assert set(card) == set(cpu) and "lin.eid" in card
+    for k in cpu:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    for k in off:
+        np.testing.assert_array_equal(card[k], off[k], err_msg=k)

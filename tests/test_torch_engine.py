@@ -233,17 +233,17 @@ def test_construction_refuses_out_of_slice_config(what, kw):
 @pytest.mark.parametrize("opt", ["triage", "coverage", "lineage", "devloop",
                                  "two_handler"])
 def test_construction_refuses_out_of_slice_option(opt):
-    """The lineage and device-loop planes stay refused with their ROADMAP
-    item; a two-handler spec (once refused, item 4), a triage sim with its
-    default ctl (once refused, item 10) and a coverage sim (once refused,
-    item 9) run 40 steps leaf-equal to the JAX engine (the ctl's float32
-    rate scales compared exactly)."""
+    """The device-loop plane stays refused with its ROADMAP item; a
+    two-handler spec (once refused, item 4), a triage sim with its default
+    ctl (once refused, item 10), a coverage sim and a lineage sim (once
+    refused, item 9) run 40 steps leaf-equal to the JAX engine (the ctl's
+    float32 rate scales compared exactly)."""
     from madsim_tpu.tpu.spec import replace_handlers as jax_replace_handlers
     from madsim_tpu_torch.tpu.spec import replace_handlers
 
     spec, cfg = make_raft_spec(5), SimConfig(horizon_us=1_000_000)
     kw = {"device": "cpu"}
-    if opt in ("triage", "coverage"):
+    if opt in ("triage", "coverage", "lineage"):
         jst = JaxSim(jax_raft_spec(5), JaxConfig(horizon_us=1_000_000),
                      **{opt: True}).run(jnp.arange(8, dtype=jnp.uint32),
                                         max_steps=40, dispatch_steps=40)
@@ -252,7 +252,7 @@ def test_construction_refuses_out_of_slice_option(opt):
         want = {k: np.asarray(v).astype(
                     np.float64 if np.asarray(v).dtype.kind == "f" else np.int64)
                 for k, v in named_leaves(jst)}
-        plane = {"triage": "ctl.", "coverage": "cov."}[opt]
+        plane = {"triage": "ctl.", "coverage": "cov.", "lineage": "lin."}[opt]
         assert any(k.startswith(plane) for k in want)
         assert_leaves_equal(want, state_to_numpy(pst), opt)
         return

@@ -14,7 +14,8 @@ The same inputs, made from seeds, go through both faces on the CPU:
     `digest.PINNED_BUNDLE`, and bundles replay across faces at the
     recorded step and time;
   * each argument that needs an unported plane raises NotImplementedError
-    (the refill evaluator is ported; its sharded form is not).
+    (the refill evaluator and the causal digest are ported; a sharded
+    shrink, tuning and the Perfetto rendering are not).
 
 Tolerances: exact everywhere (integer leaves widened to int64, the ctl's
 float32 rate scales compared as float64, bundle JSON byte for byte).
@@ -41,7 +42,7 @@ from madsim_tpu.tpu.engine import _occ_on as jax_occ_on
 from madsim_tpu.tpu.engine import default_ctl as jax_default_ctl
 from madsim_tpu.tpu.engine import named_leaves
 from madsim_tpu_torch import nemesis as tn
-from madsim_tpu_torch import repro, triage
+from madsim_tpu_torch import causal, repro, triage
 from madsim_tpu_torch.tpu import BatchedSim, SimConfig, make_raft_spec, run_batch
 from madsim_tpu_torch.tpu import nemesis as ttn
 from madsim_tpu_torch.tpu import prng
@@ -477,18 +478,17 @@ def test_shrink_rejects_a_non_violating_seed():
 
 # ------------------------------------------------------- refusals
 
+# an explicit multi-device mesh ("auto" runs unsharded on the CPU)
+MESH = ("cuda:0", "cuda:1")
 REFUSED = [
-    ("refill", lambda wl: run_batch(range(2), wl, refill=2, mesh="auto",
+    ("refill", lambda wl: run_batch(range(2), wl, refill=2, mesh=MESH,
                                     device="cpu"), "item 14"),
-    ("mesh", lambda wl: triage.shrink_seed(wl, 0, mesh="auto",
+    ("mesh", lambda wl: triage.shrink_seed(wl, 0, mesh=MESH,
                                            device="cpu"), "item 14"),
     ("tuning", lambda wl: triage.shrink_seed(wl, 0, tuning="auto",
                                              device="cpu"), "item 12"),
-    ("causal", lambda wl: triage.shrink_seed(wl, 0, causal=True,
-                                             device="cpu"), "item 9"),
-    ("explain", lambda wl: repro.replay_device(
-        triage.ReproBundle(**_bundle()), spec=wl.spec, explain=5,
-        device="cpu"), "item 9"),
+    ("slice_perfetto", lambda wl: causal.slice_perfetto(None),
+     "item 9 \\(telemetry\\)"),
     ("perfetto", lambda wl: repro.replay_device(
         triage.ReproBundle(**_bundle()), spec=wl.spec, perfetto="x.json",
         device="cpu"), "telemetry"),
