@@ -8,8 +8,9 @@ It drives the port's main path — the 5-node Raft fuzz sweep through
 `BatchedSim.run` and `summarize`, then FaultPlan chaos, the four other
 workloads, the membership, durability and straggler paths with their
 workloads, the triage path (trace, shrink, replay), and continuous
-batching with the coverage plane, and the causal-lineage plane — and
-checks it, in twelve phases:
+batching with the coverage plane, the causal-lineage plane, the telemetry
+plane and the coverage-guided explorer — and checks it, in thirteen
+phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -28,7 +29,7 @@ checks it, in twelve phases:
    later steps): torch.profiler over 20 steady steps at 32768 lanes —
    kernels launched per step, device idle share, top device kernels — and
    the same steps with and without deterministic mode's
-   uninitialized-memory fills, leaves equal; phases 6-12 then run without
+   uninitialized-memory fills, leaves equal; phases 6-13 then run without
    the fills;
 6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
    its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
@@ -83,7 +84,13 @@ checks it, in twelve phases:
    bundle's step and time and a third time with lineage on (`explain=8`),
    which must reproduce the bundle's causal sha, and its shrunk plan passes
    the twin schedule check under the bundle's ctl. A triage sim under the
-   default ctl reproduces phase 2's bench run leaf for leaf (ctl aside);
+   default ctl reproduces phase 2's bench run leaf for leaf (ctl aside).
+   The phase runs with telemetry on (it observes only: every gate holds):
+   the traced seed's Perfetto file parses with one track per node and one
+   flow per delivery edge of `causal.graph_from_trace` of a lineage trace
+   of the same steps, the replay writes `--perfetto`'s timeline,
+   `causal.slice_perfetto` of the explain slice writes one, and the events
+   stream holds `record_batch_result`'s and `record_shrink`'s lines;
 11. continuous batching (after phase 10, before phase 8): the spread mix
    (`digest.spread_mix`, after `madsim_tpu/tune.py:499-552`: Crash + 5%
    loss, one admission in 8 at the 1-virtual-second horizon, the rest at
@@ -100,7 +107,21 @@ checks it, in twelve phases:
 12. lineage's step cost (after phase 11, before phase 8): eight alternating
    pairs of 20-step bench probes at 32768 lanes with lineage off and on,
    every non-lineage leaf equal; the difference of the medians counts as
-   resolved only when it exceeds the spread of the off probes.
+   resolved only when it exceeds the spread of the off probes;
+13. the explorer (after phase 12, before phase 8): the pinned search
+   (`digest.EXPLORE_RUN`, 16 lanes, 2 generations, on `explore_workload`:
+   the planted re-stamp Raft under Crash + Partition at 2.5 virtual s)
+   by refill with telemetry on and chunked and serial with it off, each
+   at `digest.PINNED_EXPLORE` (the JAX face's fingerprint) and
+   `PINNED_EXPLORE_CORPUS`, the two corpora equal entry for entry; then
+   a full-width search, `Explorer(meta_seed=0, lanes=4096,
+   max_shrinks=1)` by refill for 3 generations (2, and said so, when the
+   probe says they would overrun PHASE13_BUDGET_S): generations and
+   admissions per second, ms per refill iteration, coverage and corpus
+   per generation, violations and the shrink's wall; the coverage curve
+   is monotone, the bug is found in generation 0, and the one shrunk
+   bundle replays at its step and time with the candidate's suppressions
+   kept. Phase 9's end moves earlier by PHASE13_BUDGET_S to pay for it.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -133,7 +154,9 @@ PROFILE_STEPS = 20
 PROFILE_FLAG = "--phase5-profile"
 PHASE4_BUDGET_S = 300.0
 STORM_LANES = 32768
-PHASE7_BUDGET_S = 60.0
+# (45 s since phase 13 came: on one H100 the script ended at 1114 s with
+# phases 8 and 9 at their floors, so the storm's horizon gives the margin)
+PHASE7_BUDGET_S = 45.0
 # phase 8: (workload, lanes, max_steps at 10 virtual s) as bench.py runs
 # them
 WORKLOADS = (
@@ -176,11 +199,30 @@ PHASE9_STEPS = {
 # in the anchor below, so phase 9's horizons stay where they were)
 PHASE10_BUDGET_S = 224.0
 PHASE11_BUDGET_S = 60.0
-PHASE9_END_S = 984.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
+# phase 13 (the explorer) buys its time from phase 9: the anchor moves
+# earlier by its budget, so phase 9's rule cuts its horizons (never below
+# half) to make room
+PHASE13_BUDGET_S = 160.0
+PHASE9_END_S = (984.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
+                - PHASE13_BUDGET_S)
 # phase 10: the triage sweep's seeds, and the spec reference its bundle
 # carries (resolved from the repo root by repro.resolve_spec)
 TRIAGE_SEEDS = 24
 TRIAGE_SPEC_REF = "chip_smoke:planted_restamp_spec"
+# phase 13: the explorer's workload horizon (explore_workload), the
+# full-width search's lanes and generations (dropped to the floor, never
+# below it, when the probe says they would overrun PHASE13_BUDGET_S), the
+# refill iterations of one of its generations and an iteration's cost in
+# probed steps (344-379 and 1.30, measured by this script on one H100),
+# and the seconds of its shrink and replay after the generations (42 s
+# there)
+EXPLORE_H_US = 2_500_000
+EXPLORE_LANES = 4096
+EXPLORE_GENERATIONS_WIDE = 3
+EXPLORE_GENERATIONS_FLOOR = 2
+EXPLORE_EST_ITERS = 380
+EXPLORE_ITER_PER_STEP = 1.3
+EXPLORE_TAIL_EST_S = 45.0
 # phase 11: the refill spread mix (digest.spread_mix) at the JAX smoke's
 # horizon, its admissions, the refill lanes held to the occupancy floor,
 # the wider lane count run beside them (ungated: at 8 waves the drain tail
@@ -320,6 +362,29 @@ def triage_workload():
     cfg = compile_plan(plan, SimConfig(horizon_us=5_000_000, loss_rate=0.0))
     return dataclasses.replace(
         raft_workload(spec=planted_restamp_spec()), config=cfg
+    )
+
+
+def explore_workload():
+    """The explorer's pinned workload: the planted re-stamp Raft under the
+    Crash + Partition plan of tests/test_explore.py:42-63 at a
+    2.5-virtual-second horizon without base loss, 20000 steps at most."""
+    import dataclasses
+
+    from madsim_tpu_torch import nemesis as nm
+    from madsim_tpu_torch.tpu import SimConfig, compile_plan, raft_workload
+
+    plan = nm.FaultPlan(name="explore-test", clauses=(
+        nm.Crash(interval_lo_us=300_000, interval_hi_us=900_000,
+                 down_lo_us=200_000, down_hi_us=700_000),
+        nm.Partition(interval_lo_us=250_000, interval_hi_us=800_000,
+                     heal_lo_us=300_000, heal_hi_us=900_000),
+    ))
+    cfg = compile_plan(plan, SimConfig(horizon_us=EXPLORE_H_US,
+                                       loss_rate=0.0))
+    return dataclasses.replace(
+        raft_workload(spec=planted_restamp_spec()), config=cfg,
+        host_repro=None, max_steps=20_000,
     )
 
 
@@ -605,7 +670,7 @@ def main() -> dict:
     import torch.utils.deterministic as tdet
 
     tdet.fill_uninitialized_memory = False
-    phase(5, "phases 6-12 run with uninitialized-memory fills off")
+    phase(5, "phases 6-13 run with uninitialized-memory fills off")
     report["profile"] = prof_out
     report["golden"] = phase6_golden(cuda)
     report["storm"] = phase7_storm(cuda)
@@ -613,6 +678,7 @@ def main() -> dict:
     report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
     report["refill"] = phase11_refill(cuda, card)
     report["lineage"] = phase12_lineage_cost(cuda, card)
+    report["explore"] = phase13_explore(cuda, card)
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
     return report
@@ -1152,7 +1218,7 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
     import shutil
     import tempfile
 
-    from madsim_tpu_torch import causal, repro
+    from madsim_tpu_torch import causal, repro, telemetry
     from madsim_tpu_torch.tpu import BatchedSim, run_batch
     from madsim_tpu_torch.tpu import nemesis as ttn
     from madsim_tpu_torch.tpu.convert import state_to_numpy
@@ -1168,20 +1234,6 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
     t_phase = time.perf_counter()
     wl = triage_workload()
 
-    def timed_calls(sim, name, calls):
-        """Wrap sim.<name> (or a module's function) to record (result, wall
-        seconds) of each call."""
-        inner = getattr(sim, name)
-
-        def wrapped(*a, **kw):
-            t0 = time.perf_counter()
-            out = inner(*a, **kw)
-            torch.cuda.synchronize()
-            calls.append((out, time.perf_counter() - t0))
-            return out
-
-        setattr(sim, name, wrapped)
-
     # the sweep's and the shrinker's sims, pre-built so the trace leg's
     # (state, records) and the shrink's batched dispatches (the default
     # refill evaluator's run_refill calls; its traced tail steps without
@@ -1189,13 +1241,17 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
     sim = BatchedSim(wl.spec, wl.config, device=cuda)
     tsim = BatchedSim(wl.spec, wl.config, triage=True, device=cuda)
     traced, dispatched, explained = [], [], []
-    timed_calls(sim, "run_traced", traced)
-    timed_calls(tsim, "run_refill", dispatched)
+    timed_calls_of(sim, "run_traced", traced)
+    timed_calls_of(tsim, "run_refill", dispatched)
     # the causal legs: the shrink's and the replay's lineage replays
     explain = causal.explain
-    timed_calls(causal, "explain", explained)
+    timed_calls_of(causal, "explain", explained)
     log = []
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_bundles-")
+    tel_dir = os.path.join(out_dir, "telemetry")
+    # the whole phase runs with telemetry on: it observes only, so every
+    # pinned gate below holds as with it off
+    telemetry.enable(out_dir=tel_dir)
     try:
         # -- 1. sweep, shrink and trace through the user's entry point
         t0 = time.perf_counter()
@@ -1227,7 +1283,10 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         # its records of the steps up to the violation, and its final
         # state, against the CPU's leaf for leaf (`key` aside: the card
         # took wl.max_steps steps)
-        cst, crecs = BatchedSim(wl.spec, wl.config, device="cpu").run_traced(
+        # (the CPU run has lineage on, for the timeline's flow check
+        # below; its other records and leaves are the lineage-off ones)
+        cst, crecs = BatchedSim(wl.spec, wl.config, lineage=True,
+                                device="cpu").run_traced(
             seed, max_steps=vstep + 1)
         rec_fields = [f for f in TraceRecord._fields
                       if getattr(recs, f) is not None]
@@ -1236,7 +1295,8 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
                                   getattr(crecs, f))]
         check(not bad, f"triage: card and CPU trace records differ: {bad}")
         final = state_to_numpy(st)
-        cfinal = state_to_numpy(cst)
+        cfinal = {k: v for k, v in state_to_numpy(cst).items()
+                  if not is_lineage_leaf(k)}
         del final["key"], cfinal["key"]
         bad = leaves_equal(final, cfinal)
         check(not bad, f"triage: card and CPU traced states differ: {bad}")
@@ -1327,8 +1387,10 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         # schedule check
         t3 = time.perf_counter()
         printed = []
+        replay_tl = os.path.join(out_dir, "replay.perfetto.json")
         rep = repro.replay_device(bundle, repeats=2, device=cuda,
-                                  explain=EXPLAIN_LINKS, out=printed.append)
+                                  explain=EXPLAIN_LINKS, perfetto=replay_tl,
+                                  out=printed.append)
         replay_s = time.perf_counter() - t3
         check(len(explained) == 2, "triage: the replay ran no causal leg")
         replay_causal_s = explained[1][1]
@@ -1350,6 +1412,22 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
                   f"{replay_causal_s:.3f} s); twin "
                   f"check: {twin} chaos events equal the shrunk schedule "
                   f"[{time.perf_counter() - t_phase:.0f} s in phase 10]")
+
+        # -- 5. what telemetry wrote: the traced seed's timeline (one
+        # track per node, one flow per delivery edge of the lineage
+        # graph of the same steps), the replay's --perfetto timeline, the
+        # explain slice's, and the record lines
+        tl = telemetry_checks(
+            tel_dir, wl, seed, crecs, replay_tl,
+            causal.slice_perfetto(explained[1][0][1], label="explain"),
+            os.path.join(out_dir, "slice.perfetto.json"))
+        phase(10, f"telemetry: seed {seed}'s timeline has "
+                  f"{tl['node_tracks']} node tracks and {tl['flows']} flows "
+                  f"= {tl['graph_edges']} delivery edges of the lineage "
+                  f"graph; replay timeline {tl['replay_events']} events, "
+                  f"slice timeline {tl['slice_events']} events; "
+                  f"{tl['events']} event lines with "
+                  f"{', '.join(tl['records'])}")
         phase(10, f"on {card}: {result.violations} of {TRIAGE_SEEDS} seeds "
                   f"violating; {atoms_before} -> {atoms_after} atoms in "
                   f"{dispatches} dispatches, {trace_ms:.3f} ms per traced "
@@ -1358,9 +1436,11 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
                   f"wall {replay_s:.3f} s, causal legs {shrink_causal_s:.3f}"
                   f" + {replay_causal_s:.3f} s")
     finally:
+        telemetry.disable()
         causal.explain = explain
         shutil.rmtree(out_dir, ignore_errors=True)
     return {
+        "telemetry": tl,
         "seeds": TRIAGE_SEEDS, "violating": result.violations,
         "violating_seeds": result.violating_seeds, "seed": seed,
         "violation_step": vstep, "sweep_s": result.device_ms / 1e3,
@@ -1376,6 +1456,50 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         "replay_causal_s": replay_causal_s,
         "phase_s": time.perf_counter() - t_phase,
     }
+
+
+def telemetry_checks(tel_dir: str, wl, seed: int, lineage_recs,
+                     replay_tl: str, slice_doc: dict, slice_tl: str) -> dict:
+    """Phase 10's telemetry gates: the traced seed's Perfetto file parses,
+    with one track per node and one flow per delivery edge of
+    `causal.graph_from_trace` of the lineage records of the same steps;
+    the replay's timeline and the explain slice's (written here) parse;
+    the events stream holds record_batch_result's and record_shrink's
+    lines (and record_causal's)."""
+    from madsim_tpu_torch import causal, telemetry
+
+    n = wl.spec.n_nodes
+    with open(os.path.join(tel_dir, f"{wl.spec.name}-seed{seed}"
+                                    ".perfetto.json")) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    tracks = {e["tid"] for e in evs if e["ph"] == "M"
+              and e["name"] == "thread_name" and 0 <= e.get("tid", -1) < n}
+    flows = sum(1 for e in evs if e["ph"] == "s")
+    g = causal.graph_from_trace(lineage_recs,
+                                kind_names=wl.spec.msg_kind_names, n_nodes=n)
+    check(tracks == set(range(n)),
+          f"telemetry: node tracks {sorted(tracks)} != {n} nodes")
+    check(flows == len(g.msg_pred) > 0,
+          f"telemetry: {flows} flows != {len(g.msg_pred)} delivery edges")
+    with open(replay_tl) as f:
+        replay_events = len(json.load(f)["traceEvents"])
+    with open(slice_tl, "w") as f:
+        json.dump(slice_doc, f)
+    with open(slice_tl) as f:
+        slice_events = len(json.load(f)["traceEvents"])
+    check(replay_events > n and slice_events > n,
+          "telemetry: an empty replay or slice timeline")
+    lines = telemetry.read_events(os.path.join(tel_dir, "events.jsonl"))
+    names = {e["name"] for e in lines}
+    records = ["sweep_lanes", "sweep_violations", "shrink_atoms_original",
+               "shrink_dispatches", "causal_chain_len"]
+    missing = [r for r in records if r not in names]
+    check(not missing, f"telemetry: no {missing} lines in the events")
+    return {"node_tracks": len(tracks), "flows": flows,
+            "graph_edges": len(g.msg_pred), "replay_events": replay_events,
+            "slice_events": slice_events, "events": len(lines),
+            "records": records}
 
 
 def phase11_refill(cuda, card: str) -> dict:
@@ -1562,6 +1686,227 @@ def phase12_lineage_cost(cuda, card: str) -> dict:
               "12]")
     return {"lanes": LANES, "steps": AB_STEPS, **ab,
             "phase_s": time.perf_counter() - t_phase}
+
+
+def suppressions_kept(cand, bundle) -> list:
+    """The candidate's suppressions (`Candidate.base_ctl`) its shrunk
+    bundle does not keep: every clause it switched off stays dropped, every
+    occurrence it switched off stays off (or its clause dropped), every
+    rate scale stays (or its clause dropped), and the horizon stays within
+    the candidate's. Empty when all are kept (and for a default
+    candidate, which has none)."""
+    base = cand.base_ctl() or {}
+    dropped = set(bundle.dropped_clauses)
+    lost = [n for n in base.get("off_clauses", ()) if n not in dropped]
+    for n, mask in base.get("occ_off", {}).items():
+        if n not in dropped and (bundle.occ_off.get(n, 0) & mask) != mask:
+            lost.append(f"{n}.occ_off")
+    for n, sc in base.get("rate_scale", {}).items():
+        if n not in dropped and bundle.rate_scale.get(n) != sc:
+            lost.append(f"{n}.scale")
+    if base.get("horizon_us") and bundle.horizon_us > base["horizon_us"]:
+        lost.append("horizon")
+    return lost
+
+
+def phase13_explore(cuda, card: str) -> dict:
+    """The explorer's host loop on the card. (a) The pinned run
+    (`digest.EXPLORE_RUN` on `explore_workload`) twice: by refill with
+    telemetry on, and chunked and serial with it off; both reach
+    PINNED_EXPLORE and PINNED_EXPLORE_CORPUS, and their corpora are equal
+    entry for entry. (b) A full-width search: EXPLORE_LANES lanes by
+    refill, EXPLORE_GENERATIONS_WIDE generations (2 when the probe says
+    they would overrun), one shrink; the coverage curve is monotone, the
+    bug is found in generation 0 (the uniform chunk), and the shrunk
+    bundle replays at its step and time with the candidate's suppressions
+    kept. Its summary line names the card."""
+    import shutil
+    import tempfile
+
+    from madsim_tpu_torch import repro, telemetry, triage
+    from madsim_tpu_torch.explore import Candidate, Explorer
+    from madsim_tpu_torch.tpu import BatchedSim
+    from madsim_tpu_torch.tpu.digest import (
+        EXPLORE_GENERATIONS, EXPLORE_RUN, PINNED_EXPLORE,
+        PINNED_EXPLORE_CORPUS, explore_corpus_digest,
+    )
+
+    t_phase = time.perf_counter()
+    wl = explore_workload()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_explore-")
+    out: dict = {}
+    try:
+        # -- (a) the pinned run, two dispatch paths
+        corpora = {}
+        for name, kw, telem in (
+            ("refill", {}, True),
+            ("chunked", dict(refill=False, pipeline=False), False),
+        ):
+            if telem:
+                telemetry.enable(out_dir=os.path.join(out_dir, "telemetry"))
+            try:
+                ex = Explorer(wl, device=cuda, **EXPLORE_RUN, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rep = ex.run(EXPLORE_GENERATIONS)
+                wall = time.perf_counter() - t0
+                spans = [sp.name for sp in telemetry.spans()] if telem else []
+            finally:
+                telemetry.disable()
+            fp = rep.fingerprint()
+            check(fp == PINNED_EXPLORE,
+                  f"explore {name}: fingerprint {fp} != {PINNED_EXPLORE}")
+            cd = explore_corpus_digest(ex)
+            check(cd == PINNED_EXPLORE_CORPUS,
+                  f"explore {name}: corpus digest {cd} != pinned")
+            corpora[name] = [e.to_dict() for e in ex.corpus]
+            extra = ""
+            if telem:
+                lines = telemetry.read_events(
+                    os.path.join(out_dir, "telemetry", "events.jsonl"))
+                gens = [e for e in lines if e["name"] == "explore_generations"]
+                check(spans.count("dispatch") == EXPLORE_GENERATIONS
+                      and gens and gens[-1]["value"] == EXPLORE_GENERATIONS,
+                      f"explore {name}: telemetry saw {spans} and {gens}")
+                extra = (f", telemetry on ({len(lines)} event lines, "
+                         f"{len(spans)} spans)")
+            out[f"pinned_{name}_s"] = wall
+            phase(13, f"pinned {name}: {EXPLORE_RUN['lanes']} lanes x "
+                      f"{EXPLORE_GENERATIONS} generations in {wall:.3f} s, "
+                      f"coverage {rep.coverage_curve}, corpus "
+                      f"{rep.corpus_curve}, violations "
+                      f"{rep.violation_curve}; fingerprint {fp[:16]} == "
+                      f"pinned, corpus digest == pinned{extra}")
+        check(corpora["refill"] == corpora["chunked"],
+              "explore: the refill and chunked corpora differ")
+
+        # -- (b) full width: probe, then the search with one shrink
+        sim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
+                         device=cuda)
+        ms = probe(sim, EXPLORE_LANES)[0]
+        gen_est_s = EXPLORE_EST_ITERS * ms * EXPLORE_ITER_PER_STEP / 1e3
+        left_s = PHASE13_BUDGET_S - (time.perf_counter() - t_phase)
+        gens = EXPLORE_GENERATIONS_WIDE
+        if gens * gen_est_s + EXPLORE_TAIL_EST_S > left_s:
+            gens = EXPLORE_GENERATIONS_FLOOR
+            phase(13, f"the full-width search drops to {gens} generations:"
+                      f" {EXPLORE_GENERATIONS_WIDE} were estimated at "
+                      f"{EXPLORE_GENERATIONS_WIDE * gen_est_s:.0f} s (+ "
+                      f"{EXPLORE_TAIL_EST_S:.0f} s for the shrink and the "
+                      f"replay) of {left_s:.0f} s left ({ms:.2f} ms/step)")
+        refills, shrinks, ends = [], [], []
+        timed_calls_of(sim, "run_refill", refills, keep=lambda st: (
+            int(st.refill.busy.shape[0]), int(st.refill.iters)))
+        shrink_seed = triage.shrink_seed
+        timed_calls_of(triage, "shrink_seed", shrinks)
+        try:
+            ex = Explorer(
+                wl, meta_seed=0, lanes=EXPLORE_LANES, sim=sim,
+                shrink_violations=True, max_shrinks=1,
+                shrink_kwargs={"out_dir": out_dir,
+                               "spec_ref": TRIAGE_SPEC_REF},
+                log=lambda m: ends.append(time.perf_counter()),
+            )
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = ex.run(gens)
+            wall = time.perf_counter() - t0
+        finally:
+            triage.shrink_seed = shrink_seed
+        check(rep.coverage_curve == sorted(rep.coverage_curve),
+              f"explore wide: coverage curve {rep.coverage_curve} falls")
+        check(rep.first_violation_dispatch == 0,
+              f"explore wide: first violation at dispatch "
+              f"{rep.first_violation_dispatch}, not 0 (the uniform chunk)")
+        shrunk = [v for v in rep.violations if v.get("bundle_path")]
+        check(len(shrunk) == 1 and len(shrinks) == 1 and all(
+            v.get("shrink_skipped") == "max_shrinks reached"
+            for v in rep.violations if v is not shrunk[0]),
+              f"explore wide: {len(shrunk)} bundles, {len(shrinks)} "
+              "shrinks, want 1")
+        v = shrunk[0]
+        bundle = triage.ReproBundle.load(v["bundle_path"])
+        cand = Candidate(*v["candidate"][:5], origin=v["origin"])
+        lost = suppressions_kept(cand, bundle)
+        check(not lost, f"explore wide: the bundle of {cand.describe()} "
+                        f"lost the candidate's suppressions {lost}")
+        t1 = time.perf_counter()
+        rp = repro.replay_device(bundle, repeats=1, device=cuda,
+                                 out=lambda *_: None)
+        replay_s = time.perf_counter() - t1
+        check((rp["step"], rp["t_us"]) == (bundle.violation_step,
+                                          bundle.violation_t_us),
+              f"explore wide: replay at {rp} != the bundle's")
+        # the generations' own sweeps (EXPLORE_LANES lanes) and the
+        # shrink's dispatches (lane_width lanes) are told apart by width
+        gen_calls = [(it, w) for (lanes, it), w in refills
+                     if lanes == EXPLORE_LANES]
+        iters = [it for it, _ in gen_calls]
+        gen_s = [w for _, w in gen_calls]
+        shrink_s = shrinks[0][1]
+        ends = [t0] + ends
+        gen_walls = [ends[i + 1] - ends[i] for i in range(gens)]
+        gen_walls[0] -= shrink_s  # the shrink runs inside generation 0
+        row = {
+            "lanes": EXPLORE_LANES, "generations": gens,
+            "probe_step_ms": ms, "wall_s": wall,
+            "generation_walls_s": gen_walls,
+            "generations_per_s": gens / sum(gen_walls),
+            "admissions_per_s": gens * EXPLORE_LANES / sum(gen_walls),
+            "refill_iters": iters, "refill_s": gen_s,
+            "ms_per_refill_iter": sum(gen_s) / sum(iters) * 1e3,
+            "coverage_curve": rep.coverage_curve,
+            "corpus_curve": rep.corpus_curve,
+            "violation_curve": rep.violation_curve,
+            "violations": len(rep.violations),
+            "first_violation_dispatch": rep.first_violation_dispatch,
+            "shrink_s": shrink_s,
+            "shrink_dispatches": len(refills) - len(gen_calls),
+            "shrunk": cand.describe(), "kept_atoms": v["kept_atoms"],
+            "violation_step": bundle.violation_step, "replay_s": replay_s,
+        }
+        out["wide"] = row
+        phase(13, f"full width {EXPLORE_LANES} lanes x {gens} generations "
+                  f"in {wall:.3f} s: {row['generations_per_s']:.4f} "
+                  f"generations/s, {row['admissions_per_s']:.1f} "
+                  f"admissions/s (generation walls "
+                  f"{[round(x, 3) for x in gen_walls]} s), refill "
+                  f"{iters} iterations at {row['ms_per_refill_iter']:.3f} "
+                  f"ms/iteration (probe {ms:.3f} ms/step), coverage "
+                  f"{rep.coverage_curve}, corpus {rep.corpus_curve}, "
+                  f"violations {rep.violation_curve}, first at dispatch "
+                  f"{rep.first_violation_dispatch}; shrink of "
+                  f"{cand.describe()} in {shrink_s:.3f} s "
+                  f"({row['shrink_dispatches']} dispatches), kept "
+                  f"{v['kept_atoms']}, its suppressions kept; replay at "
+                  f"step {rp['step']} t={rp['t_us']} us in {replay_s:.3f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(13, f"on {card}: pinned refill {out['pinned_refill_s']:.3f} s, "
+              f"chunked {out['pinned_chunked_s']:.3f} s; full width "
+              f"{out['wide']['admissions_per_s']:.1f} admissions/s, "
+              f"{out['wide']['ms_per_refill_iter']:.3f} ms/iteration, "
+              f"shrink {out['wide']['shrink_s']:.3f} s "
+              f"[{out['phase_s']:.0f} s in phase 13]")
+    return out
+
+
+def timed_calls_of(obj, name: str, calls: list, keep=None) -> None:
+    """Wrap obj.<name> (a sim's method or a module's function) to record
+    (result, synchronized wall seconds) of each call; `keep(result)`, when
+    given, records what to keep of the result instead of all of it."""
+    inner = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        res = inner(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append((res if keep is None else keep(res),
+                      time.perf_counter() - t0))
+        return res
+
+    setattr(obj, name, wrapped)
 
 
 if __name__ == "__main__":

@@ -24,8 +24,8 @@ This module is the host-side decoder over that plane:
     followed back through its message edge, each timer fire through
     program order), with the overlapping chaos windows attached. It
     renders as text (`format_slice`) and as a ShiViz log with decode-side
-    vector clocks (`shiviz_log`). The Perfetto rendering
-    (`slice_perfetto`) needs the telemetry plane, which is not ported.
+    vector clocks (`shiviz_log`) and as a Perfetto timeline
+    (`slice_perfetto`, through `telemetry.perfetto_from_events`).
   * bug anatomy: `slice_labels` canonicalizes a slice into a
     seed-independent label sequence (node ids renamed by order of first
     appearance); `skeleton` aligns several witnesses' slices into the
@@ -606,13 +606,16 @@ def shiviz_log(g: CausalGraph) -> str:
 def slice_perfetto(
     s: CausalSlice, label: str = "causal slice",
 ) -> Dict[str, Any]:
-    """The slice as a Chrome-trace/Perfetto timeline. It renders through
-    the telemetry plane, which is not ported yet: it raises
-    NotImplementedError naming its ROADMAP item."""
-    from .tpu.engine import _not_ported
+    """The slice as a Chrome-trace/Perfetto timeline: the chain's events
+    plus its chaos context through `telemetry.perfetto_from_events`. The
+    events carry eids, so every send->deliver arrow is a true flow,
+    anchored at the real send event."""
+    from . import telemetry
 
-    raise _not_ported("causal.slice_perfetto (Perfetto timelines)",
-                      "item 9 (telemetry)")
+    evs = sorted(s.chain + list(s.chaos), key=lambda e: e.t_us)
+    return telemetry.perfetto_from_events(
+        evs, n_nodes=s.n_nodes, label=label,
+    )
 
 
 # --------------------------------------------------------------------------

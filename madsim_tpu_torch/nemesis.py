@@ -117,6 +117,34 @@ CLAUSE_OF_EVENT: Dict[str, str] = {
     "disk_slow": "disk", "disk_crash": "disk", "disk_recover": "disk",
 }
 
+
+def mutation_vocab(config) -> Tuple[List[str], List[str], List[str]]:
+    """(sched, rate, togglable): the explorer's mutation vocabulary for a
+    compiled SimConfig (read through getattr, so this module never imports
+    the engine): the schedule clauses whose occurrences a mutant can
+    switch off, the message clauses whose rates it can scale, and every
+    clause it can toggle whole."""
+    cfg = config
+    sched = [n for n in OCC_CLAUSES if getattr(cfg, f"nem_{n}_enabled")]
+    rate = [
+        n for n, on in (
+            ("loss", cfg.nem_loss_rate > 0),
+            ("dup", cfg.nem_dup_enabled),
+            ("reorder", cfg.nem_reorder_rate > 0),
+        ) if on
+    ]
+    togglable = list(sched) + list(rate)
+    if cfg.nem_skew_enabled:
+        togglable.append("skew")
+    if cfg.nem_crash_enabled and cfg.nem_crash_wipe_rate > 0:
+        togglable.append("wipe")
+    # legacy trajectory-coupled chaos: clause-level toggles only
+    if cfg.chaos_enabled and "crash" not in togglable:
+        togglable.append("crash")
+    if cfg.partition_enabled and "partition" not in togglable:
+        togglable.append("partition")
+    return sched, rate, togglable
+
 # Schedule-level probability coins use an integer threshold
 # (bits % 1e6 < round(rate * 1e6)) rather than a float32 uniform.
 COIN_DENOM = 1_000_000
@@ -154,6 +182,17 @@ NET_SITE_REORDER = 6
 NET_SITE_REORDER_EXTRA = 7
 NET_SITE_NEM_LOSS = 8
 NET_SITE_DISK_EXTENT = 9
+
+# the explorer's meta-rng sites (madsim_tpu_torch/explore.py): MetaRng draw
+# i of meta-seed s is bits32(key_from_seed(s), META_SITE_DRAW, i), the same
+# chain every nemesis draw uses, so the search is a pure function of s
+META_SITE_DRAW = 301    # MetaRng draws
+META_SITE_ISLAND = 302  # federation island-seed derivation
+
+# genome-hash chain roots (explorer dedup): the 64-bit genome hash is two
+# independent fold32 chains over the genome words, seeded from these
+GENOME_H1 = 0x9E2AB744
+GENOME_H2 = 0x3C6EF372
 
 # --------------------------------------------------------------------------
 # clauses

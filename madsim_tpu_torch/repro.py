@@ -10,15 +10,16 @@ from either face replays on the other.
     python -m madsim_tpu_torch.repro bundle.json              # on the card
     python -m madsim_tpu_torch.repro bundle.json --device cpu --trace 40
     python -m madsim_tpu_torch.repro bundle.json --explain 8  # causal slice
+    python -m madsim_tpu_torch.repro bundle.json --perfetto t.json
 
 `--explain N` replays once more with the causal-lineage plane on and
 prints the last N links of the violation's causal slice; a bundle that
 carries a causal digest has its sha cross-checked. The device backend is
-`device`, or `tpu` as the JAX face names it.
+`device`, or `tpu` as the JAX face names it. `--perfetto PATH` writes the
+replayed trajectory as a Chrome-trace/Perfetto timeline.
 
 Not ported: the host-runtime schedule twin (`--backend host|both`; the
-host runtime is not part of the port) and the Perfetto timeline
-(`--perfetto`, the telemetry plane). Each raises NotImplementedError.
+host runtime is not part of the port). It raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -84,7 +85,11 @@ def replay_device(
 ) -> Dict[str, Any]:
     """Device replay: the violation must fire at the recorded step and
     time, bit-identically across `repeats` runs. `trace=N` prints the last
-    N trace events of the replayed violation. `explain=N` replays once
+    N trace events of the replayed violation; `perfetto=PATH` writes the
+    whole replayed trajectory as a Chrome-trace/Perfetto timeline
+    (`telemetry.write_perfetto`): one track per node, deliveries as
+    src->dst flow arrows, chaos windows as slices, the violation as an
+    instant marker. `explain=N` replays once
     more with the causal-lineage plane on and prints the last N links of
     the violation's causal slice; when the bundle carries a causal digest,
     the replayed slice's sha must equal it. Returns a report dict."""
@@ -93,11 +98,6 @@ def replay_device(
     from .tpu.spec import REBASE_US
     from .tpu.trace import trace_seed
 
-    if perfetto:
-        raise NotImplementedError(
-            "replay_device(perfetto=...) writes through the telemetry "
-            "plane, which is not ported to madsim_tpu_torch"
-        )
     if spec is None:
         if not bundle.spec_ref:
             raise ReplayError(
@@ -140,13 +140,21 @@ def replay_device(
             f"recorded step {bundle.violation_step} / "
             f"t={bundle.violation_t_us}us"
         )
-    if trace > 0:
+    if trace > 0 or perfetto:
         events = trace_seed(
             sim, bundle.seed, max_steps=step + 2,
             kind_names=spec.msg_kind_names, ctl=ctl,
         )
-        for e in events[-trace:]:
+        for e in events[-trace:] if trace > 0 else []:
             out(str(e))
+        if perfetto:
+            from . import telemetry
+
+            telemetry.write_perfetto(
+                perfetto, events, n_nodes=spec.n_nodes,
+                label=f"{bundle.spec_name} seed {bundle.seed}",
+            )
+            out(f"perfetto timeline: {perfetto}")
     rep = {"violated": True, "step": step, "t_us": t_us, "repeats": repeats}
     if explain > 0:
         from . import causal
@@ -184,8 +192,8 @@ def replay_device(
 
 def replay(
     bundle: ReproBundle, backend: str = "device", spec=None,
-    repeats: int = 2, trace: int = 0, explain: int = 0, out=print,
-    device="cuda",
+    repeats: int = 2, trace: int = 0, perfetto: Optional[str] = None,
+    explain: int = 0, out=print, device="cuda",
 ) -> Dict[str, Any]:
     """Replay a bundle on `backend`: "device" (or "tpu", the JAX face's
     name for it) replays on the batched engine; "host" and "both" need the
@@ -200,7 +208,8 @@ def replay(
         raise ValueError(
             f"unknown backend {backend!r} (device|tpu|host|both)")
     return replay_device(bundle, spec=spec, repeats=repeats, trace=trace,
-                         explain=explain, out=out, device=device)
+                         perfetto=perfetto, explain=explain, out=out,
+                         device=device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -233,13 +242,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         "the last N links (default 20) of the violation's causal slice; "
         "cross-checks the bundle's causal digest when it has one",
     )
+    p.add_argument(
+        "--perfetto", default=None, metavar="PATH",
+        help="write the replayed trajectory as a Chrome-trace/Perfetto "
+        "timeline JSON (open in ui.perfetto.dev)",
+    )
     args = p.parse_args(argv)
     bundle = ReproBundle.load(args.bundle)
     if args.spec_ref:
         bundle.spec_ref = args.spec_ref
     try:
         replay(bundle, backend=args.backend, repeats=args.repeats,
-               trace=args.trace, explain=args.explain, device=args.device)
+               trace=args.trace, perfetto=args.perfetto,
+               explain=args.explain, device=args.device)
     except (ReplayError, ValueError) as e:
         print(f"REPLAY FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,7 +11,10 @@ clean sample (chunked path only). After the sweep, the first violating
 seed can be shrunk into a repro bundle (`shrink_on_violation`,
 madsim_tpu_torch/triage.py), the first `max_traces` violating seeds re-run
 traced (tpu/trace.py), and violating seeds re-run on the workload's host
-reproducer when it has one. `@batch_test` runs the env-configured seed
+reproducer when it has one. With telemetry enabled
+(madsim_tpu_torch/telemetry.py), dispatch, decode and trace are spans,
+the result is recorded, and each traced seed's timeline is written as a
+Perfetto file into `telemetry.out_dir()`. `@batch_test` runs the env-configured seed
 range as one sweep, the analog of `#[madsim::test]`. `mesh="auto"` (the
 default, as on the JAX face) runs unsharded on the CPU or one card; tuning
 and multi-device sharding are later slices (ROADMAP.md queue 1).
@@ -35,6 +38,7 @@ from .engine import (
     BatchedSim, DEFAULT_DISPATCH_STEPS, SimState, _not_ported,
     refill_results, summarize, summarize_refill,
 )
+from .. import telemetry
 from .nemesis import coverage_report, enabled_fire_kinds
 from .spec import ProtocolSpec, SimConfig
 
@@ -403,15 +407,22 @@ def run_batch(
 
     def dispatch(off: int):
         part = seeds_arr[off: off + chunk]
-        st = sim.run(
-            part, max_steps=workload.max_steps, dispatch_steps=dispatch_steps
-        )
-        rerun = sim.run(
-            part, max_steps=workload.max_steps, dispatch_steps=dispatch_steps
-        ) if check_determinism else None
+        with telemetry.span("dispatch", site="run_batch", off=off):
+            st = sim.run(
+                part, max_steps=workload.max_steps,
+                dispatch_steps=dispatch_steps,
+            )
+            rerun = sim.run(
+                part, max_steps=workload.max_steps,
+                dispatch_steps=dispatch_steps,
+            ) if check_determinism else None
         return off, part.size, st, rerun
 
     def decode(entry) -> None:
+        with telemetry.span("decode", site="run_batch", off=entry[0]):
+            _decode(entry)
+
+    def _decode(entry) -> None:
         nonlocal state, occ_num, occ_den
         off, size, st, rerun = entry
         if rerun is not None:
@@ -476,9 +487,8 @@ def _post_sweep(
     shrink_on_violation: bool, shrink_kwargs: Optional[Dict[str, Any]],
     max_traces: int, repro_on_host: bool, max_host_repros: int,
 ) -> BatchResult:
-    """The tail both paths share: auto-triage, violation traces, host
-    repros. (The JAX face's telemetry leg is not ported: ROADMAP.md queue
-    1, item 9.)"""
+    """The tail both paths share: auto-triage, violation traces, the
+    telemetry leg, host repros."""
     if result.violations and shrink_on_violation:
         # auto-triage of the first violating seed; a triage failure must
         # never eat the primary result (which seeds violated)
@@ -497,10 +507,26 @@ def _post_sweep(
         from .trace import trace_seed
 
         for seed in result.violating_seeds[:max_traces]:
-            result.traces[seed] = trace_seed(
-                sim, seed, max_steps=workload.max_steps,
-                kind_names=workload.spec.msg_kind_names,
-            )
+            with telemetry.span("trace", site="run_batch", seed=seed):
+                result.traces[seed] = trace_seed(
+                    sim, seed, max_steps=workload.max_steps,
+                    kind_names=workload.spec.msg_kind_names,
+                )
+    if telemetry.enabled():
+        # observe-only: the sweep is finished; this reads host-side numbers
+        # and the traced TraceEvent streams only
+        telemetry.record_batch_result(result, workload=workload.spec.name)
+        tdir = telemetry.out_dir()
+        if tdir is not None:
+            for seed, events in result.traces.items():
+                telemetry.write_perfetto(
+                    os.path.join(
+                        tdir,
+                        f"{workload.spec.name}-seed{seed}.perfetto.json",
+                    ),
+                    events, n_nodes=workload.spec.n_nodes,
+                    label=f"{workload.spec.name} seed {seed}",
+                )
     if repro_on_host and workload.host_repro is not None and result.violations:
         for seed in result.violating_seeds[:max_host_repros]:
             try:
@@ -537,11 +563,17 @@ def _run_batch_refill(
 
     def dispatch(off: int):
         part = seeds_arr[off: off + chunk]
-        st = run_part(part)
-        rerun = run_part(part) if check_determinism else None
+        with telemetry.span("dispatch", site="run_batch_refill", off=off):
+            st = run_part(part)
+            rerun = run_part(part) if check_determinism else None
         return off, part.size, st, rerun
 
     def decode(entry) -> None:
+        with telemetry.span("decode", site="run_batch_refill",
+                            off=entry[0]):
+            _decode(entry)
+
+    def _decode(entry) -> None:
         nonlocal state, occ_num, occ_den
         off, size, st, rerun = entry
         if rerun is not None:

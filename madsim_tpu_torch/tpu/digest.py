@@ -34,6 +34,13 @@ rows of `engine.refill_results`) of `refill_run()`: the continuous-batching
 spread mix (`spread_mix`, after `madsim_tpu/tune.py:499-552`) at 1 virtual
 second, 256 admissions over 16 refill lanes, triage and coverage on.
 tests/test_torch_refill.py computes it from the JAX face's run.
+
+`PINNED_EXPLORE` is the JAX face's `ExploreReport.fingerprint()` of the
+pinned explorer run (`EXPLORE_RUN` for `EXPLORE_GENERATIONS` generations
+on `chip_smoke.explore_workload()`), and `PINNED_EXPLORE_CORPUS` its
+`explore_corpus_digest` (every corpus field and violation record);
+tests/test_torch_explore.py computes both there, and the port must
+reproduce them on every dispatch path.
 """
 
 from __future__ import annotations
@@ -272,3 +279,37 @@ def refill_digest(res: dict) -> str:
 
 
 PINNED_REFILL = "23a65be876412c845f03c8a3df7f902b18f5ddf0eef351556e4c110529a6527d"
+
+
+# the explorer's pinned run (madsim_tpu_torch/explore.py): `Explorer(
+# chip_smoke.explore_workload(), meta_seed=11, lanes=16, chunk=8,
+# shrink_violations=False).run(2)` — the planted re-stamp Raft under the
+# Crash + Partition plan of tests/test_explore.py at a 2.5-virtual-second
+# horizon, loss 0. The value is the JAX face's `ExploreReport.fingerprint()`
+# for the same run (tests/test_torch_explore.py computes it there).
+EXPLORE_RUN = dict(meta_seed=11, lanes=16, chunk=8, shrink_violations=False)
+EXPLORE_GENERATIONS = 2
+PINNED_EXPLORE = (
+    "11aa29f06073a49aeb33d5d4abf11107a1abc5f8a7eec64737cb4120c5b96227"
+)
+
+
+def explore_corpus_digest(ex) -> str:
+    """sha256 of an explorer's whole corpus (every field of every entry:
+    genome, new bits, bitmap, high water, transitions, violated,
+    generation) and its violation records (bundle paths aside). The
+    fingerprint covers only genomes, bitmaps and curves; this covers the
+    rest. Either face's Explorer."""
+    doc = {
+        "corpus": [e.to_dict() for e in ex.corpus],
+        "violations": [{k: v for k, v in rec.items() if k != "bundle_path"}
+                       for rec in ex.violations],
+    }
+    return hashlib.sha256(
+        json.dumps(doc, sort_keys=True).encode()).hexdigest()
+
+
+# the JAX face's explore_corpus_digest of the pinned run
+PINNED_EXPLORE_CORPUS = (
+    "7d2eae373eac4a45f8ed08d5f9b2503c3ee17202a7120136c9e91b3810d7e9fc"
+)

@@ -801,6 +801,11 @@ class BatchedSim:
         # host seconds refill steps spent in their one device read (the
         # wait for the step's queued device work included)
         self.refill_read_s = 0.0
+        # sweep programs started: one per init of a run, a refill sweep or
+        # a traced run, one per segment of `run_state`, one per traced scan
+        # (the explorer reports it as `device_dispatches`; the JAX face
+        # counts its own XLA programs, so the two counts differ)
+        self.dispatch_count = 0
         self.step = self._step
 
     # ------------------------------------------------------------------ init
@@ -2281,6 +2286,7 @@ class BatchedSim:
         state = self.init(
             seeds[:L], None if ctl is None else TriageCtl(*(t[:L] for t in ctl))
         )
+        self.dispatch_count += 1
 
         def full(shape, v=0, dtype=torch.int32):
             return torch.full(shape, v, dtype=dtype, device=dev)
@@ -2351,7 +2357,9 @@ class BatchedSim:
             raise ValueError(
                 f"dispatch_steps must be positive, got {dispatch_steps}"
             )
-        return self.run_state(self.init(seeds, ctl), max_steps, dispatch_steps)
+        state = self.init(seeds, ctl)
+        self.dispatch_count += 1
+        return self.run_state(state, max_steps, dispatch_steps)
 
     def run_state(
         self, state: SimState, max_steps: int,
@@ -2368,6 +2376,7 @@ class BatchedSim:
         while remaining > 0:
             n = min(dispatch_steps, remaining)
             state = self._run(state, n)
+            self.dispatch_count += 1
             remaining -= n
             if bool(state.done.all()):
                 break
@@ -2391,6 +2400,7 @@ class BatchedSim:
         lane is the batch lane's trajectory. `ctl` (triage sims) traces a
         shrunk candidate."""
         state = self.init([seed], ctl)
+        self.dispatch_count += 2  # init + the traced scan
         recs = []
         while len(recs) < max_steps:
             state, rec = self._step(state, record=True)

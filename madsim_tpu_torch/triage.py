@@ -432,16 +432,18 @@ class _Eval:
         self, rows: List[Tuple[int, List[int], List[float], int]]
     ) -> List[Dict[str, int]]:
         """One generation as the admissions of one refill sweep."""
+        from . import telemetry
         from .tpu.engine import refill_results
         from .tpu.spec import REBASE_US
 
         rows_p = rows + [rows[0]] * ((-len(rows)) % self.lane_width)
         seeds = np.full((len(rows_p),), self.seed, np.uint32)
-        st = self.sim.run_refill(seeds, lanes=self.lane_width,
-                                 max_steps=self.max_steps,
-                                 ctl=_ctl_of_rows(rows_p))
-        self.dispatches += 1
-        res = refill_results(st)
+        with telemetry.span("dispatch", site="shrink", candidates=len(rows)):
+            st = self.sim.run_refill(seeds, lanes=self.lane_width,
+                                     max_steps=self.max_steps,
+                                     ctl=_ctl_of_rows(rows_p))
+            self.dispatches += 1
+            res = refill_results(st)
         t_us = (res["violation_epoch"].astype(np.int64) * REBASE_US
                 + res["violation_at"].astype(np.int64))
         return self._verdicts(len(rows), res["violated"],
@@ -452,6 +454,7 @@ class _Eval:
     ) -> List[Dict[str, int]]:
         """rows: (off_bits, occ_masks, rate_scales, horizon_us) per
         candidate. Returns per-candidate {violated, step, t_us}."""
+        from . import telemetry
         from .tpu.batch import pipelined
         from .tpu.spec import REBASE_US
 
@@ -464,9 +467,10 @@ class _Eval:
             n = len(part)
             part = part + [part[0]] * (self.lane_width - n)
             seeds = np.full((self.lane_width,), self.seed, np.uint32)
-            state = self.sim.run(
-                seeds, max_steps=self.max_steps, ctl=_ctl_of_rows(part)
-            )
+            with telemetry.span("dispatch", site="shrink", candidates=n):
+                state = self.sim.run(
+                    seeds, max_steps=self.max_steps, ctl=_ctl_of_rows(part)
+                )
             self.dispatches += 1
             return n, state
 
@@ -596,8 +600,9 @@ def shrink_seed(
     causal digest (`causal.causal_digest` of the violation's slice): one
     more single-lane traced replay of the final candidate, on a separate
     lineage sim on the shrink sim's device, so the shrink's dispatches
-    never carry the lineage plane. The JAX face also records that digest
-    in its telemetry; the telemetry plane is not ported. `mesh="auto"`
+    never carry the lineage plane. With telemetry enabled, the shrink's
+    dispatches are spans and its result (and causal digest) is recorded
+    (`telemetry.record_shrink`, `record_causal`). `mesh="auto"`
     resolves as `run_batch`'s does. Not ported yet, each refused with its
     ROADMAP item: a multi-device `mesh` and `tuning`."""
     from .tpu.engine import BatchedSim
@@ -802,13 +807,21 @@ def shrink_seed(
         f"shrunk seed {seed}: {len(base_atoms)} atoms -> {len(kept)} in "
         f"{ev.dispatches} dispatches; bundle {path or '(unsaved)'}"
     )
-    return ShrinkResult(
+    result = ShrinkResult(
         bundle=bundle,
         bundle_path=path,
         dispatches=ev.dispatches,
         original_atoms=len(base_atoms),
         kept_atoms=kept,
     )
+    from . import telemetry
+
+    if telemetry.enabled():
+        # observe-only, at the host boundary: the shrink is complete
+        telemetry.record_shrink(result, workload=spec.name, seed=int(seed))
+        if bundle.causal is not None:
+            telemetry.record_causal(bundle.causal, workload=spec.name)
+    return result
 
 
 def default_bundle_dir() -> str:

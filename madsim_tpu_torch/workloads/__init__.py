@@ -1,0 +1,149 @@
+"""The workload registry: one row per protocol, every face in one place.
+
+The port of `madsim_tpu/workloads/__init__.py`. Each `WorkloadEntry` names
+the module that holds a protocol's spec factory and `BatchWorkload`
+factory; the explorer CLI (`python -m madsim_tpu_torch.explore
+--workload <name>`) and any later consumer read the rows here instead of
+keeping private lists.
+
+The port has rows for the eight hand-written workloads, pointing at
+`madsim_tpu_torch.tpu.<x>`. None ships a host face (`host_module=None`):
+the host runtime is not part of the port (ROADMAP.md queue 1, item 16).
+The speclang-generated rows (`twopc-gen`, `lease-gen`, `backup`) wait for
+the speclang device face (item 13). `names(explorable=True)` is the JAX
+registry's hand-written explorable set; wal stays unexplorable, as there.
+
+Entries hold dotted module paths and attribute names, resolved on first
+use, so importing this package imports no workload module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Callable, Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkloadEntry:
+    """One protocol's wiring (the JAX face's row, field for field)."""
+
+    name: str
+    # device face: the module exposing the spec factory and the
+    # BatchWorkload factory
+    module: str
+    spec_attr: str
+    workload_attr: str
+    # host face: module exposing `fuzz_one_seed` (None on the port)
+    host_module: Optional[str] = None
+    # schedule-matched plan-mode twin for the differential oracle
+    oracle_twin: bool = False
+    # member of the tune CLI sweep list
+    tunable: bool = False
+    # member of the explore CLI factory table
+    explorable: bool = True
+    # analysis target (static analysis is a later slice, item 15)
+    analysis: bool = True
+    # emitted by speclang from a spec source (item 13)
+    generated: bool = False
+    source_module: Optional[str] = None
+    # optional tune SpecKnob hook on `module`
+    knobs_attr: Optional[str] = None
+
+
+_TPU = "madsim_tpu_torch.tpu"
+
+ENTRIES: Tuple[WorkloadEntry, ...] = (
+    WorkloadEntry("raft", f"{_TPU}.raft", "make_raft_spec", "raft_workload",
+                  oracle_twin=True, tunable=True),
+    WorkloadEntry("kv", f"{_TPU}.kv", "make_kv_spec", "kv_workload",
+                  tunable=True),
+    WorkloadEntry("twopc", f"{_TPU}.twopc", "make_twopc_spec",
+                  "twopc_workload", tunable=True),
+    WorkloadEntry("paxos", f"{_TPU}.paxos", "make_paxos_spec",
+                  "paxos_workload", tunable=True),
+    WorkloadEntry("chain", f"{_TPU}.chain", "make_chain_spec",
+                  "chain_workload", oracle_twin=True, tunable=True),
+    WorkloadEntry("isr", f"{_TPU}.isr", "make_isr_spec", "isr_workload"),
+    WorkloadEntry("lease", f"{_TPU}.lease", "make_lease_spec",
+                  "lease_workload"),
+    # wal is an analysis and twin-test workload, not an explore CLI target
+    # (as on the JAX face)
+    WorkloadEntry("wal", f"{_TPU}.wal", "make_wal_spec", "wal_workload",
+                  explorable=False),
+)
+
+_BY_NAME: Dict[str, WorkloadEntry] = {e.name: e for e in ENTRIES}
+if len(_BY_NAME) != len(ENTRIES):  # pragma: no cover - authoring error
+    raise RuntimeError("duplicate workload registry names")
+
+
+def get(name: str) -> WorkloadEntry:
+    try:
+        return _BY_NAME[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown workload {name!r} (choose from {sorted(_BY_NAME)})"
+        ) from None
+
+
+def names(
+    *,
+    explorable: Optional[bool] = None,
+    tunable: Optional[bool] = None,
+    analysis: Optional[bool] = None,
+    oracle_twin: Optional[bool] = None,
+    generated: Optional[bool] = None,
+) -> Tuple[str, ...]:
+    """Registry names filtered by face flags (None = don't filter), in
+    registry order."""
+    out = []
+    for e in ENTRIES:
+        if explorable is not None and e.explorable != explorable:
+            continue
+        if tunable is not None and e.tunable != tunable:
+            continue
+        if analysis is not None and e.analysis != analysis:
+            continue
+        if oracle_twin is not None and e.oracle_twin != oracle_twin:
+            continue
+        if generated is not None and e.generated != generated:
+            continue
+        out.append(e.name)
+    return tuple(out)
+
+
+def _resolve(module: str, attr: str):
+    return getattr(importlib.import_module(module), attr)
+
+
+def spec_factory(name: str) -> Callable:
+    e = get(name)
+    return _resolve(e.module, e.spec_attr)
+
+
+def workload_factory(name: str) -> Callable:
+    e = get(name)
+    return _resolve(e.module, e.workload_attr)
+
+
+def spec_factories(**filters) -> Dict[str, Callable]:
+    """{name -> spec factory} for every (filtered) registry entry."""
+    return {n: spec_factory(n) for n in names(**filters)}
+
+
+def host_fuzz(name: str) -> Callable:
+    """The host twin's fuzz_one_seed for one entry (KeyError if the entry
+    ships no host face, as every port entry does)."""
+    e = get(name)
+    if e.host_module is None:
+        raise KeyError(f"workload {name!r} has no host twin module")
+    return _resolve(e.host_module, "fuzz_one_seed")
+
+
+def spec_knobs(name: str, virtual_secs: float) -> tuple:
+    """The entry's tune SpecKnob hooks ((), if it declares none)."""
+    e = get(name)
+    if e.knobs_attr is None:
+        return ()
+    return tuple(_resolve(e.module, e.knobs_attr)(virtual_secs))

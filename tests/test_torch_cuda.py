@@ -161,3 +161,24 @@ def test_card_lineage_refill_matches_cpu_and_lineage_off(cuda_device):
         np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
     for k in off:
         np.testing.assert_array_equal(card[k], off[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_card_explorer_matches_pinned_fingerprint_and_cpu(cuda_device):
+    """The pinned explorer run on the card gives PINNED_EXPLORE (the JAX
+    face's fingerprint) and the CPU's corpus entry for entry."""
+    import chip_smoke
+    from madsim_tpu_torch.explore import Explorer
+    from madsim_tpu_torch.tpu.digest import (
+        EXPLORE_GENERATIONS, EXPLORE_RUN, PINNED_EXPLORE,
+        PINNED_EXPLORE_CORPUS, explore_corpus_digest,
+    )
+
+    corpora = []
+    for dev in (cuda_device, "cpu"):
+        ex = Explorer(chip_smoke.explore_workload(), device=dev,
+                      **EXPLORE_RUN)
+        assert ex.run(EXPLORE_GENERATIONS).fingerprint() == PINNED_EXPLORE
+        assert explore_corpus_digest(ex) == PINNED_EXPLORE_CORPUS
+        corpora.append([e.to_dict() for e in ex.corpus])
+    assert corpora[0] == corpora[1]

@@ -9,6 +9,10 @@ once-refused clauses and options, each run 40 steps leaf-equal; and the
 options the port still refuses.
 """
 
+import fcntl
+import os
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +31,15 @@ from madsim_tpu_torch.tpu.convert import state_from_numpy, state_to_numpy
 from madsim_tpu_torch.tpu.digest import PINNED, canonical_digest, pinned_run
 from madsim_tpu_torch.tpu.raft import RaftState, raft_bench_config
 from madsim_tpu_torch.tpu.spec import INF_GUARD, REBASE_US
+
+# The port's CPU tests run torch single-threaded. Under the suite's
+# pytest-xdist workers (each worker imports every test module before it
+# runs a test, so this holds in all of them), torch's intra-op pool, one
+# thread per core in every worker, oversubscribes the cores: five
+# processes tracing a 100000-step seed (1024-lane idle blocks) took 843 s
+# each with the default pool and 15 s each with one thread. No result
+# depends on the thread count.
+torch.set_num_threads(1)
 
 
 def jax_faces(name):
@@ -59,28 +72,69 @@ def assert_summaries_equal(a, b):
             assert a[k] == b[k], k
 
 
-_RUNS = {}
+def shared_dir(tmp_path_factory):
+    """A directory every pytest-xdist worker of this test run shares, and
+    only this run: xdist's run id under the workers' common base temp, or
+    this process's base temp without xdist."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent / f"shared-{run}" if run else base / "shared"
+    root.mkdir(parents=True, exist_ok=True)
+    return root
 
 
-def pinned(name):
-    """Both faces' full runs of one pinned config (cached per module)."""
-    if name not in _RUNS:
-        spec, cfg, seeds, max_steps = pinned_run(name)
-        jspec, jcfg = jax_faces(name)
-        assert jcfg.to_toml() == cfg.to_toml()
-        jst = JaxSim(jspec, jcfg).run(
-            jnp.asarray(seeds, jnp.uint32), max_steps=max_steps
-        )
-        pst = BatchedSim(spec, cfg, device="cpu").run(seeds, max_steps=max_steps)
-        _RUNS[name] = (jst, jax_summarize(jst, jspec), pst, summarize(pst, spec))
-    return _RUNS[name]
+def shared_across_workers(tmp_path_factory, name, build):
+    """`build()` once per test run, whichever pytest-xdist workers ask:
+    the first caller builds under an exclusive lock file in `shared_dir`
+    and pickles the result, the others wait on the lock and load it."""
+    root = shared_dir(tmp_path_factory)
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                with open(path, "rb") as f:
+                    return pickle.load(f)
+            value = build()
+            with open(f"{path}.tmp", "wb") as f:
+                pickle.dump(value, f)
+            os.replace(f"{path}.tmp", path)
+            return value
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _pinned_runs(name):
+    """Both faces' full runs of one pinned config: (JAX leaves, the JAX
+    summary, the repo's golden digest of the JAX state, the port's leaves,
+    the port's summary)."""
+    from test_state_layout import canonical_digest as jax_canonical_digest
+
+    spec, cfg, seeds, max_steps = pinned_run(name)
+    jspec, jcfg = jax_faces(name)
+    assert jcfg.to_toml() == cfg.to_toml()
+    jst = JaxSim(jspec, jcfg).run(
+        jnp.asarray(seeds, jnp.uint32), max_steps=max_steps
+    )
+    pst = BatchedSim(spec, cfg, device="cpu").run(seeds, max_steps=max_steps)
+    return (jax_leaves(jst), jax_summarize(jst, jspec),
+            jax_canonical_digest(jst), state_to_numpy(pst),
+            summarize(pst, spec))
+
+
+@pytest.fixture(scope="session")
+def pinned(tmp_path_factory):
+    """pinned(name): both faces' full runs of one pinned config, run once
+    per test run (shared_across_workers)."""
+    return lambda name: shared_across_workers(
+        tmp_path_factory, f"engine-pinned-{name}",
+        lambda: _pinned_runs(name))
 
 
 @pytest.mark.parametrize("name", ["raft_bench", "raft_entry"])
-def test_full_run_leaf_equal(name):
-    jst, _, pst, _ = pinned(name)
-    got = state_to_numpy(pst)
-    assert_leaves_equal(jax_leaves(jst), got, name)
+def test_full_run_leaf_equal(name, pinned):
+    jleaves, _, _, got, _ = pinned(name)
+    assert_leaves_equal(jleaves, got, name)
     # the whole horizon ran (the bench config's 10 virtual seconds take
     # ~1200 steps) and the sweep did real work
     assert got["done"].all()
@@ -88,24 +142,22 @@ def test_full_run_leaf_equal(name):
 
 
 @pytest.mark.parametrize("name", ["raft_bench", "raft_entry"])
-def test_summarize_equal(name):
-    _, js, _, ps = pinned(name)
+def test_summarize_equal(name, pinned):
+    _, js, _, _, ps = pinned(name)
     assert_summaries_equal(js, ps)
     assert ps["total_events"] > 0 and ps["fires_crash"] > 0
     assert ps["total_overflow"] == 0
 
 
 @pytest.mark.parametrize("name", ["raft_bench", "raft_entry"])
-def test_pinned_digest_matches_jax_engine(name):
+def test_pinned_digest_matches_jax_engine(name, pinned):
     """The constants chip_smoke.py holds the card to are the JAX engine's:
     the port's digest function equals the repo's golden-digest function
     on the JAX state, and both runs hash to the pinned value."""
-    from test_state_layout import canonical_digest as jax_canonical_digest
-
-    jst, _, pst, _ = pinned(name)
-    assert jax_canonical_digest(jst) == PINNED[name]
-    assert canonical_digest(jax_leaves(jst)) == PINNED[name]
-    assert canonical_digest(state_to_numpy(pst)) == PINNED[name]
+    jleaves, _, jdigest, pleaves, _ = pinned(name)
+    assert jdigest == PINNED[name]
+    assert canonical_digest(jleaves) == PINNED[name]
+    assert canonical_digest(pleaves) == PINNED[name]
 
 
 def _shift_to_rebase(leaves, target=REBASE_US - 3_000):

@@ -47,19 +47,25 @@ def _banned(mod):
 
 
 def test_no_port_module_imports_jax_or_the_jax_package():
-    seen = 0
+    seen = set()
     for path, package in _sources():
         assert os.path.exists(path), path
         bad = [m for m in _imported_modules(path, package) if _banned(m)]
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
-        seen += 1
-    assert seen >= 10
+        seen.add(os.path.relpath(path, ROOT))
+    assert len(seen) >= 10
+    assert {os.path.join("madsim_tpu_torch", f) for f in (
+        "telemetry.py", "explore.py", os.path.join("workloads", "__init__.py"),
+    )} <= seen
 
 
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys; import madsim_tpu_torch.tpu, madsim_tpu_torch.tpu.digest, "
-        "madsim_tpu_torch.tpu.convert; "
+        "madsim_tpu_torch.tpu.convert, madsim_tpu_torch.telemetry, "
+        "madsim_tpu_torch.explore, madsim_tpu_torch.workloads; "
+        "from madsim_tpu_torch import workloads; "
+        "[workloads.workload_factory(n) for n in workloads.names()]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r}]; "
         "assert not bad, bad"

@@ -14,8 +14,10 @@ The same inputs, made from seeds, go through both faces on the CPU:
     `digest.PINNED_BUNDLE`, and bundles replay across faces at the
     recorded step and time;
   * each argument that needs an unported plane raises NotImplementedError
-    (the refill evaluator and the causal digest are ported; a sharded
-    shrink, tuning and the Perfetto rendering are not).
+    (the refill evaluator, the causal digest and the Perfetto renderings
+    are ported; a sharded shrink, tuning and the host backends are not),
+    and the Perfetto renderings (`causal.slice_perfetto`,
+    `replay_device(perfetto=...)`) write the JAX face's JSON.
 
 Tolerances: exact everywhere (integer leaves widened to int64, the ctl's
 float32 rate scales compared as float64, bundle JSON byte for byte).
@@ -50,7 +52,9 @@ from madsim_tpu_torch.tpu.batch import BatchViolation
 from madsim_tpu_torch.tpu.convert import state_to_numpy
 from madsim_tpu_torch.tpu.digest import PINNED_BUNDLE, bundle_digest
 from madsim_tpu_torch.tpu.engine import TriageCtl, _occ_on
-from test_torch_engine import assert_leaves_equal
+from test_torch_engine import (
+    assert_leaves_equal, shared_across_workers, shared_dir,
+)
 from test_triage import _sched_workload, planted_restamp_spec as jax_planted
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -342,12 +346,10 @@ def test_bundle_json_roundtrip_equals_the_original(tmp_path):
 
 # ------------------------------------------------------- the planted shrink
 
-@pytest.fixture(scope="module")
-def shrunk(tmp_path_factory):
-    """One shrink per face of the planted re-stamp seed 0 (lane_width 4):
-    the port's through run_batch's trace and shrink legs (seeds 0 and 1,
-    both violate), the JAX face's through shrink_seed."""
-    out = str(tmp_path_factory.mktemp("bundles"))
+def _shrink_both_faces(out):
+    """The port's run_batch (trace and shrink legs) and the JAX face's
+    shrink_seed; the port's result without its workload (rebuilt by the
+    caller), so that it pickles."""
     wl = chip_smoke.triage_workload()
     jwl = _sched_workload()
     assert wl.config.to_toml() == jwl.config.to_toml()
@@ -357,7 +359,22 @@ def shrunk(tmp_path_factory):
     )
     jsr = jtri.shrink_seed(jwl, 0, lane_width=4, refill=False,
                            spec_ref=SPEC_REF)
-    return dict(wl=wl, jwl=jwl, result=result, jsr=jsr, out=out)
+    return dataclasses.replace(result, workload=None), jsr
+
+
+@pytest.fixture(scope="module")
+def shrunk(tmp_path_factory):
+    """One shrink per face of the planted re-stamp seed 0 (lane_width 4),
+    run once per test run (shared_across_workers): the port's through
+    run_batch's trace and shrink legs (seeds 0 and 1, both violate), the
+    JAX face's through shrink_seed."""
+    out = str(shared_dir(tmp_path_factory) / "bundles")
+    result, jsr = shared_across_workers(
+        tmp_path_factory, "triage-shrunk", lambda: _shrink_both_faces(out))
+    wl = chip_smoke.triage_workload()
+    result = dataclasses.replace(result, workload=wl)
+    return dict(wl=wl, jwl=_sched_workload(), result=result, jsr=jsr,
+                out=out)
 
 
 def test_planted_shrink_bundle_equals_the_jax_face(shrunk):
@@ -487,11 +504,6 @@ REFUSED = [
                                            device="cpu"), "item 14"),
     ("tuning", lambda wl: triage.shrink_seed(wl, 0, tuning="auto",
                                              device="cpu"), "item 12"),
-    ("slice_perfetto", lambda wl: causal.slice_perfetto(None),
-     "item 9 \\(telemetry\\)"),
-    ("perfetto", lambda wl: repro.replay_device(
-        triage.ReproBundle(**_bundle()), spec=wl.spec, perfetto="x.json",
-        device="cpu"), "telemetry"),
     ("host backend", lambda wl: repro.replay(
         triage.ReproBundle(**_bundle()), backend="host"), "host runtime"),
     ("both backends", lambda wl: repro.replay(
@@ -504,6 +516,80 @@ REFUSED = [
 def test_unported_arguments_are_refused(what, call, item):
     with pytest.raises(NotImplementedError, match=item):
         call(chip_smoke.triage_workload())
+
+
+def _early_violation():
+    """(spec, bundle) of a chaos-free early violation: the invariant
+    breaks once virtual time reaches 600 ms, so any seed violates within
+    about a hundred steps; the bundle's step and time are read off one
+    port run under its (default) ctl."""
+    from madsim_tpu_torch.tpu.spec import REBASE_US, replace_handlers
+
+    wl = chip_smoke.triage_workload()
+    spec = replace_handlers(make_raft_spec(5), check_invariants=lambda ns,
+                            alive, now: now < 600_000)
+    cfg = wl.config
+    bundle = triage.ReproBundle(**_bundle(
+        seed=3, spec_ref=None, spec_kwargs={}, config_toml=cfg.to_toml(),
+        config_hash=cfg.hash(), dropped_clauses=[], occ_off={},
+        rate_scale={}, horizon_us=cfg.horizon_us, max_steps=2_000))
+    st = BatchedSim(spec, cfg, triage=True, device="cpu").run(
+        [3], max_steps=2_000, ctl=bundle.ctl(1))
+    bundle.violation_step = int(st.violation_step[0])
+    bundle.violation_t_us = int(st.violation_epoch[0]) * REBASE_US + int(
+        st.violation_at[0])
+    return spec, bundle
+
+
+def _check_slice_perfetto(tmp_path, capsys):
+    """The causal slice's timeline equals the JAX face's rendering of the
+    same lineage trace's slice."""
+    from madsim_tpu import causal as jcausal
+    from madsim_tpu_torch.tpu.trace import extract_trace
+
+    spec, bundle = _early_violation()
+    _, recs = BatchedSim(spec, bundle.config(), triage=True, lineage=True,
+                         device="cpu").run_traced(
+        3, max_steps=bundle.violation_step + 2, ctl=bundle.ctl(1))
+    events = extract_trace(recs, kind_names=spec.msg_kind_names)
+    doc = causal.slice_perfetto(causal.causal_slice(
+        causal.graph_from_events(events, n_nodes=5)), label="slice")
+    jdoc = jcausal.slice_perfetto(jcausal.causal_slice(
+        jcausal.graph_from_events(events, n_nodes=5)), label="slice")
+    assert json.dumps(doc) == json.dumps(jdoc)
+    assert any(e["ph"] == "s" for e in doc["traceEvents"])
+
+
+def _check_replay_perfetto(tmp_path, capsys):
+    """replay_device(perfetto=...) writes the replayed trajectory's
+    timeline: the JAX face's writer over the same event stream."""
+    from madsim_tpu import telemetry as jtel
+    from madsim_tpu_torch.tpu.trace import trace_seed
+
+    spec, bundle = _early_violation()
+    path = str(tmp_path / "replay.perfetto.json")
+    repro.replay_device(bundle, spec=spec, repeats=1, perfetto=path,
+                        device="cpu")
+    assert f"perfetto timeline: {path}" in capsys.readouterr().out
+    events = trace_seed(BatchedSim(spec, bundle.config(), triage=True,
+                                   device="cpu"), 3,
+                        max_steps=bundle.violation_step + 2,
+                        kind_names=spec.msg_kind_names, ctl=bundle.ctl(1))
+    want = str(tmp_path / "jax.perfetto.json")
+    jtel.write_perfetto(want, events, n_nodes=5, label="raft5 seed 3")
+    assert open(path).read() == open(want).read()
+    assert events[-1].kind == "violation"
+
+
+PORTED = [("slice_perfetto", _check_slice_perfetto),
+          ("perfetto", _check_replay_perfetto)]
+
+
+@pytest.mark.parametrize("check", [p[1] for p in PORTED],
+                         ids=[p[0] for p in PORTED])
+def test_once_refused_telemetry_calls_equal_the_jax_face(check, tmp_path,
+                                                        capsys):
+    check(tmp_path, capsys)
 
 
 def test_resolve_spec_refuses_the_jax_package():
