@@ -9,8 +9,8 @@ It drives the port's main path — the 5-node Raft fuzz sweep through
 workloads, the membership, durability and straggler paths with their
 workloads, the triage path (trace, shrink, replay), and continuous
 batching with the coverage plane, the causal-lineage plane, the telemetry
-plane and the coverage-guided explorer — and checks it, in thirteen
-phases:
+plane, the coverage-guided explorer and its device-resident search loop —
+and checks it, in fourteen phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -29,7 +29,7 @@ phases:
    later steps): torch.profiler over 20 steady steps at 32768 lanes —
    kernels launched per step, device idle share, top device kernels — and
    the same steps with and without deterministic mode's
-   uninitialized-memory fills, leaves equal; phases 6-13 then run without
+   uninitialized-memory fills, leaves equal; phases 6-14 then run without
    the fills;
 6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
    its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
@@ -58,8 +58,9 @@ phases:
    8, correct 4) and the two-handler unilateral-abort 2PC participant
    under the quiet config with a 5% heavy tail (10 virtual s), each at
    32768 lanes, correct and buggy, one timed run each (a horizon is cut,
-   never below half, when a probed step time says the runs would pass
-   PHASE9_END_S; the cut is printed). The correct builds never violate,
+   never below half for a buggy build and a quarter for a correct one,
+   when a probed step time says the runs would pass PHASE9_END_S; the cut
+   is printed). The correct builds never violate,
    every enabled fire
    kind fires and stragglers ride the side pool, each planted bug fires on
    at least the share of lanes its JAX test demands (isr > 64/128, lease >
@@ -115,13 +116,25 @@ phases:
    at `digest.PINNED_EXPLORE` (the JAX face's fingerprint) and
    `PINNED_EXPLORE_CORPUS`, the two corpora equal entry for entry; then
    a full-width search, `Explorer(meta_seed=0, lanes=4096,
-   max_shrinks=1)` by refill for 3 generations (2, and said so, when the
-   probe says they would overrun PHASE13_BUDGET_S): generations and
-   admissions per second, ms per refill iteration, coverage and corpus
-   per generation, violations and the shrink's wall; the coverage curve
-   is monotone, the bug is found in generation 0, and the one shrunk
-   bundle replays at its step and time with the candidate's suppressions
-   kept. Phase 9's end moves earlier by PHASE13_BUDGET_S to pay for it.
+   max_shrinks=1)` by refill for 2 generations: generations and
+   admissions per second, ms per refill iteration, host read ms per
+   iteration, coverage and corpus per generation, violations and the
+   shrink's wall; the coverage curve is monotone, the bug is found in
+   generation 0, and the one shrunk bundle replays at its step and time
+   with the candidate's suppressions kept. Phase 9's end moves earlier by
+   PHASE13_BUDGET_S to pay for it;
+14. the device-resident search loop (after phase 13, before phase 8):
+   (a) one generation boundary at 4096 admissions
+   (`devloop_boundary_state`: a seeded refill log with ties in novelty,
+   an uploaded ring, union and seen table with planted duplicates) on the
+   card equals the CPU's in every leaf, `loop.*` included, inside the
+   window (mutate and respawn) and at its end; (b) `Explorer(meta_seed=0,
+   lanes=4096, device_loop=True, device_window=2)` with telemetry on
+   equals phase 13(b)'s host search (fingerprint, curves, corpus entry
+   for entry) with one decode for the window and the events counting its
+   2 generations; generations/s, admissions/s, ms per refill iteration,
+   ms per boundary and host read ms per iteration beside phase 13(b)'s.
+   Phase 9's end moves earlier by PHASE14_BUDGET_S to pay for it.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -199,30 +212,32 @@ PHASE9_STEPS = {
 # in the anchor below, so phase 9's horizons stay where they were)
 PHASE10_BUDGET_S = 224.0
 PHASE11_BUDGET_S = 60.0
-# phase 13 (the explorer) buys its time from phase 9: the anchor moves
-# earlier by its budget, so phase 9's rule cuts its horizons (never below
-# half) to make room
+# phases 13 (the explorer) and 14 (the device loop) buy their time from
+# phase 9: the anchor moves earlier by their budgets, so phase 9's rule
+# cuts its horizons to make room (the buggy cells never below half, the
+# correct cells never below a quarter)
 PHASE13_BUDGET_S = 160.0
+PHASE14_BUDGET_S = 45.0
 PHASE9_END_S = (984.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
-                - PHASE13_BUDGET_S)
+                - PHASE13_BUDGET_S - PHASE14_BUDGET_S)
+# the least share of its horizon a phase-9 cell may be cut to: the buggy
+# cells keep half (the JAX face's bug shares were measured there), the
+# correct cells' gates (no violation, every enabled kind fires) are
+# printed with their fires at any horizon
+PHASE9_FLOOR = {False: 0.25, True: 0.5}
 # phase 10: the triage sweep's seeds, and the spec reference its bundle
 # carries (resolved from the repo root by repro.resolve_spec)
 TRIAGE_SEEDS = 24
 TRIAGE_SPEC_REF = "chip_smoke:planted_restamp_spec"
-# phase 13: the explorer's workload horizon (explore_workload), the
-# full-width search's lanes and generations (dropped to the floor, never
-# below it, when the probe says they would overrun PHASE13_BUDGET_S), the
-# refill iterations of one of its generations and an iteration's cost in
-# probed steps (344-379 and 1.30, measured by this script on one H100),
-# and the seconds of its shrink and replay after the generations (42 s
-# there)
+# phase 13: the explorer's workload horizon (explore_workload), and the
+# full-width search's lanes and generations (fixed at 2: one boundary
+# between generations and the final fold, which phase 14's device loop
+# runs again)
 EXPLORE_H_US = 2_500_000
 EXPLORE_LANES = 4096
-EXPLORE_GENERATIONS_WIDE = 3
 EXPLORE_GENERATIONS_FLOOR = 2
-EXPLORE_EST_ITERS = 380
-EXPLORE_ITER_PER_STEP = 1.3
-EXPLORE_TAIL_EST_S = 45.0
+# phase 14: the seed of the boundary state held card against CPU
+DEVLOOP_STATE_SEED = 14
 # phase 11: the refill spread mix (digest.spread_mix) at the JAX smoke's
 # horizon, its admissions, the refill lanes held to the occupancy floor,
 # the wider lane count run beside them (ungated: at 8 waves the drain tail
@@ -670,7 +685,7 @@ def main() -> dict:
     import torch.utils.deterministic as tdet
 
     tdet.fill_uninitialized_memory = False
-    phase(5, "phases 6-13 run with uninitialized-memory fills off")
+    phase(5, "phases 6-14 run with uninitialized-memory fills off")
     report["profile"] = prof_out
     report["golden"] = phase6_golden(cuda)
     report["storm"] = phase7_storm(cuda)
@@ -678,7 +693,9 @@ def main() -> dict:
     report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
     report["refill"] = phase11_refill(cuda, card)
     report["lineage"] = phase12_lineage_cost(cuda, card)
-    report["explore"] = phase13_explore(cuda, card)
+    report["explore"], host13 = phase13_explore(cuda, card)
+    report["devloop"] = phase14_devloop(
+        cuda, card, {**host13, "row": report["explore"]["wide"]})
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
     return report
@@ -1034,8 +1051,8 @@ def phase9_membership(cuda) -> dict:
         del st
         # the time left before PHASE9_END_S, shared by the runs still to
         # go (the 64-lane run counts as one); over it, the horizon is cut
-        # (printed), never below half: the bug shares hold there (JAX
-        # face, 512 lanes at half horizons: isr 0.98, lease 0.39, wal
+        # (printed), never below PHASE9_FLOOR: the bug shares hold at half
+        # (JAX face, 512 lanes at half horizons: isr 0.98, lease 0.39, wal
         # 0.45, twopc 0.11 of lanes)
         left = len(runs) - i + 1
         budget_s = (PHASE9_END_S - (time.perf_counter() - T_START)) / left
@@ -1043,7 +1060,7 @@ def phase9_membership(cuda) -> dict:
         cut = ""
         if est_s > budget_s:
             virtual_secs = round(
-                max(0.5, budget_s / est_s) * full_secs, 1)
+                max(PHASE9_FLOOR[buggy], budget_s / est_s) * full_secs, 2)
             cut = (f" (cut: virtual_secs {full_secs} -> {virtual_secs}; "
                    f"{PHASE9_STEPS[tag]} steps at {ms:.2f} ms/step were "
                    f"estimated at {est_s:.0f} s)")
@@ -1715,11 +1732,12 @@ def phase13_explore(cuda, card: str) -> dict:
     telemetry on, and chunked and serial with it off; both reach
     PINNED_EXPLORE and PINNED_EXPLORE_CORPUS, and their corpora are equal
     entry for entry. (b) A full-width search: EXPLORE_LANES lanes by
-    refill, EXPLORE_GENERATIONS_WIDE generations (2 when the probe says
-    they would overrun), one shrink; the coverage curve is monotone, the
-    bug is found in generation 0 (the uniform chunk), and the shrunk
-    bundle replays at its step and time with the candidate's suppressions
-    kept. Its summary line names the card."""
+    refill, EXPLORE_GENERATIONS_FLOOR generations, one shrink; the
+    coverage curve is monotone, the bug is found in generation 0 (the
+    uniform chunk), and the shrunk bundle replays at its step and time
+    with the candidate's suppressions kept. Its summary line names the
+    card. Returns (the phase's report, the full-width search's report and
+    corpus, which phase 14 holds its device loop to)."""
     import shutil
     import tempfile
 
@@ -1784,19 +1802,11 @@ def phase13_explore(cuda, card: str) -> dict:
         sim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
                          device=cuda)
         ms = probe(sim, EXPLORE_LANES)[0]
-        gen_est_s = EXPLORE_EST_ITERS * ms * EXPLORE_ITER_PER_STEP / 1e3
-        left_s = PHASE13_BUDGET_S - (time.perf_counter() - t_phase)
-        gens = EXPLORE_GENERATIONS_WIDE
-        if gens * gen_est_s + EXPLORE_TAIL_EST_S > left_s:
-            gens = EXPLORE_GENERATIONS_FLOOR
-            phase(13, f"the full-width search drops to {gens} generations:"
-                      f" {EXPLORE_GENERATIONS_WIDE} were estimated at "
-                      f"{EXPLORE_GENERATIONS_WIDE * gen_est_s:.0f} s (+ "
-                      f"{EXPLORE_TAIL_EST_S:.0f} s for the shrink and the "
-                      f"replay) of {left_s:.0f} s left ({ms:.2f} ms/step)")
+        gens = EXPLORE_GENERATIONS_FLOOR
         refills, shrinks, ends = [], [], []
         timed_calls_of(sim, "run_refill", refills, keep=lambda st: (
-            int(st.refill.busy.shape[0]), int(st.refill.iters)))
+            int(st.refill.busy.shape[0]), int(st.refill.iters),
+            sim.refill_read_s))
         shrink_seed = triage.shrink_seed
         timed_calls_of(triage, "shrink_seed", shrinks)
         try:
@@ -1838,11 +1848,13 @@ def phase13_explore(cuda, card: str) -> dict:
                                           bundle.violation_t_us),
               f"explore wide: replay at {rp} != the bundle's")
         # the generations' own sweeps (EXPLORE_LANES lanes) and the
-        # shrink's dispatches (lane_width lanes) are told apart by width
-        gen_calls = [(it, w) for (lanes, it), w in refills
-                     if lanes == EXPLORE_LANES]
-        iters = [it for it, _ in gen_calls]
-        gen_s = [w for _, w in gen_calls]
+        # shrink's dispatches (lane_width lanes) are told apart by width;
+        # each call's host reads are its step of the cumulative read time
+        reads = np.diff([0.0] + [r for (_, _, r), _ in refills])
+        gen_calls = [(it, w, rd) for ((lanes, it, _), w), rd
+                     in zip(refills, reads) if lanes == EXPLORE_LANES]
+        iters = [it for it, _, _ in gen_calls]
+        gen_s = [w for _, w, _ in gen_calls]
         shrink_s = shrinks[0][1]
         ends = [t0] + ends
         gen_walls = [ends[i + 1] - ends[i] for i in range(gens)]
@@ -1855,6 +1867,8 @@ def phase13_explore(cuda, card: str) -> dict:
             "admissions_per_s": gens * EXPLORE_LANES / sum(gen_walls),
             "refill_iters": iters, "refill_s": gen_s,
             "ms_per_refill_iter": sum(gen_s) / sum(iters) * 1e3,
+            "read_ms_per_iter": sum(rd for _, _, rd in gen_calls)
+            / sum(iters) * 1e3,
             "coverage_curve": rep.coverage_curve,
             "corpus_curve": rep.corpus_curve,
             "violation_curve": rep.violation_curve,
@@ -1889,6 +1903,227 @@ def phase13_explore(cuda, card: str) -> dict:
               f"{out['wide']['ms_per_refill_iter']:.3f} ms/iteration, "
               f"shrink {out['wide']['shrink_s']:.3f} s "
               f"[{out['phase_s']:.0f} s in phase 13]")
+    return out, {"report": rep, "corpus": [e.to_dict() for e in ex.corpus]}
+
+
+def devloop_boundary_state(sim, seed: int, gens_done: int, target: int):
+    """A device-loop state at a generation boundary (the queue drained,
+    every lane done), made from `seed` on sim's device at its plan's
+    population: an uploaded ring (12 rows, novelty ties), a sparse union,
+    a seen table holding the ring's genomes and generation 0's (planted
+    duplicates: a mutant that restores its parent's horizon is its
+    parent) plus random rows and one repeated row, and a refill log of
+    seeded bitmaps (bits from a pool of 600, so ties in novelty),
+    violations, high waters and transitions. `gens_done`/`target` place
+    the boundary inside the window (the next generation is built) or at
+    its end (fold only)."""
+    from madsim_tpu_torch import explore
+    from madsim_tpu_torch import nemesis as nm
+    from madsim_tpu_torch.tpu.engine import COV_WORDS
+
+    plan, dev = sim.devloop, sim.device
+    A, K = plan.pop, plan.top_k
+    rng = np.random.default_rng(seed)
+    n_occ = len(nm.OCC_CLAUSES)
+    pop = [explore.Candidate(seed=i) for i in range(A)]
+    rows = []
+    for i in range(K - 4):
+        occ = [0] * n_occ
+        occ[nm.OCC_ROW["crash"]] = int(rng.integers(0, 8))
+        rows.append(explore.Candidate(
+            seed=int(rng.integers(0, 2**32)),
+            off=int(rng.integers(0, 2)) * nm.TRIAGE_BIT["partition"],
+            occ_off=tuple(occ), origin="mutant"))
+    bits = sorted(rng.choice([300, 120, 120, 40, 40, 40, 9], len(rows)),
+                  reverse=True)
+    ring = {
+        "n": len(rows), "bits": bits, "seed": [c.seed for c in rows],
+        "off": [c.off for c in rows], "occ": [c.occ_off for c in rows],
+        "rate": [c.rate_scale for c in rows],
+        "h": [c.horizon_us for c in rows],
+    }
+    hs = [explore.genome_hash64(c.key()) for c in rows + pop]
+    hs += [(int(a), int(b)) for a, b in rng.integers(0, 2**32, (64, 2))]
+    hs.append(hs[len(rows) // 2])
+    pool = rng.choice(COV_WORDS * 32, 600, replace=False)
+    union = np.zeros(COV_WORDS, np.uint32)
+    for b in rng.choice(pool, 150, replace=False):
+        union[b // 32] |= np.uint32(1 << (b % 32))
+    st = sim.init_devloop(
+        np.arange(A, dtype=np.uint32), lanes=A,
+        ctl=explore.ctl_for(pop, plan.full_h, dev), window=2,
+        step_cap=20_000, meta_seed=seed,
+        meta_counter=int(rng.integers(0, 1000)), next_fresh=A,
+        target_gens=target, gen_h_raw=[0] * A, gen_origin=[0] * A,
+        ring=ring, union=union,
+        seen={"n": len(hs), "h1": [a for a, _ in hs],
+              "h2": [b for _, b in hs]},
+    )
+    bm = np.zeros((A, COV_WORDS), np.int64)
+    for i in range(A):
+        for b in rng.choice(pool, rng.integers(0, 6)):
+            bm[i, b // 32] |= 1 << (b % 32)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    rf = st.refill._replace(
+        cursor=t(np.int32(A)), cov_bitmap=t(bm),
+        violated=t(rng.random(A) < 0.3),
+        cov_hiwater=t(rng.integers(0, 60, A).astype(np.int32)),
+        cov_transitions=t(rng.integers(0, 900, A).astype(np.int32)),
+        steps=t(rng.integers(1, 2000, A).astype(np.int32)),
+        retired=t(rng.integers(0, 600, A).astype(np.int32)),
+    )
+    return st._replace(
+        done=torch.ones_like(st.done), refill=rf,
+        loop=st.loop._replace(gens_done=t(np.int32(gens_done))),
+    )
+
+
+def phase14_devloop(cuda, card: str, host: dict) -> dict:
+    """The device-resident search loop on the card. (a) The boundary at
+    EXPLORE_LANES admissions: `_devloop_boundary` of a seeded boundary
+    state (`devloop_boundary_state`) on the card equals the CPU's in every
+    leaf, `loop.*` included, inside the window (mutate and respawn) and at
+    its end (fold only). (b) The full-width search by the device loop,
+    `Explorer(meta_seed=0, lanes=EXPLORE_LANES, device_loop=True)` over
+    phase 13(b)'s generations in one window, with telemetry on: its
+    fingerprint, curves and corpus (entry for entry) equal phase 13(b)'s
+    host loop, the explorer's window oracle passes with one
+    `devloop_results` per window, and the events count the generations.
+    Prints generations/s, admissions/s, ms per refill iteration, ms per
+    boundary and host read ms per iteration beside phase 13(b)'s."""
+    import shutil
+    import tempfile
+
+    from madsim_tpu_torch import telemetry
+    from madsim_tpu_torch.explore import Explorer
+    from madsim_tpu_torch.tpu import BatchedSim, engine
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.spec import tree_map
+
+    t_phase = time.perf_counter()
+    wl = explore_workload()
+    plan = engine.make_devloop_plan(wl.config, pop=EXPLORE_LANES)
+    out: dict = {}
+
+    # -- (a) one boundary, card against CPU
+    sims = {str(d): BatchedSim(wl.spec, wl.config, triage=True,
+                               coverage=True, devloop=plan, device=d)
+            for d in ("cpu", cuda)}
+    for gens_done, where in ((0, "inside the window"), (1, "window end")):
+        st = devloop_boundary_state(sims["cpu"], DEVLOOP_STATE_SEED,
+                                    gens_done, 2)
+        card_st = tree_map(lambda x: x.to(cuda), st)
+        want = sims["cpu"]._devloop_boundary(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sims[str(cuda)]._devloop_boundary(card_st)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        g, c = state_to_numpy(got), state_to_numpy(want)
+        bad = leaves_equal(g, c)
+        check(not bad and any(k.startswith("loop.") for k in g),
+              f"devloop boundary ({where}): card and CPU leaves differ: "
+              f"{bad}")
+        org = g["loop.gen_origin"]
+        mut = org[plan.n_fresh:plan.n_fresh + plan.n_mut]
+        extra = (f"; next generation: {int((mut == 1).sum())} mutants, "
+                 f"{int((mut == 0).sum())} fallbacks, "
+                 f"{int((org == 2).sum())} swarm"
+                 if gens_done == 0 else "")
+        out[f"boundary_{gens_done}"] = {"first_call_ms": ms}
+        phase(14, f"boundary at {EXPLORE_LANES} admissions ({where}): "
+                  f"{len(g)} leaves equal card/CPU, {int(g['loop.accepts'])}"
+                  f" accepted, ring {int(g['loop.ring_n'])}, seen "
+                  f"{int(g['loop.seen_n'])} rows{extra}; first card call "
+                  f"{ms:.1f} ms")
+    del sims
+
+    # -- (b) the full-width search by the device loop
+    gens = host["report"].dispatches
+    sim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
+                     devloop=plan, device=cuda)
+    runs, boundaries, decodes = [], [], []
+    timed_calls_of(sim, "run_devloop", runs,
+                   keep=lambda st: int(st.refill.iters))
+    inner = sim._devloop_boundary
+
+    def boundary(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*a, **kw)
+        torch.cuda.synchronize()
+        boundaries.append(time.perf_counter() - t0)
+        return res
+
+    sim._devloop_boundary = boundary
+    results = engine.devloop_results
+    engine.devloop_results = lambda st: decodes.append(1) or results(st)
+    tel_dir = tempfile.mkdtemp(prefix="chip_smoke_devloop-")
+    telemetry.enable(out_dir=tel_dir)
+    try:
+        ex = Explorer(wl, meta_seed=0, lanes=EXPLORE_LANES, sim=sim,
+                      device_loop=True, device_window=gens,
+                      shrink_violations=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ex.run(gens)
+        wall = time.perf_counter() - t0
+        lines = telemetry.read_events(os.path.join(tel_dir, "events.jsonl"))
+    finally:
+        telemetry.disable()
+        engine.devloop_results = results
+        shutil.rmtree(tel_dir, ignore_errors=True)
+    want = host["report"]
+    for what, a, b in (
+        ("fingerprint", rep.fingerprint(), want.fingerprint()),
+        ("coverage curve", rep.coverage_curve, want.coverage_curve),
+        ("corpus curve", rep.corpus_curve, want.corpus_curve),
+        ("violation curve", rep.violation_curve, want.violation_curve),
+        ("corpus", [e.to_dict() for e in ex.corpus], host["corpus"]),
+        ("violating candidates", [v["candidate"] for v in rep.violations],
+         [v["candidate"] for v in want.violations]),
+    ):
+        check(a == b, f"devloop wide: the {what} differs from phase 13(b)'s "
+                      "host loop")
+    check(len(decodes) == 1 and len(runs) == 1,
+          f"devloop wide: {len(decodes)} decodes, {len(runs)} windows")
+    tel = [e for e in lines if e["name"] == "explore_devloop_generations"]
+    check(bool(tel) and tel[-1]["value"] == gens,
+          f"devloop wide: telemetry counted {tel[-1:]} generations")
+    iters, run_s = runs[0]
+    h13 = host["row"]
+    row = {
+        "lanes": EXPLORE_LANES, "generations": gens, "wall_s": wall,
+        "generations_per_s": gens / wall,
+        "admissions_per_s": gens * EXPLORE_LANES / wall,
+        "refill_iters": iters, "ms_per_refill_iter": run_s / iters * 1e3,
+        "boundary_ms": [b * 1e3 for b in boundaries],
+        "read_ms_per_iter": sim.refill_read_s / iters * 1e3,
+        "coverage_curve": rep.coverage_curve,
+        "corpus_curve": rep.corpus_curve,
+        "violation_curve": rep.violation_curve,
+    }
+    out["wide"] = row
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(14, f"device loop {EXPLORE_LANES} lanes x {gens} generations in "
+              f"one window: fingerprint, curves and {len(ex.corpus)} corpus "
+              f"entries equal phase 13(b)'s host loop, 1 decode, telemetry "
+              f"counted {gens} generations")
+    phase(14, f"on {card}, device loop / host loop (phase 13(b)): "
+              f"{row['generations_per_s']:.4f} / "
+              f"{h13['generations_per_s']:.4f} generations/s, "
+              f"{row['admissions_per_s']:.1f} / "
+              f"{h13['admissions_per_s']:.1f} admissions/s, "
+              f"{row['ms_per_refill_iter']:.3f} / "
+              f"{h13['ms_per_refill_iter']:.3f} ms per refill iteration "
+              f"({iters} / {sum(h13['refill_iters'])} iterations), host "
+              f"read {row['read_ms_per_iter']:.3f} / "
+              f"{h13['read_ms_per_iter']:.3f} ms per iteration; boundaries "
+              f"{[round(b, 3) for b in row['boundary_ms']]} ms "
+              f"[{out['phase_s']:.0f} s in phase 14]")
     return out
 
 

@@ -33,14 +33,21 @@ port gives the JAX face's `ExploreReport.fingerprint()` for the same
 workload, meta-seed and parameters (`tpu/digest.py:PINNED_EXPLORE`), and
 restores a JAX face's `snapshot()` to continue its search.
 
+`device_loop=True` runs WINDOWS of up to `device_window` generations as
+one sweep of a `BatchedSim(devloop=make_devloop_plan(...))`: ranking,
+mutation and admission happen in the step (`tpu/engine.py`), the host
+decodes once per window and replays each window's populations from its
+own meta chain as a standing oracle. Corpus, curves and fingerprints are
+the host loop's, bit for bit, whatever the window partition.
+
 Not ported yet, each refused with its ROADMAP item (ROADMAP.md queue 1):
-the device-resident loop (`device_loop=True`, item 12), tuned dispatch
-knobs (`tuning=`, item 12), the island `Federation` and the CLI's
-`--islands` and `--out` (campaigns, item 12), and the CLI's `--mesh`
+tuned dispatch knobs (`tuning=`, item 12), the island `Federation` and the
+CLI's `--islands` and `--out` (campaigns, item 12), and the CLI's `--mesh`
 (item 14).
 
 CLI:  python -m madsim_tpu_torch.explore --workload raft --storm --dispatches 12
-      (add --device cpu to run on the CPU)
+      (add --device cpu to run on the CPU, --device-loop for the
+      device-resident loop)
 """
 
 from __future__ import annotations
@@ -552,9 +559,6 @@ class Explorer:
         from .tpu.engine import DEFAULT_DISPATCH_STEPS, BatchedSim
         from .tpu.spec import SimConfig
 
-        if device_loop:
-            raise _not_ported("Explorer(device_loop=True), the "
-                              "device-resident search loop,", "item 12")
         if tuning is not None:
             raise _not_ported("Explorer(tuning=...)", "item 12, tune")
         self.workload = workload
@@ -591,22 +595,58 @@ class Explorer:
         # the chunked reference loop.
         self.refill = bool(refill)
         self.refill_lanes = None if refill_lanes is None else int(refill_lanes)
-        # (device_window and seen_cap size the device-resident loop, which
-        # is refused above; they are accepted for the JAX face's signature)
+        # device-resident search: run() executes WINDOWS of up to
+        # `device_window` generations as one sweep (ranking, mutation and
+        # admission in the step) and syncs the host corpus once per window
+        # from the decoded archives; the host replays each window's
+        # populations as a standing oracle, so the search is unchanged
+        self.device_loop = bool(device_loop)
+        self.device_window = max(1, int(device_window))
+        self.seen_cap = int(seen_cap)
         self.say = log or (lambda msg: None)
 
         # ONE sim serves search and shrink: triage threads the ctl (the
         # mutator's knobs), coverage threads the novelty bitmaps. `sim`
         # accepts a pre-built BatchedSim(triage=True, coverage=True).
         if sim is None:
+            devloop_plan = None
+            if self.device_loop:
+                from .tpu.engine import make_devloop_plan
+
+                devloop_plan = make_devloop_plan(
+                    self.cfg, pop=self.lanes, top_k=int(top_k),
+                    seen_cap=self.seen_cap, fresh_frac=float(fresh_frac),
+                    mutant_frac=float(mutant_frac),
+                    swarm_group=max(1, int(swarm_group)),
+                    fresh_stride=max(1, int(fresh_stride)),
+                )
             sim = BatchedSim(
                 workload.spec, self.cfg, triage=True, coverage=True,
-                device=device,
+                devloop=devloop_plan, device=device,
             )
         elif not (sim.triage and sim.coverage):
             raise ValueError(
                 "Explorer needs a BatchedSim(..., triage=True, coverage=True)"
             )
+        if self.device_loop:
+            plan = getattr(sim, "devloop", None)
+            if plan is None:
+                raise ValueError(
+                    "device_loop=True needs a BatchedSim built with "
+                    "devloop=make_devloop_plan(...)"
+                )
+            if (
+                plan.pop != self.lanes
+                or plan.top_k != int(top_k)
+                or plan.fresh_stride != max(1, int(fresh_stride))
+            ):
+                raise ValueError(
+                    "devloop plan disagrees with the explorer: plan "
+                    f"(pop={plan.pop}, top_k={plan.top_k}, "
+                    f"fresh_stride={plan.fresh_stride}) vs explorer "
+                    f"(lanes={self.lanes}, top_k={int(top_k)}, "
+                    f"fresh_stride={max(1, int(fresh_stride))})"
+                )
         self.sim = sim
         self._rng = MetaRng(self.meta_seed)
         self._next_fresh = int(first_seed)
@@ -709,6 +749,14 @@ class Explorer:
         self._seen.add(cand.key())
         self._seen_h.add(genome_hash64(cand.key()))
 
+    def _parents(self) -> List[CorpusEntry]:
+        """The corpus top-K by novelty (ties in dispatch order): the
+        mutants' parents, and the device loop's corpus ring."""
+        return sorted(
+            (e for e in self.corpus if e.new_bits > 0),
+            key=lambda e: (-e.new_bits, e.dispatch),
+        )[: self.top_k]
+
     def _population(self, gen: int) -> List[Candidate]:
         """The next generation's lanes. Generation 0 is ALL fresh seeds —
         identical to the uniform sweep's first chunk, so the explorer
@@ -725,10 +773,7 @@ class Explorer:
         generation — fresh and swarm at population end), so the host
         seen-set and the device seen-table grow in lockstep."""
         L = self.lanes
-        parents = sorted(
-            (e for e in self.corpus if e.new_bits > 0),
-            key=lambda e: (-e.new_bits, e.dispatch),
-        )[: self.top_k]
+        parents = self._parents()
         if gen == 0 or not parents:
             pop = [self._fresh() for _ in range(L)]
         else:
@@ -939,16 +984,167 @@ class Explorer:
 
     # ----------------------------------------------------- device window
 
+    def _run_device_window(self, window: int) -> None:
+        """Run `window` generations as ONE device-loop sweep: the host
+        builds the window's first population (`_population`, the entry
+        point both faces share), uploads the search state (corpus top-K
+        ring, coverage union, seen-hash table, MetaRng cursor), and the
+        step folds, ranks, mutates and re-admits every later generation.
+        The window's one decode, `devloop_results`, gives the
+        per-generation archives, which fold through the host loop's
+        `_fold_generation`, so corpus, curves and fingerprints are the
+        host loop's.
+
+        The host then replays each later generation's population from its
+        own MetaRng chain and checks that the device archived exactly
+        those genomes, and that the final counter, fresh cursor, union and
+        seen count agree: a drift between the two search faces raises at
+        the first window (no fallback to the host loop). The replay is
+        host arithmetic only: no device work, no extra read."""
+        from .tpu.engine import DEVLOOP_ORIGINS, devloop_results
+
+        window = int(window)
+        if not 1 <= window <= self.device_window:
+            raise ValueError(
+                f"window must be in [1, {self.device_window}], got {window}"
+            )
+        gen0 = self._gen
+        pop0 = self._population(gen0)
+
+        # the upload faces of the host search state
+        parents = self._parents()
+        ring = {
+            "n": len(parents),
+            "bits": [e.new_bits for e in parents],
+            "seed": [e.cand.seed for e in parents],
+            "off": [e.cand.off for e in parents],
+            "occ": [list(e.cand.occ_off) for e in parents],
+            "rate": [list(e.cand.rate_scale) for e in parents],
+            "h": [e.cand.horizon_us for e in parents],
+        }
+        # membership is an order-independent test over the valid prefix;
+        # sorted rows make the upload itself deterministic
+        seen_rows = sorted(self._seen_h)
+        seen = {
+            "n": len(seen_rows),
+            "h1": [h1 for h1, _ in seen_rows],
+            "h2": [h2 for _, h2 in seen_rows],
+        }
+        origin_of = {name: i for i, name in enumerate(DEVLOOP_ORIGINS)}
+        with telemetry.span("dispatch", site="explore-devloop", gen=gen0):
+            st = self.sim.init_devloop(
+                np.asarray([c.seed for c in pop0], np.uint32),
+                lanes=min(self.refill_lanes or self.chunk, len(pop0)),
+                ctl=self._ctl_for(pop0),
+                window=self.device_window,
+                step_cap=self.workload.max_steps,
+                meta_seed=self.meta_seed,
+                meta_counter=self._rng.counter,
+                next_fresh=self._next_fresh,
+                target_gens=window,
+                gen_h_raw=[c.horizon_us for c in pop0],
+                gen_origin=[origin_of[c.origin] for c in pop0],
+                ring=ring, union=self.union, seen=seen,
+            )
+            st = self.sim.run_devloop(st, dispatch_steps=self.dispatch_steps)
+        with telemetry.span("decode", site="explore-devloop", gen=gen0):
+            # devloop_results is the window's one read of the search state
+            res = devloop_results(st)
+        if res["gens_done"] != window:
+            raise RuntimeError(
+                f"device loop retired {res['gens_done']} generations, "
+                f"window asked for {window}"
+            )
+
+        pop = pop0
+        for g in range(window):
+            row = res["gens"][g]
+            self._check_window_gen(gen0 + g, pop, row)
+            self._fold_generation(gen0 + g, [(
+                pop, _u32(row["bitmap"]),
+                row["hiwater"], row["transitions"], row["violated"],
+            )])
+            self._gen += 1
+            if g + 1 < window:
+                # replay the device's next population from the host
+                # chain: fold first (the device ranked generation g's
+                # novelty before mutating), then draw
+                pop = self._population(self._gen)
+        if telemetry.enabled():
+            telemetry.record_explore_devloop(self, res, window)
+        self._check_window_end(res)
+
+    def _check_window_gen(self, gen: int, pop: List[Candidate], row) -> None:
+        """Oracle: the device archived EXACTLY the population the host
+        (re)built for this generation: genomes, origins, row order."""
+        from .tpu.engine import DEVLOOP_ORIGINS
+
+        got = [
+            (
+                int(row["seed"][i]), int(row["off"][i]),
+                tuple(int(v) for v in row["occ"][i]),
+                tuple(round(float(v), 6) for v in row["rate"][i]),
+                int(row["h"][i]),
+                DEVLOOP_ORIGINS[int(row["origin"][i])],
+            )
+            for i in range(len(pop))
+        ]
+        want = [
+            (
+                c.seed, c.off, tuple(int(v) for v in c.occ_off),
+                tuple(round(float(v), 6) for v in c.rate_scale),
+                c.horizon_us, c.origin,
+            )
+            for c in pop
+        ]
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                raise RuntimeError(
+                    f"device-loop divergence at generation {gen}, "
+                    f"admission {i}: device archived {g}, host replay "
+                    f"built {w}: the two search faces drifted"
+                )
+
+    def _check_window_end(self, res: Dict[str, Any]) -> None:
+        """Oracle: after the window, the device cursors and coverage
+        union landed exactly where the host replay did."""
+        checks = (
+            ("meta counter", res["counter"], self._rng.counter),
+            ("next_fresh", res["next_fresh"],
+             self._next_fresh & 0xFFFFFFFF),
+            ("seen rows", res["seen_n"], len(self._seen_h)),
+        )
+        for name, dev, host in checks:
+            if int(dev) != int(host):
+                raise RuntimeError(
+                    f"device-loop divergence: {name} is {dev} on device, "
+                    f"{host} on the host replay"
+                )
+        if not np.array_equal(res["union"], self.union):
+            raise RuntimeError(
+                "device-loop divergence: coverage union mismatch after "
+                "the window"
+            )
+
     # ----------------------------------------------------------------- run
 
     def run(self, dispatches: int) -> ExploreReport:
-        """Run `dispatches` generations (cumulative across calls), one
-        host-ranked dispatch per generation."""
+        """Run `dispatches` generations (cumulative across calls). With
+        `device_loop=True` the generations run in device-resident windows
+        of up to `device_window` (one sweep and one decode each);
+        otherwise one host-ranked dispatch per generation."""
         t0 = time.perf_counter()
-        for _ in range(int(dispatches)):
-            gen = self._gen
-            self._run_generation(gen, self._population(gen))
-            self._gen += 1
+        if self.device_loop:
+            remaining = int(dispatches)
+            while remaining > 0:
+                w = min(remaining, self.device_window)
+                self._run_device_window(w)
+                remaining -= w
+        else:
+            for _ in range(int(dispatches)):
+                gen = self._gen
+                self._run_generation(gen, self._population(gen))
+                self._gen += 1
         self._wall_s += time.perf_counter() - t0
         return self.report()
 
@@ -1159,10 +1355,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     parser.add_argument(
         "--device-loop", action="store_true",
-        help="the device-resident search loop (not ported yet: ROADMAP.md "
-        "item 12)",
+        help="run the generation loop device-resident: novelty ranking, "
+        "mutation and admission happen in the step, the host syncs once "
+        "per window; same corpus, curves and fingerprint as the host "
+        "loop, bit for bit",
     )
-    parser.add_argument("--device-window", type=int, default=8)
+    parser.add_argument(
+        "--device-window", type=int, default=8,
+        help="generations per device-resident window (the one host sync "
+        "amortizes over this many generations)",
+    )
     parser.add_argument(
         "--islands", type=int, default=0,
         help="an island-model federation of this many explorers (not "

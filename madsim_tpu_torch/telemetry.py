@@ -699,8 +699,8 @@ def record_explore_devloop(ex, res: Dict[str, Any], window: int,
     """One decoded device-resident window → registry: ring occupancy,
     generations per dispatch, novelty acceptance. Called at the window's
     DECODE boundary only — the one host sync — so it observes values the
-    host already holds. Its caller, the explorer's device loop, is a
-    later slice of the port (ROADMAP.md queue 1, item 12)."""
+    host already holds. Its caller is the explorer's device loop
+    (`Explorer._run_device_window`)."""
     reg = _STATE.registry
     if reg is None:
         return

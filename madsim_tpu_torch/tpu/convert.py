@@ -4,12 +4,18 @@ A simulator's weights are its state, so this is the port's weight loader:
 `state_from_numpy` takes the leaves of a JAX-face `SimState` as numpy
 arrays, keyed by dotted field path (`"clock"`, `"node.term"`,
 `"msgs.valid_p"`, `"strag.deliver"`, `"dur.log_len"`, `"cov.bitmap"`,
-`"lin.eid"`, `"msgs.sent_eid"`, `"queue.seeds"`, `"refill.cursor"`, ...;
-absent planes simply have no keys) and stored as the
-JAX face stores them, and builds the port's `SimState` on a device.
+`"lin.eid"`, `"msgs.sent_eid"`, `"queue.seeds"`, `"refill.cursor"`, the
+device loop's `"loop.meta_key"`, `"loop.counter"`, `"loop.next_fresh"`,
+`"loop.gens_done"`, `"loop.target_gens"`, `"loop.accepts"`, `"loop.ring_*"`
+(n, bits, seed, off, occ, rate, h), `"loop.union"`, `"loop.seen_h1"`/
+`"loop.seen_h2"`/`"loop.seen_n"`, `"loop.gen_h_raw"`, `"loop.gen_origin"`
+and `"loop.arch_*"` (seed, off, occ, rate, h, origin, violated, bitmap,
+hiwater, transitions), ...; absent planes simply have no keys) and stored
+as the JAX face stores them, and builds the port's `SimState` on a device.
 `state_to_numpy` goes the other way, into the same paths with every integer
 value widened to int64 (and the triage ctl's float32 rate scales to
-float64), so the two faces' states compare leaf for leaf.
+float64, the device loop's ring and archive rates too), so the two
+faces' states compare leaf for leaf.
 
 Storage mapping (values are never changed): u32 leaves (keys, chain
 hashes, packed bool words) become int64; the JAX face's narrow u8/i8/u16
@@ -25,8 +31,8 @@ import numpy as np
 import torch
 
 from .engine import (
-    Coverage, Lineage, MsgPool, NemesisState, RefillLog, RefillQueue,
-    SimState, StragPool, TriageCtl,
+    Coverage, DevLoop, Lineage, MsgPool, NemesisState, RefillLog,
+    RefillQueue, SimState, StragPool, TriageCtl,
 )
 
 _WIDE = {
@@ -72,7 +78,8 @@ def state_from_numpy(
         )
     planes = {"node": node_type, "msgs": MsgPool, "strag": StragPool,
               "nem": NemesisState, "ctl": TriageCtl, "cov": Coverage,
-              "lin": Lineage, "queue": RefillQueue, "refill": RefillLog}
+              "lin": Lineage, "queue": RefillQueue, "refill": RefillLog,
+              "loop": DevLoop}
     durf = fields("dur")
     if durf:
         planes["dur"] = collections.namedtuple("DurState", durf)

@@ -48,8 +48,18 @@ leaf equals the same sim's with lineage off (tests/test_torch_lineage.py),
 and a traced replay's records are the happens-before edge list that
 `madsim_tpu_torch.causal` decodes.
 
-The device-loop plane is not carried yet; it is refused at construction
-with the ROADMAP item that will port it.
+`BatchedSim(..., devloop=make_devloop_plan(...))` carries the
+device-resident search loop: a refill sweep whose generation boundary
+(`_devloop_boundary`: archive, fold into the corpus ring and the coverage
+union, mutate with genome-hash dedup, respawn every lane) runs inside the
+step, so a window of explorer generations is one sweep and the host
+decodes once per window (`devloop_results`). The boundary is vectorised
+tensor code with the JAX face's sequential semantics: the fold is a
+prefix-OR scan and a stable sort, the mutants' meta-draw chain a pointer
+jump, the dedup a sorted membership test and a rank scan
+(tests/test_torch_devloop.py holds it against a sequential transcription
+and the window against the JAX face).
+
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
 """
@@ -58,7 +68,7 @@ from __future__ import annotations
 
 import collections
 import time
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +78,7 @@ from ..nemesis import (
     COIN_DENOM,
     FIRE_INDEX,
     FIRE_KINDS,
+    META_SITE_DRAW,
     NEM_SITE_CLOG_DST,
     NEM_SITE_CLOG_HEAL,
     NEM_SITE_CLOG_IV,
@@ -98,6 +109,8 @@ from ..nemesis import (
     OCC_ROW,
     RATE_CLAUSES,
     fold32,
+    key_from_seed,
+    mutation_vocab,
     RATE_ROW,
     TRIAGE_BIT,
 )
@@ -303,6 +316,385 @@ def _harvest_sources(state) -> dict:
     return out
 
 
+class DevLoopPlan(NamedTuple):
+    """The STATIC parameters of the device-resident search loop: what the
+    generation boundary bakes in. Fixed at `BatchedSim(..., devloop=plan)`;
+    the population split and the mutation vocabulary are the host
+    `Explorer`'s, field for field (build both through `make_devloop_plan`
+    so they cannot drift): `ops` is the weighted op menu `Explorer._mutate`
+    draws from, `sched_rows`/`tog_bits`/`rate_rows` the per-op choice
+    tables."""
+
+    pop: int  # A: candidates per generation (== the admission queue)
+    top_k: int  # K: corpus-ring capacity (the host's top_k)
+    seen_cap: int  # S: dedup-table capacity (append-only rows)
+    n_fresh: int
+    n_mut: int
+    n_swarm: int
+    swarm_group: int
+    fresh_stride: int
+    full_h: int  # the config horizon (genome horizon 0 decodes to this)
+    ops: Tuple[str, ...]  # weighted mutation-op menu, host order
+    sched_rows: Tuple[int, ...]  # OCC_ROW of each enabled schedule clause
+    tog_bits: Tuple[int, ...]  # TRIAGE_BIT of each togglable clause
+    rate_rows: Tuple[int, ...]  # RATE_ROW of each scalable message clause
+
+
+def make_devloop_plan(
+    config: SimConfig, pop: int, top_k: int = 16,
+    seen_cap: int = 1 << 17, fresh_frac: float = 0.5,
+    mutant_frac: float = 0.3, swarm_group: int = 8,
+    fresh_stride: int = 1,
+) -> DevLoopPlan:
+    """The device-loop plan of a compiled SimConfig, with the vocabulary
+    source (`nemesis.mutation_vocab`) and the split arithmetic of
+    `explore.Explorer._population`, so the boundary and the host mirror
+    agree on which clauses mutate and how a generation splits."""
+    sched, rate, togglable = mutation_vocab(config)
+    ops: list = []
+    if sched:
+        ops += ["occ"] * 3
+    if togglable:
+        ops += ["clause"] * 2
+    if rate:
+        ops.append("rate")
+    ops.append("horizon")
+    L = int(pop)
+    n_mut = int(L * float(mutant_frac))
+    n_fresh = int(L * float(fresh_frac))
+    n_swarm = L - n_mut - n_fresh if togglable else 0
+    n_fresh = L - n_mut - n_swarm
+    if seen_cap & (seen_cap - 1):
+        raise ValueError(f"seen_cap must be a power of two, got {seen_cap}")
+    return DevLoopPlan(
+        pop=L, top_k=int(top_k), seen_cap=int(seen_cap), n_fresh=n_fresh,
+        n_mut=n_mut, n_swarm=n_swarm, swarm_group=max(1, int(swarm_group)),
+        fresh_stride=max(1, int(fresh_stride)),
+        full_h=int(config.horizon_us), ops=tuple(ops),
+        sched_rows=tuple(OCC_ROW[n] for n in sched),
+        tog_bits=tuple(TRIAGE_BIT[n] for n in togglable),
+        rate_rows=tuple(RATE_ROW[n] for n in rate),
+    )
+
+
+class DevLoop(NamedTuple):
+    """The device-loop carry: the corpus ring, the coverage union, the
+    genome-dedup table, the meta-rng cursor and the per-generation
+    archives, everything the host explorer rebuilds between generations.
+    A = plan.pop admissions, K = plan.top_k ring rows, S = plan.seen_cap
+    dedup rows, G = the window's generations. u32 values are int64
+    tensors, as everywhere in the port.
+
+    Every value is a pure function of the uploaded search state, the meta
+    chain and the admission results: the fold takes admissions in
+    admission order (the order the host `_fold_part` replays), the ring is
+    the host corpus's stable top-K by novelty, and dedup compares the
+    64-bit genome hash both faces compute."""
+
+    meta_key: Any  # u32 [] key_from_seed(meta_seed)
+    counter: Any  # int32 [] next MetaRng draw index
+    next_fresh: Any  # u32 [] next fresh seed (advances by the stride)
+    gens_done: Any  # int32 [] generations run and archived
+    target_gens: Any  # int32 [] generations this window runs (<= G)
+    accepts: Any  # int32 [] corpus-ring admissions this window
+    ring_n: Any  # int32 [] valid ring rows
+    ring_bits: Any  # int32 [K] new bits at admission (the sort key)
+    ring_seed: Any  # u32 [K]
+    ring_off: Any  # int32 [K]
+    ring_occ: Any  # int32 [K, len(OCC_CLAUSES)]
+    ring_rate: Any  # float32 [K, len(RATE_CLAUSES)]
+    ring_h: Any  # int32 [K] raw genome horizon (0 = full)
+    union: Any  # u32 [COV_WORDS] global coverage union
+    seen_h1: Any  # u32 [S] append-only genome-hash rows; membership is
+    seen_h2: Any  # u32 [S]   an exact test over the valid prefix
+    seen_n: Any  # int32 []
+    gen_h_raw: Any  # int32 [A] raw genome horizons of the live generation
+    gen_origin: Any  # int32 [A] 0 fresh, 1 mutant, 2 swarm
+    arch_seed: Any  # u32 [G, A]
+    arch_off: Any  # int32 [G, A]
+    arch_occ: Any  # int32 [G, A, len(OCC_CLAUSES)]
+    arch_rate: Any  # float32 [G, A, len(RATE_CLAUSES)]
+    arch_h: Any  # int32 [G, A]
+    arch_origin: Any  # int32 [G, A]
+    arch_violated: Any  # bool [G, A]
+    arch_bitmap: Any  # u32 [G, A, COV_WORDS]
+    arch_hiwater: Any  # int32 [G, A]
+    arch_transitions: Any  # int32 [G, A]
+
+
+# origin codes of DevLoop.gen_origin / arch_origin, in code order (the
+# explorer's Candidate.origin strings)
+DEVLOOP_ORIGINS = ("fresh", "mutant", "swarm")
+
+
+def _prefix_or(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix OR along axis 0: a log-step scan."""
+    s = 1
+    while s < x.shape[0]:
+        x = torch.cat([x[:s], x[s:] | x[:-s]])
+        s *= 2
+    return x
+
+
+def devloop_fold(union, ring, ring_n, bitmaps, rows, top_k: int):
+    """Fold one generation's admissions, in admission order, into the
+    coverage union and the corpus ring: the sequential fold of the JAX
+    face (novelty = popcount(bitmap & ~union) against the union as the
+    admissions before it left it; a novel admission ORs its bitmap in and
+    stable-inserts after every ring row with bits >= its own), in parallel
+    form. A non-novel bitmap lies inside the union, so the union before
+    admission i is the incoming union OR the exclusive prefix-OR of
+    bitmaps 0..i-1; and the stable insertions, truncated to K, keep the
+    first K rows of a stable descending sort of [the ring's valid rows,
+    then the novel admissions in admission order].
+
+    `ring` and `rows` are (bits, seed, off, occ, rate, h) tuples ([K, ...]
+    and [A, ...]; rows' bits are ignored); ring rows at and past `ring_n`
+    hold the defaults (bits 0, seed 0, off 0, occ 0, rate 1, h 0), as
+    every ring `init_devloop` builds does. Returns (union, ring, ring_n,
+    accepted [A] bool)."""
+    dev = bitmaps.device
+    incl = _prefix_or(bitmaps)
+    before = torch.cat([union[None], union[None] | incl[:-1]])
+    nb = popcount(bitmaps & ~before).sum(dim=1).to(torch.int32)
+    accept = nb > 0
+    K = int(top_k)
+    kidx = torch.arange(K, device=dev)
+    key = torch.where(torch.cat([kidx < ring_n, accept]),
+                      torch.cat([ring[0], nb]).to(torch.int64), -1)
+    order = torch.sort(-key, stable=True).indices[:K]
+    new_n = torch.clamp(ring_n + accept.sum(dtype=torch.int32), max=K)
+    keep = kidx < new_n
+    defaults = (0, 0, 0, 0, 1.0, 0)
+    new_ring = tuple(
+        torch.where(expand_to(keep, r),
+                    torch.cat([r, a.to(r.dtype) if i else nb]).index_select(
+                        0, order), d)
+        for i, (r, a, d) in enumerate(zip(ring, rows, defaults))
+    )
+    return union | incl[-1], new_ring, new_n.to(torch.int32), accept
+
+
+def _hash_key(h1, h2):
+    """One int64 sort key per (h1, h2) u32 pair, in lexicographic order:
+    h1 offset by 2^31 first, so the packed value cannot overflow."""
+    return ((h1 - (1 << 31)) << 32) | h2
+
+
+def _seen_member(q1, q2, s1, s2, n):
+    """bool [...]: (q1, q2) is among rows 0..n-1 of the (s1, s2) table.
+    Exact: a sorted copy of the valid keys (rows past n sort last as the
+    largest key, after any valid row equal to it) and a binary search."""
+    S = s1.shape[0]
+    valid = torch.arange(S, device=s1.device) < n
+    srt = torch.sort(torch.where(valid, _hash_key(s1, s2),
+                                 torch.iinfo(torch.int64).max),
+                     stable=True).values
+    q = _hash_key(q1, q2)
+    left = torch.searchsorted(srt, q)
+    return (left < n) & (srt[left.clamp(max=S - 1)] == q)
+
+
+def _dup_ranks(base, first_hit):
+    """Exclusive running count of duplicate mutants, exact: mutant i is a
+    duplicate when `base[i]` (its hash is in the seen prefix or equals an
+    earlier mutant's) or when its hash equals the fresh fallback hash of
+    an earlier duplicate, i.e. fallback rank `first_hit[i]` < the number
+    of duplicates before it (a 64-bit collision, `first_hit` = M when
+    none). Each mutant maps a running count r to r + [r > t_i]; the
+    prefix compositions of those maps, as tables over r in [0, M], give
+    every count at once (log-step scan)."""
+    M = base.shape[0]
+    r = torch.arange(M + 1, device=base.device)
+    thr = torch.where(base, -1, first_hit)
+    tab = (r[None, :] + (r[None, :] > thr[:, None]).to(torch.int64)).clamp(
+        max=M)
+    s = 1
+    while s < M:
+        tab = torch.cat([tab[:s], torch.gather(tab[s:], 1, tab[:-s])])
+        s *= 2
+    return torch.cat([tab.new_zeros(1), tab[:-1, 0]])
+
+
+def devloop_population(plan: DevLoopPlan, meta_key, counter, next_fresh,
+                       ring, ring_n, seen_h1, seen_h2, seen_n):
+    """The next generation, drawn as the host `Explorer._population` draws
+    it: all fresh when the ring is empty; else a fresh block (no draws),
+    the mutants (parent choice and `_mutate`'s op draws from the meta
+    chain, dedup by genome hash against the seen table with a draw-free
+    fresh fallback) and swarm groups (one coin per togglable clause per
+    group). Every genome is claimed in the seen table in the host's order
+    (mutants first, then fresh and swarm).
+
+    In parallel form: a mutant's draws depend only on the key and its
+    cursor, and the cursor chain c -> c + adv(op(c)) is walked for all
+    mutants at once by pointer jumping; a mutant is a duplicate when its
+    hash is in the seen prefix, equals an earlier mutant's, or (a 64-bit
+    collision) equals an earlier fallback's fresh hash, which
+    `_dup_ranks` resolves exactly. Writes past the seen table's capacity
+    drop, as on the JAX face (`init_devloop`'s headroom check makes them
+    unreachable). Returns (seeds, off, occ, rate, h, origin, counter,
+    next_fresh, seen_h1, seen_h2, seen_n)."""
+    from .nemesis import genome_hash64
+
+    dev = seen_h1.device
+    i64, i32 = torch.int64, torch.int32
+    A, K, S = plan.pop, plan.top_k, plan.seen_cap
+    nF, nM, nS = plan.n_fresh, plan.n_mut, plan.n_swarm
+    stride = plan.fresh_stride
+    n_occ, n_rate = len(OCC_CLAUSES), len(RATE_CLAUSES)
+    c0 = counter.to(i64)
+    nf0 = next_fresh.to(i64)
+
+    def arange(n):
+        return torch.arange(n, device=dev, dtype=i64)
+
+    def fresh_seeds(start, n):
+        return (start + stride * arange(n)) & prng.M32
+
+    def blank(n):
+        return (torch.zeros((n,), dtype=i32, device=dev),
+                torch.zeros((n, n_occ), dtype=i32, device=dev),
+                torch.ones((n, n_rate), dtype=torch.float32, device=dev),
+                torch.zeros((n,), dtype=i32, device=dev))
+
+    def draw(c):
+        return prng.bits(meta_key, META_SITE_DRAW, c)
+
+    def consts(vals):
+        return torch.as_tensor(vals or (0,), dtype=i64, device=dev)
+
+    def claim(seen, app, sn):
+        # rows sn.. of the table take the appended hashes, in order
+        j = arange(S) - sn
+        take = (j >= 0) & (j < app.shape[0])
+        return torch.where(take, app[j.clamp(0, app.shape[0] - 1)], seen)
+
+    # -- all fresh (the host's `not parents`): no meta draws
+    f_seeds = fresh_seeds(nf0, A)
+    f_off, f_occ, f_rate, f_h = blank(A)
+    fh1, fh2 = genome_hash64(f_seeds, f_off, f_occ, f_rate, f_h)
+    fresh = (f_seeds, f_off, f_occ, f_rate, f_h,
+             torch.zeros((A,), dtype=i32, device=dev), c0,
+             (nf0 + stride * A) & prng.M32, fh1, fh2)
+
+    # -- mixed: the fresh block
+    seeds = [fresh_seeds(nf0, nF)]
+    off, occ, rate, h = ([x] for x in blank(nF))
+    origin = [torch.zeros((nF,), dtype=i32, device=dev)]
+    nf_m = nf0 + stride * nF
+    c_end = c0
+    app1, app2 = [], []
+    if nM:
+        # the cursor chain: cursor offset t moves to t + adv(op(t)); the
+        # mutants' cursors are its first nM + 1 positions from 0
+        menu = consts([{"occ": 0, "clause": 1, "rate": 2, "horizon": 3}[o]
+                       for o in plan.ops])
+        adv_of = consts([4, 3, 4, 3])
+        T = 4 * nM + 1
+        t = arange(T)
+        op_t = menu[draw(c0 + t + 1) % len(plan.ops)]
+        jump = (t + adv_of[op_t]).clamp(max=T - 1)
+        idx = arange(nM + 1)
+        pos = torch.zeros_like(idx)
+        k = 0
+        while (1 << k) <= nM:
+            pos = torch.where(((idx >> k) & 1) == 1, jump[pos], pos)
+            jump = jump[jump]
+            k += 1
+        c = c0 + pos[:nM]
+        c_end = c0 + pos[nM]
+        op = op_t[pos[:nM]]
+        d0, d2, d3 = draw(c), draw(c + 2), draw(c + 3)
+        pidx = (d0 % ring_n.to(i64).clamp(min=1)).clamp(0, K - 1)
+        p_seed, p_off, p_occ, p_rate, p_h = (
+            x.index_select(0, pidx) for x in ring[1:])
+        sched_rows = consts(plan.sched_rows)
+        tog_bits = consts(plan.tog_bits)
+        rate_rows = consts(plan.rate_rows)
+        # occ: flip window bit k of one schedule clause's row
+        occ_row = sched_rows[d2 % max(1, len(plan.sched_rows))]
+        bit = (torch.ones_like(d3) << (d3 % 10)).to(i32)
+        m_occ = torch.where(
+            torch.arange(n_occ, device=dev)[None, :] == occ_row[:, None],
+            p_occ ^ bit[:, None], p_occ)
+        # clause: toggle one togglable clause's disable bit
+        m_off = p_off ^ tog_bits[d2 % max(1, len(plan.tog_bits))].to(i32)
+        # rate: set one message clause's scale from the menu
+        rate_row = rate_rows[d2 % max(1, len(plan.rate_rows))]
+        scale = torch.as_tensor([0.25, 0.5, 1.0], dtype=torch.float32,
+                                device=dev)[d3 % 3]
+        m_rate = torch.where(
+            torch.arange(n_rate, device=dev)[None, :] == rate_row[:, None],
+            scale[:, None], p_rate)
+        # horizon: bisect toward the prefix, or restore full
+        full_h = plan.full_h
+        h_eff = torch.where(p_h == 0, full_h, p_h)
+        alt = torch.clamp(h_eff // 2, min=full_h // 8)
+        m_h = torch.where(d2 % 2 == 0, 0, alt).to(i32)
+        cand_occ = torch.where((op == 0)[:, None], m_occ, p_occ)
+        cand_off = torch.where(op == 1, m_off, p_off)
+        cand_rate = torch.where((op == 2)[:, None], m_rate, p_rate)
+        cand_h = torch.where(op == 3, m_h, p_h)
+        hm1, hm2 = genome_hash64(p_seed, cand_off, cand_occ, cand_rate,
+                                 cand_h)
+        # dedup, and the fallback seeds nf_m + stride * (duplicates before)
+        ii = arange(nM)
+        earlier = ((hm1[:, None] == hm1[None, :])
+                   & (hm2[:, None] == hm2[None, :])
+                   & (ii[None, :] < ii[:, None])).any(dim=1)
+        base = _seen_member(hm1, hm2, seen_h1, seen_h2, seen_n) | earlier
+        fb = fresh_seeds(nf_m, nM)
+        b_off, b_occ, b_rate, b_h = blank(nM)
+        fb1, fb2 = genome_hash64(fb, b_off, b_occ, b_rate, b_h)
+        hit = (hm1[:, None] == fb1[None, :]) & (hm2[:, None] == fb2[None, :])
+        first_hit = torch.where(hit, ii[None, :], nM).min(dim=1).values
+        rank = _dup_ranks(base, first_hit)
+        dup = base | (first_hit < rank)
+        seeds.append(torch.where(dup, fb[rank.clamp(max=nM - 1)], p_seed))
+        off.append(torch.where(dup, 0, cand_off).to(i32))
+        occ.append(torch.where(dup[:, None], 0, cand_occ).to(i32))
+        rate.append(torch.where(dup[:, None], 1.0, cand_rate).to(
+            torch.float32))
+        h.append(torch.where(dup, 0, cand_h).to(i32))
+        origin.append(torch.where(dup, 0, 1).to(i32))
+        app1.append(torch.where(dup, fb1[rank.clamp(max=nM - 1)], hm1))
+        app2.append(torch.where(dup, fb2[rank.clamp(max=nM - 1)], hm2))
+        nf_m = nf_m + stride * dup.sum()
+    # swarm groups: one coin per togglable clause per group
+    c_fin = c_end
+    if nS:
+        n_groups = -(-nS // plan.swarm_group)
+        nT = len(plan.tog_bits)
+        cc = c_end + arange(n_groups * nT).reshape(n_groups, nT)
+        coin = draw(cc) % COIN_DENOM < COIN_DENOM // 2
+        off_g = torch.zeros((n_groups,), dtype=i32, device=dev)
+        for b, tb in enumerate(plan.tog_bits):
+            off_g = torch.where(coin[:, b], off_g | tb, off_g)
+        c_fin = c_end + n_groups * nT
+        seeds.append(fresh_seeds(nf_m, nS))
+        _, s_occ, s_rate, s_h = blank(nS)
+        off.append(off_g[arange(nS) // plan.swarm_group])
+        occ.append(s_occ)
+        rate.append(s_rate)
+        h.append(s_h)
+        origin.append(torch.full((nS,), 2, dtype=i32, device=dev))
+    nf_fin = (nf_m + stride * nS) & prng.M32
+    seeds, off, occ, rate, h, origin = (
+        torch.cat(x) for x in (seeds, off, occ, rate, h, origin))
+    # claims: the mutants' rows, then the fresh and swarm genomes
+    cl = torch.cat([arange(nF), arange(nS) + nF + nM])
+    ch1, ch2 = genome_hash64(seeds[cl], off[cl], occ[cl], rate[cl], h[cl])
+    mixed = (seeds, off, occ, rate, h, origin, c_fin, nf_fin,
+             torch.cat(app1 + [ch1]), torch.cat(app2 + [ch2]))
+    use = ring_n > 0
+    out = [torch.where(use, m, f) for m, f in zip(mixed, fresh)]
+    sn = seen_n.to(i64)
+    return (*out[:6], out[6].to(i32), out[7],
+            claim(seen_h1, out[8], sn), claim(seen_h2, out[9], sn),
+            torch.clamp(sn + A, max=S).to(i32))
+
+
 def bit_length32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit length of u32 values (int64 in [0, 2^32)): the JAX face's
     `32 - clz(x)`, by a 5-step binary search in integers."""
@@ -446,7 +838,7 @@ class SimState(NamedTuple):
     lin: Any  # Lineage | None (BatchedSim(..., lineage=True) only)
     queue: Any  # RefillQueue | None (refill sweeps only)
     refill: Any  # RefillLog | None (refill sweeps only)
-    loop: Any = None  # None (device-loop carry)
+    loop: Any = None  # DevLoop | None (device-loop sweeps only)
 
     @property
     def alive(self):
@@ -698,9 +1090,9 @@ class BatchedSim:
                 "snapshot is not epoch-rebased; an absolute time in it "
                 f"would go stale): remove {sorted(bad_dur)}"
             )
-        # -- valid configurations this slice does not carry yet
-        if devloop is not None:
-            raise _not_ported("BatchedSim(devloop=...)", "item 12")
+        # the device-resident search loop's plan: inert outside
+        # `init_devloop` states, so one sim serves host and device loops
+        self.devloop = devloop
 
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -2089,9 +2481,11 @@ class BatchedSim:
             strag=new_strag, nem=new_nem, ctl=state.ctl, cov=cov,
             lin=None if lin is None else Lineage(lam=new_lam,
                                                  eid=new_lin_eid),
-            queue=state.queue, refill=state.refill,
+            queue=state.queue, refill=state.refill, loop=state.loop,
         )
-        # -- 9. refill sweeps: retire finished lanes, admit queued work
+        # -- 9. refill sweeps: retire finished lanes, admit queued work;
+        # -- 10. device-loop sweeps: the generation boundary, in the same
+        # host read's branch (`_refill_apply`)
         if state.refill is not None:
             new_state = self._refill_apply(state, new_state, active, gate_key)
         if not record:
@@ -2208,9 +2602,15 @@ class BatchedSim:
         done = ns.done | (ns.steps >= rf.step_cap)
         ns = ns._replace(done=done)
         just = done & ~state.done
+        parts = [just.to(torch.int64), rf.admitted.to(torch.int64),
+                 rf.cursor.reshape(1).to(torch.int64)]
+        dl = state.loop
+        if dl is not None:
+            # the generation boundary's predicate rides the same read
+            parts += [t.reshape(1).to(torch.int64) for t in (
+                done.all(), dl.gens_done, dl.target_gens)]
         t0 = time.perf_counter()
-        host = torch.cat([just.to(torch.int64), rf.admitted.to(torch.int64),
-                          rf.cursor.reshape(1).to(torch.int64)]).cpu().numpy()
+        host = torch.cat(parts).cpu().numpy()
         self.refill_read_s += time.perf_counter() - t0
         lanes = np.nonzero(host[:L])[0]
         if not lanes.size:
@@ -2252,7 +2652,112 @@ class BatchedSim:
             )._replace(queue=q, loop=state.loop)
             upd.update(cursor=rf.cursor + n_take,
                        admitted=sel[A + L:].to(torch.int32))
-        return ns._replace(refill=rf._replace(**upd))
+        ns = ns._replace(refill=rf._replace(**upd))
+        if dl is not None:
+            # the JAX face's `_devloop_apply`: the boundary fires on the
+            # step the generation's last admission retires (queue drained,
+            # every lane done) while the window has generations left; a
+            # gated no-op step past the window's end never gets here
+            all_done, gens_done, target = (int(v) for v in host[2 * L + 1:])
+            if n_take == 0 and all_done and gens_done < target:
+                ns = self._devloop_boundary(ns, (gens_done, target))
+        return ns
+
+    # ------------------------------------------- device-resident search
+
+    def _devloop_boundary(self, ns: SimState, host=None) -> SimState:
+        """One generation boundary: archive, fold, then mutate and respawn
+        (the JAX face's `_devloop_boundary`, drawing the same meta chain).
+
+          1. ARCHIVE the finished generation's genomes and per-admission
+             results into the DevLoop arch_* row `gens_done`;
+          2. FOLD the admissions, in admission order, into the coverage
+             union and the corpus ring (`devloop_fold`);
+          3. when the window has generations left, build the next
+             population (`devloop_population`), write it as the admission
+             queue, re-init EVERY lane through `init` on its head rows and
+             reset the refill log's cursor and per-admission rows
+             (`step_cap`, `iters` and `busy` carry over).
+
+        `host` is (gens_done, target_gens) as the step's host read saw
+        them; without it (a direct call) they are read here. Nothing else
+        is read on the host: the ring, union, seen table and archives stay
+        on the device until `devloop_results`."""
+        from . import nemesis as tpun
+
+        plan: DevLoopPlan = self.devloop
+        dl, rf, q = ns.loop, ns.refill, ns.queue
+        dev = ns.done.device
+        L = ns.done.shape[0]
+        A = plan.pop
+        G = dl.arch_seed.shape[0]
+        if host is None:
+            host = (int(dl.gens_done), int(dl.target_gens))
+        gens_done, target = host
+        g = min(max(gens_done, 0), G - 1)
+
+        def arch(dst, src):
+            return torch.cat([dst[:g], src[None].to(dst.dtype), dst[g + 1:]])
+
+        ring = (dl.ring_bits, dl.ring_seed, dl.ring_off, dl.ring_occ,
+                dl.ring_rate, dl.ring_h)
+        union, ring, ring_n, accept = devloop_fold(
+            dl.union, ring, dl.ring_n, rf.cov_bitmap,
+            (None, q.seeds, q.off, q.occ, q.rate_scale, dl.gen_h_raw),
+            plan.top_k,
+        )
+        folded = dl._replace(
+            gens_done=dl.gens_done + 1,
+            accepts=dl.accepts + accept.sum(dtype=torch.int32),
+            union=union, ring_n=ring_n, ring_bits=ring[0],
+            ring_seed=ring[1], ring_off=ring[2], ring_occ=ring[3],
+            ring_rate=ring[4], ring_h=ring[5],
+            arch_seed=arch(dl.arch_seed, q.seeds),
+            arch_off=arch(dl.arch_off, q.off),
+            arch_occ=arch(dl.arch_occ, q.occ),
+            arch_rate=arch(dl.arch_rate, q.rate_scale),
+            arch_h=arch(dl.arch_h, dl.gen_h_raw),
+            arch_origin=arch(dl.arch_origin, dl.gen_origin),
+            arch_violated=arch(dl.arch_violated, rf.violated),
+            arch_bitmap=arch(dl.arch_bitmap, rf.cov_bitmap),
+            arch_hiwater=arch(dl.arch_hiwater, rf.cov_hiwater),
+            arch_transitions=arch(dl.arch_transitions, rf.cov_transitions),
+        )
+        if gens_done + 1 >= target:
+            return ns._replace(loop=folded)
+        (seeds, off, occ, rate, h, origin, counter, next_fresh, sh1, sh2,
+         sn) = devloop_population(
+            plan, dl.meta_key, dl.counter, dl.next_fresh, ring, ring_n,
+            dl.seen_h1, dl.seen_h2, dl.seen_n)
+        h_ep, h_of = tpun.genome_ctl_rows(h, plan.full_h)
+        queue = RefillQueue(seeds=seeds, off=off, occ=occ, rate_scale=rate,
+                            h_epoch=h_ep, h_off=h_of)
+        fresh = self.init(seeds[:L], TriageCtl(
+            off[:L], occ[:L], rate[:L], h_ep[:L], h_of[:L]))
+
+        def full(shape, v=0, dtype=torch.int32):
+            return torch.full(shape, v, dtype=dtype, device=dev)
+
+        zi = full((A,))
+        log = rf._replace(
+            cursor=full((), L),
+            admitted=torch.arange(L, dtype=torch.int32, device=dev),
+            retired=full((A,), -1), violated=full((A,), False, torch.bool),
+            deadlocked=full((A,), False, torch.bool),
+            violation_at=full((A,), INF_US), violation_epoch=zi,
+            violation_step=full((A,), -1), steps=zi, events=zi, overflow=zi,
+            dead_drops=zi, nonmember_drops=zi, unsynced_loss=zi, clock=zi,
+            epoch=zi, fires=full((A, len(FIRE_KINDS))),
+            occ_fired=(None if rf.occ_fired is None
+                       else full((A, len(OCC_CLAUSES)), 0, torch.int64)),
+            cov_bitmap=full((A, COV_WORDS), 0, torch.int64),
+            cov_hiwater=zi, cov_transitions=zi,
+        )
+        loop = folded._replace(
+            counter=counter, next_fresh=next_fresh, seen_h1=sh1,
+            seen_h2=sh2, seen_n=sn, gen_h_raw=h, gen_origin=origin,
+        )
+        return fresh._replace(queue=queue, refill=log, loop=loop)
 
     def init_refill(self, seeds, lanes: int, ctl: Optional[TriageCtl] = None,
                     step_cap: int = 100_000) -> SimState:
@@ -2328,6 +2833,148 @@ class BatchedSim:
         state = self.init_refill(seeds, lanes, ctl, step_cap=max_steps)
         if total_steps is None:
             total_steps = int(max_steps) * int(state.queue.seeds.shape[0])
+        return self.run_state(state, total_steps, dispatch_steps)
+
+    def init_devloop(
+        self, seeds, lanes: int, ctl, window: int,
+        step_cap: int = 100_000,
+        meta_seed: int = 0, meta_counter: int = 0, next_fresh: int = 0,
+        target_gens: Optional[int] = None,
+        gen_h_raw=None, gen_origin=None,
+        ring: Optional[dict] = None, union=None,
+        seen: Optional[dict] = None,
+    ) -> SimState:
+        """A device-loop state: a refill sweep whose generation boundary
+        (fold, rank, mutate, respawn) runs inside the step, so a window of
+        up to `window` generations is one sweep with no host read of the
+        search state.
+
+        `seeds`/`ctl` are generation 0's population as the host
+        `Explorer._population` built it; `meta_seed`/`meta_counter`/
+        `next_fresh` resume the MetaRng cursor where the host left it;
+        `gen_h_raw`/`gen_origin` carry generation 0's raw genome horizons
+        and origin codes (the ctl encode is lossy: horizon 0 encodes as
+        the full horizon). `ring`/`union`/`seen` upload the explorer's
+        corpus top-K (sorted by novelty, descending), coverage union and
+        genome-hash dedup set; all optional (a cold start is empty).
+        `window` (G) sizes the archives; `target_gens` <= G lets a final
+        partial window run fewer generations. Every upload is a copy."""
+        plan = self.devloop
+        if plan is None:
+            raise ValueError(
+                "init_devloop needs BatchedSim(..., devloop=plan)"
+            )
+        if ctl is None:
+            raise ValueError("init_devloop requires a ctl queue (triage)")
+        dev = self.device
+        seeds = self._seeds_tensor(seeds)
+        A = plan.pop
+        if int(seeds.shape[0]) != A:
+            raise ValueError(
+                f"devloop population is {A} admissions per generation, "
+                f"got {int(seeds.shape[0])} seeds"
+            )
+        G = int(window)
+        if G < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        tg = G if target_gens is None else int(target_gens)
+        if not 1 <= tg <= G:
+            raise ValueError(
+                f"target_gens must be in [1, {G}], got {target_gens}"
+            )
+        K, S = plan.top_k, plan.seen_cap
+        n_occ, n_rate = len(OCC_CLAUSES), len(RATE_CLAUSES)
+        state = self.init_refill(seeds, lanes, ctl, step_cap=step_cap)
+
+        def t(a, dtype=torch.int64):
+            a = np.asarray(a)
+            if a.dtype == np.uint32:
+                a = a.astype(np.int64)
+            return torch.as_tensor(a, device=dev).to(dtype).clone()
+
+        # -- the ring upload (the host corpus's top-K, sorted)
+        ring = dict(ring or {})
+        rn = int(ring.get("n", 0))
+        if not 0 <= rn <= K:
+            raise ValueError(f"ring has {rn} rows, capacity {K}")
+
+        def buf(key, shape, dtype, fill=0):
+            src = ring.get(key)
+            out = np.full(shape, fill, dtype=dtype)
+            if src is not None and rn:
+                out[:rn] = np.asarray(src, dtype=dtype)[:rn]
+            return out
+
+        # -- the dedup table + headroom: a window appends at most one row
+        # per candidate, so a full window must fit
+        seen = dict(seen or {})
+        sn = int(seen.get("n", 0))
+        if sn + G * A > S:
+            raise ValueError(
+                f"seen table has {sn} rows + window appends {G * A} "
+                f"> capacity {S}; raise seen_cap or shrink the window"
+            )
+        s1 = np.zeros((S,), np.uint32)
+        s2 = np.zeros((S,), np.uint32)
+        if sn:
+            s1[:sn] = np.asarray(seen["h1"], np.uint32)[:sn]
+            s2[:sn] = np.asarray(seen["h2"], np.uint32)[:sn]
+        un = (np.zeros((COV_WORDS,), np.uint32) if union is None
+              else np.asarray(union, np.uint32))
+        if un.shape != (COV_WORDS,):
+            raise ValueError(
+                f"union bitmap must be [{COV_WORDS}] u32, got {un.shape}"
+            )
+        gh = np.zeros((A,), np.int32) if gen_h_raw is None else gen_h_raw
+        go = np.zeros((A,), np.int32) if gen_origin is None else gen_origin
+        i32 = torch.int32
+
+        def full(shape, v=0, dtype=i32):
+            return torch.full(shape, v, dtype=dtype, device=dev)
+
+        loop = DevLoop(
+            meta_key=t(key_from_seed(int(meta_seed))),
+            counter=t(int(meta_counter), i32),
+            next_fresh=t(int(next_fresh) & prng.M32),
+            gens_done=full(()), target_gens=full((), tg), accepts=full(()),
+            ring_n=full((), rn),
+            ring_bits=t(buf("bits", (K,), np.int32), i32),
+            ring_seed=t(buf("seed", (K,), np.uint32)),
+            ring_off=t(buf("off", (K,), np.int32), i32),
+            ring_occ=t(buf("occ", (K, n_occ), np.int32), i32),
+            ring_rate=t(buf("rate", (K, n_rate), np.float32, fill=1.0),
+                        torch.float32),
+            ring_h=t(buf("h", (K,), np.int32), i32),
+            union=t(un), seen_h1=t(s1), seen_h2=t(s2), seen_n=full((), sn),
+            gen_h_raw=t(np.asarray(gh, np.int32), i32),
+            gen_origin=t(np.asarray(go, np.int32), i32),
+            arch_seed=full((G, A), 0, torch.int64),
+            arch_off=full((G, A)), arch_occ=full((G, A, n_occ)),
+            arch_rate=full((G, A, n_rate), 1.0, torch.float32),
+            arch_h=full((G, A)), arch_origin=full((G, A)),
+            arch_violated=full((G, A), False, torch.bool),
+            arch_bitmap=full((G, A, COV_WORDS), 0, torch.int64),
+            arch_hiwater=full((G, A)), arch_transitions=full((G, A)),
+        )
+        return state._replace(loop=loop)
+
+    def run_devloop(
+        self, state: SimState,
+        dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+        total_steps: Optional[int] = None,
+    ) -> SimState:
+        """Run a device-loop window to its end: `run_state`'s segments of
+        the same step as every other mode, the generation boundary firing
+        inside the step whenever a generation has retired. The default
+        `total_steps` (step_cap * A * G) cannot bind, and the segment loop
+        stops once the last generation drains. Decode once with
+        `devloop_results`."""
+        if state.loop is None:
+            raise ValueError("run_devloop needs an init_devloop state")
+        A = int(state.queue.seeds.shape[0])
+        G = int(state.loop.arch_seed.shape[0])
+        if total_steps is None:
+            total_steps = int(state.refill.step_cap) * A * G
         return self.run_state(state, total_steps, dispatch_steps)
 
     # ------------------------------------------------------------------ run
@@ -2606,6 +3253,52 @@ def refill_results(state: SimState) -> dict:
         busy_lane_steps=busy, total_lane_steps=iters * L,
         occupancy=busy / max(iters * L, 1), truncated=int(live.sum()),
     )
+    return out
+
+
+def devloop_results(state: SimState) -> dict:
+    """Decode a finished device-loop window, the window's one read of the
+    search state: the cursors (meta counter, next_fresh, seen_n), the
+    corpus ring and the coverage union as upload-ready dicts (they feed
+    `init_devloop` of the next window), and one dict per generation run
+    with its archived genomes and per-admission results in admission
+    order, which the host `Explorer` folds to rebuild its corpus. Arrays
+    come out in the JAX face's dtypes (u32 values as uint32)."""
+    dl = state.loop
+    if dl is None:
+        raise ValueError("devloop_results needs a run_devloop final state")
+    rf = state.refill
+
+    def arr(x):
+        a = x.detach().cpu().numpy()
+        return a.astype(np.uint32) if a.dtype == np.int64 else a
+
+    rn = int(dl.ring_n)
+    gens_done = int(dl.gens_done)
+    out = {
+        "gens_done": gens_done,
+        "target_gens": int(dl.target_gens),
+        "counter": int(dl.counter),
+        "next_fresh": int(dl.next_fresh),
+        "accepts": int(dl.accepts),
+        "seen_n": int(dl.seen_n),
+        "union": arr(dl.union),
+        "ring": {
+            "n": rn,
+            **{f: arr(getattr(dl, "ring_" + f))[:rn]
+               for f in ("bits", "seed", "off", "occ", "rate", "h")},
+        },
+        "iters": int(rf.iters),
+        "busy_lane_steps": int(rf.busy.to(torch.int64).sum()),
+    }
+    arch = {
+        f: arr(getattr(dl, "arch_" + f))
+        for f in ("seed", "off", "occ", "rate", "h", "origin", "violated",
+                  "bitmap", "hiwater", "transitions")
+    }
+    out["gens"] = [
+        {f: a[g] for f, a in arch.items()} for g in range(gens_done)
+    ]
     return out
 
 

@@ -12,7 +12,10 @@ The port of the device face of `madsim_tpu/tpu/nemesis.py`:
   * `device_chaos_events(sim, seed)` reads one seed's chaos stream off
     the traced step, and `assert_device_matches_schedule` holds it equal,
     event for event, to the plan's pure schedule (occurrence-filtered
-    under a triage ctl): the twin check that survives shrinking.
+    under a triage ctl): the twin check that survives shrinking;
+  * `genome_hash64` and `genome_ctl_rows` are the device faces of the
+    explorer's genome hash and ctl encode, which the device-resident
+    search loop's generation boundary computes on tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from ..nemesis import (
     DiskFault,
     Duplicate,
     FaultPlan,
+    GENOME_H1,
+    GENOME_H2,
     LatencySpike,
     LinkClog,
     MsgLoss,
@@ -36,7 +41,7 @@ from ..nemesis import (
     Reorder,
     filter_schedule,
 )
-from .spec import SimConfig
+from .spec import REBASE_US, SimConfig
 
 
 def compile_plan(plan: FaultPlan, base: Optional[SimConfig] = None) -> SimConfig:
@@ -309,3 +314,54 @@ def coverage_report(summary: Dict[str, Any], cfg: SimConfig) -> str:
                 f"k{k} {ks[k]}" for k in sorted(ks)
             )
     return line
+
+
+# --------------------------------------------------------------------------
+# device-loop genome faces
+# --------------------------------------------------------------------------
+
+
+def genome_hash64(seed, off, occ, rate_scale, horizon_us):
+    """(h1, h2), the 64-bit genome-dedup hash, DEVICE face: u32 values
+    as int64 tensors.
+
+    Two fold chains from the `GENOME_H1`/`GENOME_H2` roots over the genome
+    words (seed, off, the occ rows, the float32 BIT PATTERNS of the rate
+    rows, the raw horizon), bit-equal to the host `explore.genome_hash64`
+    and to the JAX face's device face, so a hash collision hits the host
+    loop and the device loop alike. Broadcasts over leading axes (occ:
+    [..., n_occ], rate_scale: [..., n_rate]); int32 words reinterpret
+    their two's complement bits."""
+    import torch
+
+    from . import prng
+
+    def t(x, dtype):
+        return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            x, dtype=dtype)
+
+    occ = t(occ, torch.int32)
+    rs = t(rate_scale, torch.float32).to(torch.float32)
+    words = [t(seed, torch.int64), t(off, torch.int32)]
+    words += [occ[..., i] for i in range(occ.shape[-1])]
+    words += [rs[..., i].view(torch.int32) for i in range(rs.shape[-1])]
+    words.append(t(horizon_us, torch.int32))
+    h1, h2 = GENOME_H1, GENOME_H2
+    for w in words:
+        w = prng.u32(w)
+        h1 = prng.fold(h1, w)
+        h2 = prng.fold(h2, w)
+    return prng.mix(h1), prng.mix(h2)
+
+
+def genome_ctl_rows(horizon_raw, full_horizon_us: int):
+    """(h_epoch, h_off) int32: the genome -> TriageCtl horizon encode,
+    device face of `explore.ctl_for`'s rows. A raw genome horizon of 0
+    decodes to the config's full horizon, then splits by REBASE_US; the
+    encode is lossy, which is why the device loop keeps the raw horizons
+    beside the queue."""
+    import torch
+
+    h = torch.as_tensor(horizon_raw).to(torch.int32)
+    h_eff = torch.where(h == 0, int(full_horizon_us), h).to(torch.int32)
+    return h_eff // REBASE_US, h_eff % REBASE_US

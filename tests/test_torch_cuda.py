@@ -182,3 +182,34 @@ def test_card_explorer_matches_pinned_fingerprint_and_cpu(cuda_device):
         assert explore_corpus_digest(ex) == PINNED_EXPLORE_CORPUS
         corpora.append([e.to_dict() for e in ex.corpus])
     assert corpora[0] == corpora[1]
+
+
+@pytest.mark.cuda
+def test_card_devloop_window_equals_cpu(cuda_device):
+    """One device-loop window (16 admissions over 8 lanes, 2 generations,
+    meta-seed 11, seen_cap 512) on the card equals the CPU's window in
+    every leaf, `loop.*` included, and in `devloop_results`."""
+    import chip_smoke
+    from madsim_tpu_torch.explore import Candidate, ctl_for
+    from madsim_tpu_torch.tpu.engine import devloop_results, make_devloop_plan
+
+    wl = chip_smoke.explore_workload()
+    plan = make_devloop_plan(wl.config, pop=16, seen_cap=512)
+    pop = [Candidate(seed=i) for i in range(16)]
+    states, results = [], []
+    for dev in (cuda_device, "cpu"):
+        sim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
+                         devloop=plan, device=dev)
+        st = sim.run_devloop(sim.init_devloop(
+            range(16), lanes=8, ctl=ctl_for(pop, plan.full_h, dev), window=2,
+            step_cap=wl.max_steps, meta_seed=11, next_fresh=16))
+        states.append(state_to_numpy(st))
+        results.append(devloop_results(st))
+    card, cpu = states
+    assert set(card) == set(cpu) and "loop.ring_n" in card
+    for k in cpu:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    assert results[0]["gens_done"] == results[1]["gens_done"] == 2
+    for f in ("seed", "origin", "bitmap", "violated"):
+        for a, b in zip(results[0]["gens"], results[1]["gens"]):
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f)

@@ -5,8 +5,8 @@ of their horizons (64 lanes, seeds 0..63), compared leaf for leaf with
 values widened to int64; `summarize` equal (float lane means at
 rtol=1e-6, their sums run in another order); the pinned digests; an epoch
 rebase from a shifted state; the argmin tie order; the early stop; the
-once-refused clauses and options, each run 40 steps leaf-equal; and the
-options the port still refuses.
+once-refused clauses and options (the device-loop plane included), each
+run 40 steps leaf-equal; and the configurations both faces refuse.
 """
 
 import fcntl
@@ -285,26 +285,37 @@ def test_construction_refuses_out_of_slice_config(what, kw):
 @pytest.mark.parametrize("opt", ["triage", "coverage", "lineage", "devloop",
                                  "two_handler"])
 def test_construction_refuses_out_of_slice_option(opt):
-    """The device-loop plane stays refused with its ROADMAP item; a
-    two-handler spec (once refused, item 4), a triage sim with its default
-    ctl (once refused, item 10), a coverage sim and a lineage sim (once
-    refused, item 9) run 40 steps leaf-equal to the JAX engine (the ctl's
-    float32 rate scales compared exactly)."""
+    """Every one of these options was once refused at construction: a
+    two-handler spec (item 4), a triage sim with its default ctl (item
+    10), a coverage sim and a lineage sim (item 9) and a device-loop sim
+    (item 12; its plan is inert outside `init_devloop`) each run 40 steps
+    leaf-equal to the JAX engine (the ctl's float32 rate scales compared
+    exactly)."""
     from madsim_tpu.tpu.spec import replace_handlers as jax_replace_handlers
     from madsim_tpu_torch.tpu.spec import replace_handlers
 
     spec, cfg = make_raft_spec(5), SimConfig(horizon_us=1_000_000)
     kw = {"device": "cpu"}
-    if opt in ("triage", "coverage", "lineage"):
+    if opt in ("triage", "coverage", "lineage", "devloop"):
+        from madsim_tpu.tpu.engine import make_devloop_plan as jax_plan
+
+        jkw, pkw = {opt: True}, {opt: True}
+        if opt == "devloop":
+            jkw = dict(triage=True, coverage=True, devloop=jax_plan(
+                JaxConfig(horizon_us=1_000_000), pop=8))
+            pkw = dict(triage=True, coverage=True,
+                       devloop=tengine.make_devloop_plan(cfg, pop=8))
+            assert tuple(pkw["devloop"]) == tuple(jkw["devloop"])
         jst = JaxSim(jax_raft_spec(5), JaxConfig(horizon_us=1_000_000),
-                     **{opt: True}).run(jnp.arange(8, dtype=jnp.uint32),
-                                        max_steps=40, dispatch_steps=40)
-        pst = BatchedSim(spec, cfg, **{opt: True}, **kw).run(
+                     **jkw).run(jnp.arange(8, dtype=jnp.uint32),
+                                max_steps=40, dispatch_steps=40)
+        pst = BatchedSim(spec, cfg, **pkw, **kw).run(
             range(8), max_steps=40, dispatch_steps=40)
         want = {k: np.asarray(v).astype(
                     np.float64 if np.asarray(v).dtype.kind == "f" else np.int64)
                 for k, v in named_leaves(jst)}
-        plane = {"triage": "ctl.", "coverage": "cov.", "lineage": "lin."}[opt]
+        plane = {"triage": "ctl.", "coverage": "cov.", "lineage": "lin.",
+                 "devloop": "cov."}[opt]
         assert any(k.startswith(plane) for k in want)
         assert_leaves_equal(want, state_to_numpy(pst), opt)
         return
@@ -318,12 +329,6 @@ def test_construction_refuses_out_of_slice_option(opt):
             range(8), max_steps=40, dispatch_steps=40)
         assert_leaves_equal(jax_leaves(jst), state_to_numpy(pst), opt)
         return
-    if opt == "devloop":
-        kw.update(triage=True, coverage=True, devloop=object())
-    else:
-        kw[opt] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        BatchedSim(spec, cfg, **kw)
 
 
 def test_both_faces_refuse_the_narrow_horizon():

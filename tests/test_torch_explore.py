@@ -19,8 +19,9 @@ The same inputs go through both faces on the CPU:
     uninterrupted fingerprint and corpus;
   * one explorer violation with a swarm candidate's `base_ctl` writes the
     JAX face's bundle JSON;
-  * the device loop, tuning, the federation and the CLI's `--islands`,
-    `--out` and `--mesh` are refused with their ROADMAP items; the
+  * tuning, the federation and the CLI's `--islands`, `--out` and
+    `--mesh` are refused with their ROADMAP items (the device loop is
+    tests/test_torch_devloop.py's); the
     registry's rows and `names(explorable=True)` are the JAX registry's
     hand-written ones.
 
@@ -294,7 +295,6 @@ def test_explorer_violation_bundle_equals_the_jax_face(tmp_path):
 # ------------------------------------------------------- refusals, registry
 
 REFUSED = [
-    ("device_loop", lambda: _pinned(device_loop=True), "item 12"),
     ("tuning", lambda: _pinned(tuning="auto"), "item 12, tune"),
     ("federation", lambda: explore.Federation(
         chip_smoke.explore_workload(), n_islands=2), "item 12, campaigns"),
@@ -302,9 +302,6 @@ REFUSED = [
      "item 12, campaigns"),
     ("cli-out", lambda: explore.main(["--out", "x"]), "item 12, campaigns"),
     ("cli-mesh", lambda: explore.main(["--mesh"]), "item 14"),
-    ("cli-device-loop", lambda: explore.main(
-        ["--device-loop", "--device", "cpu", "--virtual-secs", "0.1"]),
-     "item 12"),
 ]
 
 
