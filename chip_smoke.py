@@ -9,8 +9,8 @@ It drives the port's main path — the 5-node Raft fuzz sweep through
 workloads, the membership, durability and straggler paths with their
 workloads, the triage path (trace, shrink, replay), and continuous
 batching with the coverage plane, the causal-lineage plane, the telemetry
-plane, the coverage-guided explorer and its device-resident search loop —
-and checks it, in fourteen phases:
+plane, the coverage-guided explorer and its device-resident search loop,
+campaigns and the island federation — and checks it, in fifteen phases:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -29,9 +29,13 @@ and checks it, in fourteen phases:
    later steps): torch.profiler over 20 steady steps at 32768 lanes —
    kernels launched per step, device idle share, top device kernels — and
    the same steps with and without deterministic mode's
-   uninitialized-memory fills, leaves equal; phases 6-14 then run without
-   the fills;
-6. golden: each of the five workloads (raft, paxos, kv, twopc, chain) runs
+   uninitialized-memory fills, leaves equal; phases 7-15 then run without
+   the fills (as phase 6 and phase 9's parity runs did);
+6. golden (in a child process started after phase 1, beside phases 2
+   and 3 and phase 9's parity runs, and joined before phase 4; the card
+   is launch-bound and idle most of each step, so two processes share it;
+   its lines count seconds from its own start): each of the five
+   workloads (raft, paxos, kv, twopc, chain) runs
    its pinned 16-lane, 1500-step CHAOS_PLAN run on the card, and its
    canonical digest must equal the JAX package's GOLDEN value; the Raft
    run has the causal-lineage plane on (`lineage=True`, which must leave
@@ -66,7 +70,8 @@ and checks it, in fourteen phases:
    at least the share of lanes its JAX test demands (isr > 64/128, lease >
    16/128, wal >= 8/256, twopc > 0), every violating wal lane lost
    unsynced state, and seeds 0..63 of the buggy 2PC run equal a 64-lane
-   card run in every leaf but `key`. Then a 64-lane two-handler Raft run at
+   card run in every leaf but `key`. Earlier, after phase 3 (beside phase
+   6, fills off), a 64-lane two-handler Raft run at
    unequal ring depths and a 64-lane Raft run under Reconfig + DiskFault
    (crash-wipe, skew and the tail composed in) are leaf-equal card/CPU,
    lineage off and on; with lineage on every non-lineage leaf equals the
@@ -109,20 +114,28 @@ and checks it, in fourteen phases:
    pairs of 20-step bench probes at 32768 lanes with lineage off and on,
    every non-lineage leaf equal; the difference of the medians counts as
    resolved only when it exceeds the spread of the off probes;
-13. the explorer (after phase 12, before phase 8): the pinned search
-   (`digest.EXPLORE_RUN`, 16 lanes, 2 generations, on `explore_workload`:
-   the planted re-stamp Raft under Crash + Partition at 2.5 virtual s)
-   by refill with telemetry on and chunked and serial with it off, each
-   at `digest.PINNED_EXPLORE` (the JAX face's fingerprint) and
-   `PINNED_EXPLORE_CORPUS`, the two corpora equal entry for entry; then
-   a full-width search, `Explorer(meta_seed=0, lanes=4096,
-   max_shrinks=1)` by refill for 2 generations: generations and
-   admissions per second, ms per refill iteration, host read ms per
-   iteration, coverage and corpus per generation, violations and the
-   shrink's wall; the coverage curve is monotone, the bug is found in
-   generation 0, and the one shrunk bundle replays at its step and time
-   with the candidate's suppressions kept. Phase 9's end moves earlier by
-   PHASE13_BUDGET_S to pay for it;
+13. the explorer as campaigns (after phase 12, before phase 8): (a) the
+   pinned search (`digest.EXPLORE_RUN`, 16 lanes, 2 generations, on
+   `explore_workload`: the planted re-stamp Raft under Crash + Partition
+   at 2.5 virtual s) as a `campaign.Campaign` by refill with telemetry
+   on, checkpointed after generation 1, dropped and resumed from its
+   directory (`Campaign.resume`, which must stand at generation 1) for
+   generation 2; and chunked and serial with telemetry off as an
+   `Explorer`; each at `digest.PINNED_EXPLORE` (the JAX face's
+   fingerprint) and `PINNED_EXPLORE_CORPUS`, the two corpora equal entry
+   for entry, telemetry counting 2 dispatches and 2 generations across
+   the kill; (b) a full-width search, `Campaign(meta_seed=0, lanes=4096,
+   max_shrinks=1)` by refill for 2 generations, then its bug dedup:
+   generations and admissions per second, ms per refill iteration, host
+   read ms per iteration, coverage and corpus per generation,
+   violations, records and witnesses per record, the shrink's wall; the
+   coverage curve is monotone, the bug is found in generation 0, every
+   violation is a witness of exactly one record, one record carries a
+   bundle (the shrink of the first coarse group's first witness),
+   stamped with its signature, the campaign and generation 0, that keeps
+   the candidate's suppressions and that `campaign.regress` replays green
+   at its step and time. Phase 9's end moves earlier by PHASE13_BUDGET_S
+   to pay for it;
 14. the device-resident search loop (after phase 13, before phase 8):
    (a) one generation boundary at 4096 admissions
    (`devloop_boundary_state`: a seeded refill log with ties in novelty,
@@ -134,7 +147,20 @@ and checks it, in fourteen phases:
    for entry) with one decode for the window and the events counting its
    2 generations; generations/s, admissions/s, ms per refill iteration,
    ms per boundary and host read ms per iteration beside phase 13(b)'s.
-   Phase 9's end moves earlier by PHASE14_BUDGET_S to pay for it.
+   Phase 9's end moves earlier by PHASE14_BUDGET_S to pay for it;
+15. campaigns and the island federation (after phase 14, before phase 8):
+   (a) `campaign.merge_and_minimize` of phase 13's two campaigns in one
+   dispatch (a lane per merged entry): the kept union equals the merged
+   union, every replayed bitmap its recorded one, kept <= merged, and the
+   merged corpus refuses a resume; (b) the pinned federation
+   (`digest.FEDERATION_RUN`: 2 islands x 8 lanes, exchange every 2, 3
+   generations on `explore_workload` at 0.5 virtual s) reaches
+   `digest.PINNED_FEDERATION` (the JAX face's) with a non-empty exchange,
+   and its device-loop form (windows clipped to 2 + 1) gives the same
+   fingerprint, exchange log, coverage and violations; (c)
+   `measure.time_scan_ms` on the 16-lane pinned sim beside
+   `measure.fresh_seeds`' blocks (not gated). Phase 9's end moves earlier
+   by PHASE15_BUDGET_S to pay for it.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -147,9 +173,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -165,6 +193,12 @@ MAX_STEPS = 8000
 PROFILE_STEPS = 20
 # the argument that runs phase 5's profile as a child process
 PROFILE_FLAG = "--phase5-profile"
+# the argument that runs phase 6 (the golden runs) as a child process
+GOLDEN_FLAG = "--phase6-golden"
+# the argument that times phases 2, 3, 9's parity runs and phase 6 one
+# after the other, then overlapped (serial_probe), without the rest of the
+# script
+SERIAL_FLAG = "--serial-probe"
 PHASE4_BUDGET_S = 300.0
 STORM_LANES = 32768
 # (45 s since phase 13 came: on one H100 the script ended at 1114 s with
@@ -212,14 +246,23 @@ PHASE9_STEPS = {
 # in the anchor below, so phase 9's horizons stay where they were)
 PHASE10_BUDGET_S = 224.0
 PHASE11_BUDGET_S = 60.0
-# phases 13 (the explorer) and 14 (the device loop) buy their time from
+# phases 13 (the explorer), 14 (the device loop) and 15 (campaigns and the
+# federation) buy their time from
 # phase 9: the anchor moves earlier by their budgets, so phase 9's rule
 # cuts its horizons to make room (the buggy cells never below half, the
 # correct cells never below a quarter)
 PHASE13_BUDGET_S = 160.0
 PHASE14_BUDGET_S = 45.0
+PHASE15_BUDGET_S = 45.0
+# phase 6 runs in a child process beside phases 2 and 3 and phase 9's
+# parity runs (all correctness checks: the card is launch-bound and idle
+# most of each step, so two processes share it), which the anchor below
+# was set without: the overlap moves phase 9's start earlier by about
+# this much
+PHASE6_OVERLAP_S = 120.0
 PHASE9_END_S = (984.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
-                - PHASE13_BUDGET_S - PHASE14_BUDGET_S)
+                - PHASE13_BUDGET_S - PHASE14_BUDGET_S - PHASE15_BUDGET_S
+                - PHASE6_OVERLAP_S)
 # the least share of its horizon a phase-9 cell may be cut to: the buggy
 # cells keep half (the JAX face's bug shares were measured there), the
 # correct cells' gates (no violation, every enabled kind fires) are
@@ -380,10 +423,11 @@ def triage_workload():
     )
 
 
-def explore_workload():
+def explore_workload(horizon_us: int = EXPLORE_H_US):
     """The explorer's pinned workload: the planted re-stamp Raft under the
     Crash + Partition plan of tests/test_explore.py:42-63 at a
-    2.5-virtual-second horizon without base loss, 20000 steps at most."""
+    2.5-virtual-second horizon (or `horizon_us`) without base loss, 20000
+    steps at most."""
     import dataclasses
 
     from madsim_tpu_torch import nemesis as nm
@@ -395,7 +439,7 @@ def explore_workload():
         nm.Partition(interval_lo_us=250_000, interval_hi_us=800_000,
                      heal_lo_us=300_000, heal_hi_us=900_000),
     ))
-    cfg = compile_plan(plan, SimConfig(horizon_us=EXPLORE_H_US,
+    cfg = compile_plan(plan, SimConfig(horizon_us=int(horizon_us),
                                        loss_rate=0.0))
     return dataclasses.replace(
         raft_workload(spec=planted_restamp_spec()), config=cfg,
@@ -481,15 +525,6 @@ def card_line() -> str:
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
-    from madsim_tpu_torch.tpu import BatchedSim, summarize
-    from madsim_tpu_torch.tpu import prng
-    from madsim_tpu_torch.tpu.convert import state_to_numpy
-    from madsim_tpu_torch.tpu.digest import PINNED, canonical_digest, pinned_run
-    from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
-    from madsim_tpu_torch.tpu.spec import (
-        INF_GUARD, REBASE_US, expand_to, tree_map,
-    )
-
     torch.use_deterministic_algorithms(True)
     cuda = torch.device(CARD)
     report: dict = {}
@@ -501,6 +536,108 @@ def main() -> dict:
     print(card, flush=True)
     phase(1, f"device {kind!r}, count {torch.cuda.device_count()}, "
              f"torch {torch.__version__}, cuda {torch.version.cuda}")
+
+    # -- 6. the golden runs, in a child process beside phases 2, 3 and 9's
+    # parity runs; joined before phase 4's timings
+    small, parity, report["overlap"] = overlapped_start(cuda, report)
+    phase_4_5_on(cuda, report, small, card, parity)
+    return report
+
+
+def overlapped_start(cuda, report: dict) -> tuple:
+    """Phases 2, 3 and 9's parity runs in this process while phase 6 runs
+    in a child process: (phase 2's leaves, the parity rows, both sides'
+    walls)."""
+    t0 = time.perf_counter()
+    golden = spawn_child(GOLDEN_FLAG)
+    try:
+        small, parity = phases_2_3_parity(cuda, report)
+        main_s = time.perf_counter() - t0
+        res = join_child(golden, "phase 6", 1200)
+    finally:
+        if golden.poll() is None:
+            golden.kill()
+            golden.wait()
+    report["golden"] = res["golden"]
+    walls = {"main_s": main_s, "golden_s": res["wall_s"],
+             "joined_s": time.perf_counter() - t0}
+    phase(6, f"overlapped: phases 2, 3 and 9's parity runs took "
+             f"{main_s:.1f} s in this process, phase 6 "
+             f"{res['wall_s']:.1f} s in its own; joined after "
+             f"{walls['joined_s']:.1f} s")
+    return small, parity, walls
+
+
+def phases_2_3_parity(cuda, report: dict) -> tuple:
+    """Phases 2 and 3 (fills on), then phase 9's 64-lane parity runs
+    (fills off, as in phases 6-15): (phase 2's leaves, the parity rows)."""
+    import torch.utils.deterministic as tdet
+
+    small = phases_2_3(cuda, report)
+    tdet.fill_uninitialized_memory = False
+    try:
+        parity = phase9_parity(cuda)
+    finally:
+        tdet.fill_uninitialized_memory = True
+    return small, parity
+
+
+def serial_probe() -> dict:
+    """main()'s overlapped start taken one part after the other (phases 2,
+    3 and 9's parity runs in this process, then phase 6's child process
+    alone), then overlapped as main() runs it: both walls from one
+    process, back to back."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    torch.use_deterministic_algorithms(True)
+    cuda = torch.device(CARD)
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    phases_2_3_parity(cuda, {})
+    main_s = time.perf_counter() - t0
+    res = join_child(spawn_child(GOLDEN_FLAG), "phase 6", 1200)
+    serial = {"main_s": main_s, "golden_s": res["wall_s"],
+              "serial_s": time.perf_counter() - t0}
+    phase(6, f"serial: phases 2, 3 and 9's parity runs took {main_s:.1f} s,"
+             f" then phase 6 {res['wall_s']:.1f} s in its own process; "
+             f"{serial['serial_s']:.1f} s in all")
+    return {"serial": serial, "overlapped": overlapped_start(cuda, {})[2]}
+
+
+def spawn_child(*args: str):
+    """This script in a child process, with `args`; join_child reads it."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def join_child(child, what: str, timeout_s: float) -> dict:
+    """Wait for a child process of this script, print its phase lines and
+    return its result (its last stdout line, JSON)."""
+    try:
+        out, err = child.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, err = child.communicate()
+    check(child.returncode == 0, f"{what}'s process failed: {err[-3000:]}")
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    return json.loads(lines[-1])
+
+
+def phases_2_3(cuda, report: dict) -> dict:
+    """Phases 2 (parity) and 3 (epoch rebase); returns phase 2's 64-lane
+    leaves by pinned run name."""
+    from madsim_tpu_torch.tpu import BatchedSim, summarize
+    from madsim_tpu_torch.tpu import prng
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.digest import PINNED, canonical_digest, pinned_run
+    from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
+    from madsim_tpu_torch.tpu.spec import (
+        INF_GUARD, REBASE_US, expand_to, tree_map,
+    )
 
     # -- 2. parity on the card: u32 wrap, tie order, whole runs
     rng = np.random.default_rng(0)
@@ -567,6 +704,16 @@ def main() -> dict:
     phase(3, f"epoch rebase: {SEEDS_SMALL} lanes x 60 steps from a clock "
              f"{REBASE_US - 3000} us state, every lane at epoch 1, "
              f"{len(g)} leaves equal card/CPU")
+    return small
+
+
+def phase_4_5_on(cuda, report: dict, small: dict, card: str,
+                 parity: dict) -> None:
+    """Phases 4, 5, 7, 9-15 and 8, in that order, into `report`."""
+    from madsim_tpu_torch.tpu import BatchedSim, summarize
+    from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
+
+    kw = dict(n_nodes=5, client_rate=0.1, log_capacity=16)
 
     # -- 4. headline sweep
     spec = make_raft_spec(**kw)
@@ -647,15 +794,9 @@ def main() -> dict:
     # -- 5. profile over steady steps, in a child process: a CUDA profiler
     # session leaves its process's later host steps slower (PERF.md,
     # section 5), so the process that profiles is not the one that runs
-    # phases 6-12
-    child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), PROFILE_FLAG,
-         str(virtual_secs), str(head["step_ms"])],
-        capture_output=True, text=True, timeout=900,
-    )
-    check(child.returncode == 0,
-          f"phase 5's profiling process failed: {child.stderr[-3000:]}")
-    prof_out = json.loads(child.stdout.strip().splitlines()[-1])
+    # the later phases
+    prof_out = join_child(spawn_child(PROFILE_FLAG, str(virtual_secs),
+                                      str(head["step_ms"])), "phase 5", 900)
     if prof_out["kernels_per_step"] is not None:
         phase(5, f"profile {PROFILE_STEPS} steps at {LANES} lanes: "
                  f"{prof_out['kernels_per_step']:.0f} kernels/step "
@@ -685,20 +826,24 @@ def main() -> dict:
     import torch.utils.deterministic as tdet
 
     tdet.fill_uninitialized_memory = False
-    phase(5, "phases 6-14 run with uninitialized-memory fills off")
+    phase(5, "phases 7-15 run with uninitialized-memory fills off (as "
+             "phase 6 and phase 9's parity runs did)")
     report["profile"] = prof_out
-    report["golden"] = phase6_golden(cuda)
     report["storm"] = phase7_storm(cuda)
-    report["membership"] = phase9_membership(cuda)
+    report["membership"] = phase9_membership(cuda) | {"parity": parity}
     report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
     report["refill"] = phase11_refill(cuda, card)
     report["lineage"] = phase12_lineage_cost(cuda, card)
-    report["explore"], host13 = phase13_explore(cuda, card)
-    report["devloop"] = phase14_devloop(
-        cuda, card, {**host13, "row": report["explore"]["wide"]})
+    work = tempfile.mkdtemp(prefix="chip_smoke_campaigns-")
+    try:
+        report["explore"], host13 = phase13_explore(cuda, card, work)
+        report["devloop"] = phase14_devloop(
+            cuda, card, {**host13, "row": report["explore"]["wide"]})
+        report["campaigns"] = phase15_campaigns(cuda, card, host13["dirs"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
-    return report
 
 
 def phase5_profile(virtual_secs: float, head_step_ms: float) -> dict:
@@ -1138,7 +1283,6 @@ def phase9_membership(cuda) -> dict:
                     "steps" if strag_pending is not None else "")
                  + extra)
         del st
-    out["parity"] = phase9_parity(cuda)
     return out
 
 
@@ -1232,8 +1376,6 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
     (`card`, as nvidia-smi reports it)."""
     import dataclasses
     import re
-    import shutil
-    import tempfile
 
     from madsim_tpu_torch import causal, repro, telemetry
     from madsim_tpu_torch.tpu import BatchedSim, run_batch
@@ -1726,22 +1868,27 @@ def suppressions_kept(cand, bundle) -> list:
     return lost
 
 
-def phase13_explore(cuda, card: str) -> dict:
-    """The explorer's host loop on the card. (a) The pinned run
-    (`digest.EXPLORE_RUN` on `explore_workload`) twice: by refill with
-    telemetry on, and chunked and serial with it off; both reach
-    PINNED_EXPLORE and PINNED_EXPLORE_CORPUS, and their corpora are equal
-    entry for entry. (b) A full-width search: EXPLORE_LANES lanes by
-    refill, EXPLORE_GENERATIONS_FLOOR generations, one shrink; the
-    coverage curve is monotone, the bug is found in generation 0 (the
-    uniform chunk), and the shrunk bundle replays at its step and time
-    with the candidate's suppressions kept. Its summary line names the
-    card. Returns (the phase's report, the full-width search's report and
-    corpus, which phase 14 holds its device loop to)."""
-    import shutil
-    import tempfile
-
-    from madsim_tpu_torch import repro, telemetry, triage
+def phase13_explore(cuda, card: str, work: str) -> dict:
+    """The explorer's host loop on the card, run as campaigns under
+    `work`. (a) The pinned run (`digest.EXPLORE_RUN` on
+    `explore_workload`) twice: as a campaign by refill with telemetry on,
+    killed after generation 1 (checkpoint, object dropped) and resumed
+    from its directory for generation 2; and as a chunked, serial
+    Explorer with telemetry off. Both reach PINNED_EXPLORE and
+    PINNED_EXPLORE_CORPUS, and their corpora are equal entry for entry.
+    (b) A full-width search as a campaign: EXPLORE_LANES lanes by refill,
+    EXPLORE_GENERATIONS_FLOOR generations, then bug dedup with one
+    shrink (of the first coarse group's first witness); the coverage
+    curve is monotone, the bug is found in generation 0 (the uniform
+    chunk), every violation is a witness of exactly one BugRecord, one
+    record carries a bundle, stamped with its signature, the campaign
+    and generation 0, that keeps the candidate's suppressions, and
+    `campaign.regress` replays it green at its step and time. Its
+    summary line names the card. Returns (the phase's report, the
+    full-width search's report and corpus, which phase 14 holds its
+    device loop to, and the two campaign directories, which phase 15
+    merges)."""
+    from madsim_tpu_torch import campaign, telemetry, triage
     from madsim_tpu_torch.explore import Candidate, Explorer
     from madsim_tpu_torch.tpu import BatchedSim
     from madsim_tpu_torch.tpu.digest import (
@@ -1751,159 +1898,340 @@ def phase13_explore(cuda, card: str) -> dict:
 
     t_phase = time.perf_counter()
     wl = explore_workload()
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_explore-")
     out: dict = {}
-    try:
-        # -- (a) the pinned run, two dispatch paths
-        corpora = {}
-        for name, kw, telem in (
-            ("refill", {}, True),
-            ("chunked", dict(refill=False, pipeline=False), False),
-        ):
-            if telem:
-                telemetry.enable(out_dir=os.path.join(out_dir, "telemetry"))
-            try:
-                ex = Explorer(wl, device=cuda, **EXPLORE_RUN, **kw)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                rep = ex.run(EXPLORE_GENERATIONS)
-                wall = time.perf_counter() - t0
-                spans = [sp.name for sp in telemetry.spans()] if telem else []
-            finally:
-                telemetry.disable()
-            fp = rep.fingerprint()
-            check(fp == PINNED_EXPLORE,
-                  f"explore {name}: fingerprint {fp} != {PINNED_EXPLORE}")
-            cd = explore_corpus_digest(ex)
-            check(cd == PINNED_EXPLORE_CORPUS,
-                  f"explore {name}: corpus digest {cd} != pinned")
-            corpora[name] = [e.to_dict() for e in ex.corpus]
-            extra = ""
-            if telem:
-                lines = telemetry.read_events(
-                    os.path.join(out_dir, "telemetry", "events.jsonl"))
-                gens = [e for e in lines if e["name"] == "explore_generations"]
-                check(spans.count("dispatch") == EXPLORE_GENERATIONS
-                      and gens and gens[-1]["value"] == EXPLORE_GENERATIONS,
-                      f"explore {name}: telemetry saw {spans} and {gens}")
-                extra = (f", telemetry on ({len(lines)} event lines, "
-                         f"{len(spans)} spans)")
-            out[f"pinned_{name}_s"] = wall
-            phase(13, f"pinned {name}: {EXPLORE_RUN['lanes']} lanes x "
-                      f"{EXPLORE_GENERATIONS} generations in {wall:.3f} s, "
-                      f"coverage {rep.coverage_curve}, corpus "
-                      f"{rep.corpus_curve}, violations "
-                      f"{rep.violation_curve}; fingerprint {fp[:16]} == "
-                      f"pinned, corpus digest == pinned{extra}")
-        check(corpora["refill"] == corpora["chunked"],
-              "explore: the refill and chunked corpora differ")
+    dirs = {"pinned": os.path.join(work, "pinned"),
+            "wide": os.path.join(work, "wide")}
 
-        # -- (b) full width: probe, then the search with one shrink
-        sim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
-                         device=cuda)
-        ms = probe(sim, EXPLORE_LANES)[0]
-        gens = EXPLORE_GENERATIONS_FLOOR
-        refills, shrinks, ends = [], [], []
-        timed_calls_of(sim, "run_refill", refills, keep=lambda st: (
-            int(st.refill.busy.shape[0]), int(st.refill.iters),
-            sim.refill_read_s))
-        shrink_seed = triage.shrink_seed
-        timed_calls_of(triage, "shrink_seed", shrinks)
-        try:
-            ex = Explorer(
-                wl, meta_seed=0, lanes=EXPLORE_LANES, sim=sim,
-                shrink_violations=True, max_shrinks=1,
-                shrink_kwargs={"out_dir": out_dir,
-                               "spec_ref": TRIAGE_SPEC_REF},
-                log=lambda m: ends.append(time.perf_counter()),
-            )
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rep = ex.run(gens)
-            wall = time.perf_counter() - t0
-        finally:
-            triage.shrink_seed = shrink_seed
-        check(rep.coverage_curve == sorted(rep.coverage_curve),
-              f"explore wide: coverage curve {rep.coverage_curve} falls")
-        check(rep.first_violation_dispatch == 0,
-              f"explore wide: first violation at dispatch "
-              f"{rep.first_violation_dispatch}, not 0 (the uniform chunk)")
-        shrunk = [v for v in rep.violations if v.get("bundle_path")]
-        check(len(shrunk) == 1 and len(shrinks) == 1 and all(
-            v.get("shrink_skipped") == "max_shrinks reached"
-            for v in rep.violations if v is not shrunk[0]),
-              f"explore wide: {len(shrunk)} bundles, {len(shrinks)} "
-              "shrinks, want 1")
-        v = shrunk[0]
-        bundle = triage.ReproBundle.load(v["bundle_path"])
-        cand = Candidate(*v["candidate"][:5], origin=v["origin"])
-        lost = suppressions_kept(cand, bundle)
-        check(not lost, f"explore wide: the bundle of {cand.describe()} "
-                        f"lost the candidate's suppressions {lost}")
+    # -- (a) the pinned run: a campaign killed and resumed, and chunked
+    tel_dir = os.path.join(work, "telemetry")
+    telemetry.enable(out_dir=tel_dir)
+    try:
+        c = campaign.Campaign(
+            wl, dirs["pinned"], shrink=False, device=cuda,
+            **{k: EXPLORE_RUN[k] for k in ("meta_seed", "lanes", "chunk")})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.run(1)
         t1 = time.perf_counter()
-        rp = repro.replay_device(bundle, repeats=1, device=cuda,
-                                 out=lambda *_: None)
-        replay_s = time.perf_counter() - t1
-        check((rp["step"], rp["t_us"]) == (bundle.violation_step,
-                                          bundle.violation_t_us),
-              f"explore wide: replay at {rp} != the bundle's")
-        # the generations' own sweeps (EXPLORE_LANES lanes) and the
-        # shrink's dispatches (lane_width lanes) are told apart by width;
-        # each call's host reads are its step of the cumulative read time
-        reads = np.diff([0.0] + [r for (_, _, r), _ in refills])
-        gen_calls = [(it, w, rd) for ((lanes, it, _), w), rd
-                     in zip(refills, reads) if lanes == EXPLORE_LANES]
-        iters = [it for it, _, _ in gen_calls]
-        gen_s = [w for _, w, _ in gen_calls]
-        shrink_s = shrinks[0][1]
-        ends = [t0] + ends
-        gen_walls = [ends[i + 1] - ends[i] for i in range(gens)]
-        gen_walls[0] -= shrink_s  # the shrink runs inside generation 0
-        row = {
-            "lanes": EXPLORE_LANES, "generations": gens,
-            "probe_step_ms": ms, "wall_s": wall,
-            "generation_walls_s": gen_walls,
-            "generations_per_s": gens / sum(gen_walls),
-            "admissions_per_s": gens * EXPLORE_LANES / sum(gen_walls),
-            "refill_iters": iters, "refill_s": gen_s,
-            "ms_per_refill_iter": sum(gen_s) / sum(iters) * 1e3,
-            "read_ms_per_iter": sum(rd for _, _, rd in gen_calls)
-            / sum(iters) * 1e3,
-            "coverage_curve": rep.coverage_curve,
-            "corpus_curve": rep.corpus_curve,
-            "violation_curve": rep.violation_curve,
-            "violations": len(rep.violations),
-            "first_violation_dispatch": rep.first_violation_dispatch,
-            "shrink_s": shrink_s,
-            "shrink_dispatches": len(refills) - len(gen_calls),
-            "shrunk": cand.describe(), "kept_atoms": v["kept_atoms"],
-            "violation_step": bundle.violation_step, "replay_s": replay_s,
-        }
-        out["wide"] = row
-        phase(13, f"full width {EXPLORE_LANES} lanes x {gens} generations "
-                  f"in {wall:.3f} s: {row['generations_per_s']:.4f} "
-                  f"generations/s, {row['admissions_per_s']:.1f} "
-                  f"admissions/s (generation walls "
-                  f"{[round(x, 3) for x in gen_walls]} s), refill "
-                  f"{iters} iterations at {row['ms_per_refill_iter']:.3f} "
-                  f"ms/iteration (probe {ms:.3f} ms/step), coverage "
-                  f"{rep.coverage_curve}, corpus {rep.corpus_curve}, "
-                  f"violations {rep.violation_curve}, first at dispatch "
-                  f"{rep.first_violation_dispatch}; shrink of "
-                  f"{cand.describe()} in {shrink_s:.3f} s "
-                  f"({row['shrink_dispatches']} dispatches), kept "
-                  f"{v['kept_atoms']}, its suppressions kept; replay at "
-                  f"step {rp['step']} t={rp['t_us']} us in {replay_s:.3f} s")
+        c.checkpoint()
+        del c  # the kill: only the checkpoint survives
+        resumed = campaign.Campaign.resume(dirs["pinned"], workload=wl,
+                                           device=cuda)
+        check(resumed.generation == 1,
+              f"explore campaign: resumed at generation "
+              f"{resumed.generation}, not 1")
+        t2 = time.perf_counter()
+        rep = resumed.run(EXPLORE_GENERATIONS - 1)
+        resumed.checkpoint()
+        t3 = time.perf_counter()
+        spans = [sp.name for sp in telemetry.spans()]
     finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+        telemetry.disable()
+    out["pinned_campaign_s"] = t3 - t0
+    out["pinned_checkpoint_reload_s"] = t2 - t1
+    chunked = Explorer(wl, device=cuda, refill=False, pipeline=False,
+                       **EXPLORE_RUN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunked_rep = chunked.run(EXPLORE_GENERATIONS)
+    out["pinned_chunked_s"] = time.perf_counter() - t0
+    corpora = {}
+    for name, ex, rp in (("campaign", resumed.ex, rep),
+                         ("chunked", chunked, chunked_rep)):
+        fp = rp.fingerprint()
+        check(fp == PINNED_EXPLORE,
+              f"explore {name}: fingerprint {fp} != {PINNED_EXPLORE}")
+        cd = explore_corpus_digest(ex)
+        check(cd == PINNED_EXPLORE_CORPUS,
+              f"explore {name}: corpus digest {cd} != pinned")
+        corpora[name] = [e.to_dict() for e in ex.corpus]
+        extra = ""
+        if name == "campaign":
+            lines = telemetry.read_events(os.path.join(tel_dir,
+                                                       "events.jsonl"))
+            gens = [e for e in lines if e["name"] == "explore_generations"]
+            check(spans.count("dispatch") == EXPLORE_GENERATIONS
+                  and gens and gens[-1]["value"] == EXPLORE_GENERATIONS,
+                  f"explore {name}: telemetry saw {spans} and {gens}")
+            extra = (f", killed after generation 1 and resumed (checkpoint"
+                     f" + reload {out['pinned_checkpoint_reload_s']:.3f} "
+                     f"s), telemetry on ({len(lines)} event lines, "
+                     f"{len(spans)} spans)")
+        phase(13, f"pinned {name}: {EXPLORE_RUN['lanes']} lanes x "
+                  f"{EXPLORE_GENERATIONS} generations in "
+                  f"{out[f'pinned_{name}_s']:.3f} s, coverage "
+                  f"{rp.coverage_curve}, corpus {rp.corpus_curve}, "
+                  f"violations {rp.violation_curve}; fingerprint "
+                  f"{fp[:16]} == pinned, corpus digest == pinned{extra}")
+    check(corpora["campaign"] == corpora["chunked"],
+          "explore: the campaign's and the chunked corpora differ")
+
+    # -- (b) full width: probe, then the campaign with one shrink
+    sim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
+                     device=cuda)
+    ms = probe(sim, EXPLORE_LANES)[0]
+    gens = EXPLORE_GENERATIONS_FLOOR
+    refills, shrinks, ends = [], [], []
+    timed_calls_of(sim, "run_refill", refills, keep=lambda st: (
+        int(st.refill.busy.shape[0]), int(st.refill.iters),
+        sim.refill_read_s))
+    shrink_seed = triage.shrink_seed
+    timed_calls_of(triage, "shrink_seed", shrinks)
+    try:
+        c = campaign.Campaign(
+            wl, dirs["wide"], meta_seed=0, lanes=EXPLORE_LANES, sim=sim,
+            max_shrinks=1, spec_ref=TRIAGE_SPEC_REF, device=cuda,
+            regression_dir=os.path.join(dirs["wide"], "regression"),
+            log=lambda m: ends.append(time.perf_counter())
+            if m.startswith("dispatch ") else None,
+        )
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = c.run(gens)
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        c.checkpoint()
+        checkpoint_s = time.perf_counter() - t1
+    finally:
+        triage.shrink_seed = shrink_seed
+    check(rep.coverage_curve == sorted(rep.coverage_curve),
+          f"explore wide: coverage curve {rep.coverage_curve} falls")
+    check(rep.first_violation_dispatch == 0,
+          f"explore wide: first violation at dispatch "
+          f"{rep.first_violation_dispatch}, not 0 (the uniform chunk)")
+    wits = sorted(w["seed"] for b in c.bugs for w in b.witnesses)
+    check(wits == sorted(v["seed"] for v in rep.violations),
+          f"explore wide: {len(wits)} witnesses over {len(c.bugs)} records"
+          f" for {len(rep.violations)} violations, want each once")
+    shrunk = [b for b in c.bugs if b.bundle_path]
+    check(len(shrunk) == 1 and len(shrinks) == 1 and c._shrinks_done == 1
+          and not any(b.shrink_error for b in c.bugs),
+          f"explore wide: {len(shrunk)} bundles, {len(shrinks)} shrinks, "
+          f"errors {[b.shrink_error for b in c.bugs if b.shrink_error]}; "
+          "want 1")
+    rec = shrunk[0]
+    bundle = triage.ReproBundle.load(rec.bundle_path)
+    check((bundle.signature, bundle.campaign, bundle.generation)
+          == (rec.signature, c.campaign_id, 0),
+          f"explore wide: bundle stamped {bundle.signature}, "
+          f"{bundle.campaign}, {bundle.generation}")
+    first = rec.witnesses[0]
+    cand = Candidate(*first["candidate"][:5], origin=first["origin"])
+    check(bundle.seed == cand.seed,
+          f"explore wide: shrunk seed {bundle.seed}, first witness "
+          f"{cand.seed}")
+    lost = suppressions_kept(cand, bundle)
+    check(not lost, f"explore wide: the bundle of {cand.describe()} "
+                    f"lost the candidate's suppressions {lost}")
+    said = []
+    t1 = time.perf_counter()
+    reg = campaign.regress(dirs["wide"], device=cuda, out=said.append)
+    replay_s = time.perf_counter() - t1
+    ok = [m for m in said if m.startswith("device replay OK")]
+    check(reg["bundles"] == 1 and not reg["failures"] and len(ok) == 1
+          and f"at step {bundle.violation_step}, t={bundle.violation_t_us}us"
+          in ok[0], f"explore wide: regress {reg}, said {said}")
+    # the generations' own sweeps (EXPLORE_LANES lanes) and the
+    # shrink's dispatches (lane_width lanes) are told apart by width;
+    # each call's host reads are its step of the cumulative read time
+    reads = np.diff([0.0] + [r for (_, _, r), _ in refills])
+    gen_calls = [(it, w, rd) for ((lanes, it, _), w), rd
+                 in zip(refills, reads) if lanes == EXPLORE_LANES]
+    iters = [it for it, _, _ in gen_calls]
+    gen_s = [w for _, w, _ in gen_calls]
+    shrink_s = shrinks[0][1]
+    ends = [t0] + ends
+    gen_walls = [ends[i + 1] - ends[i] for i in range(gens)]
+    row = {
+        "lanes": EXPLORE_LANES, "generations": gens,
+        "probe_step_ms": ms, "wall_s": wall,
+        "generation_walls_s": gen_walls,
+        "generations_per_s": gens / sum(gen_walls),
+        "admissions_per_s": gens * EXPLORE_LANES / sum(gen_walls),
+        "refill_iters": iters, "refill_s": gen_s,
+        "ms_per_refill_iter": sum(gen_s) / sum(iters) * 1e3,
+        "read_ms_per_iter": sum(rd for _, _, rd in gen_calls)
+        / sum(iters) * 1e3,
+        "coverage_curve": rep.coverage_curve,
+        "corpus_curve": rep.corpus_curve,
+        "violation_curve": rep.violation_curve,
+        "violations": len(rep.violations),
+        "first_violation_dispatch": rep.first_violation_dispatch,
+        "records": len(c.bugs),
+        "witnesses_per_record": [len(b.witnesses) for b in c.bugs],
+        "shrunk_seed": cand.seed, "shrink_s": shrink_s,
+        "shrink_dispatches": len(refills) - len(gen_calls),
+        "shrunk": cand.describe(), "clause_profile": rec.clause_profile,
+        "signature": rec.signature, "checkpoint_s": checkpoint_s,
+        "violation_step": bundle.violation_step, "replay_s": replay_s,
+    }
+    out["wide"] = row
+    phase(13, f"full width {EXPLORE_LANES} lanes x {gens} generations "
+              f"in {wall:.3f} s (dedup and shrink included): "
+              f"{row['generations_per_s']:.4f} generations/s, "
+              f"{row['admissions_per_s']:.1f} admissions/s (generation "
+              f"walls {[round(x, 3) for x in gen_walls]} s), refill "
+              f"{iters} iterations at {row['ms_per_refill_iter']:.3f} "
+              f"ms/iteration (probe {ms:.3f} ms/step), coverage "
+              f"{rep.coverage_curve}, corpus {rep.corpus_curve}, "
+              f"violations {rep.violation_curve}, first at dispatch "
+              f"{rep.first_violation_dispatch}")
+    phase(13, f"dedup: {len(rep.violations)} violations -> "
+              f"{len(c.bugs)} records, witnesses per record "
+              f"{row['witnesses_per_record']}; shrink of the first coarse "
+              f"group's first witness, {cand.describe()}, in "
+              f"{shrink_s:.3f} s ({row['shrink_dispatches']} dispatches), "
+              f"clauses {rec.clause_profile}, signature "
+              f"{rec.signature[:16]}, stamped (campaign {c.campaign_id}, "
+              f"generation 0), its suppressions kept; checkpoint "
+              f"{checkpoint_s:.3f} s; regress 1/1 green at step "
+              f"{bundle.violation_step} t={bundle.violation_t_us} us in "
+              f"{replay_s:.3f} s")
     out["phase_s"] = time.perf_counter() - t_phase
-    phase(13, f"on {card}: pinned refill {out['pinned_refill_s']:.3f} s, "
-              f"chunked {out['pinned_chunked_s']:.3f} s; full width "
-              f"{out['wide']['admissions_per_s']:.1f} admissions/s, "
-              f"{out['wide']['ms_per_refill_iter']:.3f} ms/iteration, "
-              f"shrink {out['wide']['shrink_s']:.3f} s "
+    phase(13, f"on {card}: pinned campaign {out['pinned_campaign_s']:.3f}"
+              f" s, chunked {out['pinned_chunked_s']:.3f} s; full width "
+              f"{row['admissions_per_s']:.1f} admissions/s, "
+              f"{row['ms_per_refill_iter']:.3f} ms/iteration, "
+              f"shrink {shrink_s:.3f} s "
               f"[{out['phase_s']:.0f} s in phase 13]")
-    return out, {"report": rep, "corpus": [e.to_dict() for e in ex.corpus]}
+    return out, {"report": rep, "corpus": [e.to_dict() for e in c.ex.corpus],
+                 "dirs": dirs}
+
+
+def phase15_campaigns(cuda, card: str, dirs: dict) -> dict:
+    """Campaigns, the federation and the measurement discipline on the
+    card. (a) `campaign.merge_and_minimize` over phase 13's two campaign
+    directories at a lane width of at least the merged entry count (one
+    dispatch): the kept union equals the merged union (popcount and
+    words), every replayed bitmap equals its recorded one (raised on in
+    `minimize`), kept <= merged, and the merged manifest is "merged",
+    which `Campaign.resume` refuses. (b) The pinned federation
+    (`digest.FEDERATION_RUN` at FEDERATION_H_US) on the host loop reaches
+    PINNED_FEDERATION with an exchange whose merged corpus is not empty,
+    and on the device loop (`device_window=3`, windows clipped to 2 + 1)
+    gives the same fingerprint, exchange log, coverage bits and
+    violations. (c) `measure.time_scan_ms` on the 16-lane pinned sim
+    (scan 20, warm 10, 3 rounds), beside `measure.fresh_seeds`' blocks;
+    not gated on its value. Its summary line names the card."""
+    from madsim_tpu_torch import campaign, measure
+    from madsim_tpu_torch.explore import Federation, popcount_rows
+    from madsim_tpu_torch.tpu import BatchedSim
+    from madsim_tpu_torch.tpu.digest import (
+        EXPLORE_RUN, FEDERATION_GENERATIONS, FEDERATION_H_US, FEDERATION_RUN,
+        PINNED_FEDERATION,
+    )
+
+    t_phase = time.perf_counter()
+    wl = explore_workload()
+    out: dict = {}
+
+    # -- (a) merge + minimize, one dispatch
+    srcs = [dirs["pinned"], dirs["wide"]]
+    entries, _ = campaign.merge_corpora(srcs)
+    merged = os.path.join(os.path.dirname(dirs["wide"]), "merged")
+    sim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
+                     device=cuda)
+    runs = []
+    timed_calls_of(sim, "run", runs, keep=lambda st: None)
+    t0 = time.perf_counter()
+    res = campaign.merge_and_minimize(srcs, merged, workload=wl, sim=sim,
+                                      lane_width=max(2, len(entries)))
+    wall = time.perf_counter() - t0
+    union = np.zeros_like(entries[0].bitmap)
+    for e in entries:
+        union |= e.bitmap
+    kept_union = np.zeros_like(union)
+    for e in res["kept"]:
+        kept_union |= e.bitmap
+    bits = int(popcount_rows(union[None, :])[0])
+    check(np.array_equal(kept_union, union)
+          and np.array_equal(res["union"], union)
+          and res["kept_bits"] == res["merged_bits"] == bits,
+          f"merge: kept {res['kept_bits']} bits, merged "
+          f"{res['merged_bits']}, recorded union {bits}")
+    check(0 < len(res["kept"]) <= len(entries) == res["replayed"]
+          and res["dispatches"] == len(runs) == 1,
+          f"merge: {len(res['kept'])} kept of {len(entries)} in "
+          f"{res['dispatches']} dispatches")
+    with open(os.path.join(merged, campaign.MANIFEST)) as f:
+        kind = json.load(f)["kind"]
+    refused = ""
+    try:
+        campaign.Campaign.resume(merged, workload=wl, device=cuda)
+    except ValueError as e:
+        refused = str(e)
+    check(kind == "merged" and "resume" in refused,
+          f"merge: manifest kind {kind!r}, resume said {refused!r}")
+    out["merge"] = {"merged": len(entries), "kept": len(res["kept"]),
+                    "bits": bits, "wall_s": wall, "dispatch_s": runs[0][1]}
+    phase(15, f"merge + minimize of phase 13's two campaigns: "
+              f"{len(entries)} merged -> {len(res['kept'])} kept, "
+              f"{bits} union bits kept exactly, every replayed bitmap "
+              f"equal to its recorded one; 1 dispatch of {len(entries)} "
+              f"lanes in {runs[0][1]:.3f} s ({wall:.3f} s in all); the "
+              "merged corpus refuses a resume")
+    del sim
+
+    # -- (b) the pinned federation, host loop and device loop
+    fwl = explore_workload(FEDERATION_H_US)
+    feds = {}
+    for name, kw in (("host", {}),
+                     ("device", dict(device_loop=True, device_window=3))):
+        fed = Federation(fwl, device=cuda, **FEDERATION_RUN, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = fed.run(FEDERATION_GENERATIONS)
+        feds[name] = (rep, time.perf_counter() - t0)
+    host, dev = feds["host"][0], feds["device"][0]
+    check(host["fingerprint"] == PINNED_FEDERATION,
+          f"federation: fingerprint {host['fingerprint']} != "
+          f"{PINNED_FEDERATION}")
+    check(bool(host["exchanges"]) and host["exchanges"][0]["merged"] > 0,
+          f"federation: exchanges {host['exchanges']}")
+    for key in ("fingerprint", "exchanges", "coverage_bits", "violations"):
+        check(dev[key] == host[key],
+              f"federation: the device loop's {key} {dev[key]} != the "
+              f"host loop's {host[key]}")
+    out["federation"] = {
+        "generations": FEDERATION_GENERATIONS,
+        "host_s": feds["host"][1], "device_s": feds["device"][1],
+        "host_generations_per_s": FEDERATION_GENERATIONS / feds["host"][1],
+        "device_generations_per_s": FEDERATION_GENERATIONS
+        / feds["device"][1],
+        "exchanges": host["exchanges"], "coverage_bits":
+        host["coverage_bits"], "violations": host["violations"],
+    }
+    phase(15, f"federation {FEDERATION_RUN['n_islands']} islands x "
+              f"{FEDERATION_RUN['lanes']} lanes x {FEDERATION_GENERATIONS} "
+              f"generations at {FEDERATION_H_US / 1e6} virtual s: host loop"
+              f" {feds['host'][1]:.3f} s, device loop (windows 2 + 1) "
+              f"{feds['device'][1]:.3f} s; fingerprint "
+              f"{host['fingerprint'][:16]} == pinned on both, exchanges "
+              f"{host['exchanges']}, {host['coverage_bits']} bits, "
+              f"{host['violations']} violations, equal")
+
+    # -- (c) the measurement discipline on CUDA tensors
+    psim = BatchedSim(wl.spec, wl.config, triage=True, coverage=True,
+                      device=cuda)
+    lanes = EXPLORE_RUN["lanes"]
+    step_ms = measure.time_scan_ms(psim.init, psim.run_steps, lanes=lanes,
+                                   scan=20, warm_steps=10, rounds=3)
+    blocks = [measure.fresh_seeds(r, lanes) for r in range(4)]
+    out["measure"] = {"lanes": lanes, "scan": 20, "warm_steps": 10,
+                      "rounds": 3, "step_ms": step_ms,
+                      "seed_blocks": [[int(b[0]), int(b[-1])]
+                                      for b in blocks]}
+    phase(15, f"measure.time_scan_ms: {lanes} lanes, scan 20 after 10 "
+              f"warm steps, median of 3 fresh-seed reps: {step_ms:.3f} "
+              f"ms/step; seed blocks (warm, reps 1-3) "
+              f"{out['measure']['seed_blocks']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(15, f"on {card}: minimize dispatch {runs[0][1]:.3f} s, "
+              f"federation {out['federation']['host_generations_per_s']:.4f}"
+              f" / {out['federation']['device_generations_per_s']:.4f} "
+              f"generations/s (host / device loop), scan "
+              f"{step_ms:.3f} ms/step [{out['phase_s']:.0f} s in phase 15]")
+    return out
 
 
 def devloop_boundary_state(sim, seed: int, gens_done: int, target: int):
@@ -1994,9 +2322,6 @@ def phase14_devloop(cuda, card: str, host: dict) -> dict:
     `devloop_results` per window, and the events count the generations.
     Prints generations/s, admissions/s, ms per refill iteration, ms per
     boundary and host read ms per iteration beside phase 13(b)'s."""
-    import shutil
-    import tempfile
-
     from madsim_tpu_torch import telemetry
     from madsim_tpu_torch.explore import Explorer
     from madsim_tpu_torch.tpu import BatchedSim, engine
@@ -2149,6 +2474,22 @@ if __name__ == "__main__":
         # phase 5's child process: its result is its last stdout line
         print(json.dumps(phase5_profile(float(sys.argv[2]),
                                         float(sys.argv[3]))), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == [GOLDEN_FLAG]:
+        # phase 6's child process, fills off as in phases 7-15: its phase
+        # lines count seconds from its own start; its result is its last
+        # stdout line
+        import torch.utils.deterministic as tdet
+
+        torch.use_deterministic_algorithms(True)
+        tdet.fill_uninitialized_memory = False
+        golden = phase6_golden(torch.device(CARD))
+        print(json.dumps({"golden": golden,
+                          "wall_s": time.perf_counter() - T_START}),
+              flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == [SERIAL_FLAG]:
+        print(json.dumps(serial_probe()), flush=True)
         sys.exit(0)
     report = main()
     print("report: " + json.dumps(report), flush=True)

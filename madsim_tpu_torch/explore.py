@@ -40,14 +40,20 @@ decodes once per window and replays each window's populations from its
 own meta chain as a standing oracle. Corpus, curves and fingerprints are
 the host loop's, bit for bit, whatever the window partition.
 
+`Federation` runs `n_islands` explorers with disjoint fresh-seed
+sub-queues and a periodic coverage exchange through the campaign layer's
+merge + minimize (`campaign.py`), the islands one after another on one
+device; its fingerprint is the JAX face's `mesh=None` federation's.
+
 Not ported yet, each refused with its ROADMAP item (ROADMAP.md queue 1):
-tuned dispatch knobs (`tuning=`, item 12), the island `Federation` and the
-CLI's `--islands` and `--out` (campaigns, item 12), and the CLI's `--mesh`
-(item 14).
+tuned dispatch knobs (`tuning=`, item 12), and a multi-device mesh (the
+federation's `mesh=`, the CLI's `--mesh` and `--islands` over several
+cards, item 14).
 
 CLI:  python -m madsim_tpu_torch.explore --workload raft --storm --dispatches 12
       (add --device cpu to run on the CPU, --device-loop for the
-      device-resident loop)
+      device-resident loop, --islands N for a federation, --out DIR to
+      write the run as a resumable campaign)
 """
 
 from __future__ import annotations
@@ -1251,18 +1257,315 @@ class Explorer:
 
 
 # --------------------------------------------------------------------------
-# island-model federation (a later slice)
+# island-model federation
 # --------------------------------------------------------------------------
 
 
 class Federation:
-    """The island-model explorer federation of the JAX face
-    (`madsim_tpu/explore.py:Federation`). Its coverage exchange needs
-    `campaign.merge_entry_lists`/`minimize`, which come with campaigns."""
+    """Island-model explorer federation: `n_islands` independent
+    coverage-guided searches — one corpus per island, each fed from its
+    own disjoint fresh-seed sub-queue (island i draws seeds i, i + n,
+    i + 2n, ...) and its own MetaRng counter chain derived from ONE
+    federation meta-seed (`island_meta_seed`) — with a periodic coverage
+    EXCHANGE built on the campaign layer's merge + cmin
+    (`campaign.merge_entry_lists` + `campaign.minimize`, whose raised
+    union-preservation check IS the exchange primitive).
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise _not_ported("explore.Federation (island federation)",
-                          "item 12, campaigns")
+        fed = Federation(workload, n_islands=8, meta_seed=7, lanes=32)
+        report = fed.run(generations=12)
+
+    The islands run one after another through one shared sim on one
+    device (`device`, or a pre-built `sim`'s), each generation a refill
+    sweep of the island's population; this is the JAX face's `mesh=None`
+    path, and the federation fingerprint is the JAX face's. A
+    multi-device `mesh` (one island per card in one sharded dispatch) is
+    not ported yet. `device_loop=True` runs each island's generations in
+    device-resident windows clipped to exchange boundaries, with the same
+    fingerprint and exchange log as the host loop.
+    """
+
+    def __init__(
+        self,
+        workload,
+        n_islands: int = 8,
+        meta_seed: int = 0,
+        lanes: int = 64,
+        exchange_every: int = 4,
+        minimize_on_exchange: bool = True,
+        mesh=None,
+        refill_lanes: Optional[int] = None,
+        shrink_violations: bool = False,
+        max_shrinks: Optional[int] = None,
+        shrink_kwargs: Optional[Dict[str, Any]] = None,
+        device_loop: bool = False,
+        device_window: int = 8,
+        sim=None,
+        log: Optional[Callable[[str], None]] = None,
+        device="cuda",
+        **island_kwargs,
+    ) -> None:
+        from .tpu.batch import resolve_mesh
+        from .tpu.engine import BatchedSim
+
+        if n_islands < 1:
+            raise ValueError(f"n_islands must be >= 1, got {n_islands}")
+        if exchange_every < 1:
+            raise ValueError(
+                f"exchange_every must be >= 1, got {exchange_every}"
+            )
+        # one card or the CPU: "auto" resolves to None; a multi-device
+        # mesh (one island per card, one sharded dispatch) is refused
+        resolve_mesh(mesh, device if sim is None else sim.device)
+        self.workload = workload
+        self.n_islands = int(n_islands)
+        self.meta_seed = int(meta_seed)
+        self.lanes = int(lanes)
+        self.exchange_every = int(exchange_every)
+        self.minimize_on_exchange = bool(minimize_on_exchange)
+        self.refill_lanes = (
+            self.lanes if refill_lanes is None else int(refill_lanes)
+        )
+        # device-resident islands: each island's generations run in
+        # windows CLIPPED to exchange boundaries, so an exchange always
+        # sees fully folded corpora; windows dispatch one island after
+        # another through the one shared sim
+        self.device_loop = bool(device_loop)
+        self.device_window = max(1, int(device_window))
+        self.say = log or (lambda msg: None)
+        if sim is None:
+            devloop_plan = None
+            if self.device_loop:
+                from .tpu.engine import make_devloop_plan
+
+                devloop_plan = make_devloop_plan(
+                    workload.config, pop=self.lanes,
+                    top_k=int(island_kwargs.get("top_k", 16)),
+                    seen_cap=int(island_kwargs.get("seen_cap", 1 << 17)),
+                    fresh_frac=float(island_kwargs.get("fresh_frac", 0.5)),
+                    mutant_frac=float(
+                        island_kwargs.get("mutant_frac", 0.3)
+                    ),
+                    swarm_group=int(island_kwargs.get("swarm_group", 8)),
+                    # island i's fresh sub-queue: first_seed=i, stride=n
+                    fresh_stride=self.n_islands,
+                )
+            sim = BatchedSim(
+                workload.spec, workload.config, triage=True, coverage=True,
+                devloop=devloop_plan, device=device,
+            )
+        elif not (sim.triage and sim.coverage):
+            raise ValueError(
+                "Federation needs a BatchedSim(..., triage=True, "
+                "coverage=True)"
+            )
+        self.sim = sim
+        # ONE sim serves every island; each island keeps its OWN search
+        # state and MetaRng cursor
+        self.islands: List[Explorer] = [
+            Explorer(
+                workload,
+                meta_seed=island_meta_seed(self.meta_seed, i),
+                lanes=self.lanes,
+                first_seed=i,
+                fresh_stride=self.n_islands,
+                refill=True,
+                refill_lanes=self.refill_lanes,
+                shrink_violations=shrink_violations,
+                max_shrinks=max_shrinks,
+                shrink_kwargs=shrink_kwargs,
+                device_loop=self.device_loop,
+                device_window=self.device_window,
+                sim=self.sim,
+                log=None,
+                **island_kwargs,
+            )
+            for i in range(self.n_islands)
+        ]
+        self._gen = 0
+        self._wall_s = 0.0
+        # exchange log: one record per exchange, part of the fingerprint
+        # (an exchange changes every island's later ranking decisions)
+        self.exchanges: List[Dict[str, Any]] = []
+
+    # ----------------------------------------------------------- dispatch
+
+    def _run_generation(self) -> None:
+        """One federated generation: every island's next population runs
+        as one refill sweep, island after island, and folds into that
+        island's corpus in admission order."""
+        from .tpu.engine import refill_results
+
+        L = self.lanes
+        for ex in self.islands:
+            pop = ex._population(ex._gen)
+            seeds = np.asarray([c.seed for c in pop], np.uint32)
+            st = self.sim.run_refill(
+                seeds, lanes=min(self.refill_lanes, L),
+                max_steps=self.workload.max_steps,
+                ctl=ex._ctl_for(pop),
+            )
+            res = refill_results(st)
+            ex._fold_generation(ex._gen, [(
+                pop, _u32(res["cov_bitmap"]), res["cov_hiwater"],
+                res["cov_transitions"], res["violated"],
+            )])
+            ex._gen += 1
+
+    # ----------------------------------------------------------- exchange
+
+    def _exchange(self) -> None:
+        """Periodic coverage exchange: merge every island's corpus
+        (first genome wins, in island order), cmin-minimize the union
+        (`campaign.minimize`, union preservation raised on), and install
+        the merged view as every island's corpus and union, with the
+        islands' seen sets and violated seeds joined. Each island keeps
+        its own MetaRng cursor and fresh-seed sub-queue, so the exchange
+        never perturbs a draw stream."""
+        from . import campaign
+
+        entries = campaign.merge_entry_lists(
+            [ex.corpus for ex in self.islands]
+        )
+        if entries and self.minimize_on_exchange:
+            res = campaign.minimize(
+                self.workload, entries, sim=self.sim,
+                lane_width=max(2, min(64, self.lanes)),
+            )
+            kept, union = res["kept"], res["union"]
+        else:
+            kept = entries
+            union = np.zeros((Explorer._cov_words(),), np.uint32)
+            for e in entries:
+                union |= e.bitmap
+        bits = int(popcount_rows(union[None, :])[0]) if entries else 0
+        seen: set = set()
+        seen_h: set = set()
+        violated: set = set()
+        for ex in self.islands:
+            seen |= ex._seen
+            seen_h |= ex._seen_h
+            violated |= ex._violated_seeds
+        for ex in self.islands:
+            ex.corpus = list(kept)
+            ex.union = union.copy()
+            ex._seen = set(seen)
+            ex._seen_h = set(seen_h)
+            ex._violated_seeds = set(violated)
+        self.exchanges.append({
+            "generation": self._gen,
+            "merged": len(entries),
+            "kept": len(kept),
+            "union_bits": bits,
+        })
+        self.say(
+            f"exchange @gen {self._gen}: {len(entries)} entries -> "
+            f"{len(kept)} kept, {bits} union bits"
+        )
+
+    # ---------------------------------------------------------------- run
+
+    def run(self, generations: int) -> Dict[str, Any]:
+        """Run `generations` federated generations (cumulative across
+        calls), exchanging coverage every `exchange_every`. Device-loop
+        islands run windows clipped to the next exchange boundary, so
+        exchanges land at the same generations as on the host loop."""
+        t0 = time.perf_counter()
+        remaining = int(generations)
+        while remaining > 0:
+            if self.device_loop:
+                until = self.exchange_every - (
+                    self._gen % self.exchange_every
+                )
+                w = min(remaining, self.device_window, until)
+                for ex in self.islands:
+                    ex._run_device_window(w)
+                self._gen += w
+                remaining -= w
+            else:
+                self._run_generation()
+                self._gen += 1
+                remaining -= 1
+            if self._gen % self.exchange_every == 0:
+                self._exchange()
+        self._wall_s += time.perf_counter() - t0
+        return self.report()
+
+    def coverage_bits(self) -> int:
+        """Union bits across ALL islands (the federation's curve value)."""
+        union = np.zeros((Explorer._cov_words(),), np.uint32)
+        for ex in self.islands:
+            union |= ex.union
+        return int(popcount_rows(union[None, :])[0])
+
+    def report(self) -> Dict[str, Any]:
+        reports = [ex.report() for ex in self.islands]
+        island_fps = [r.fingerprint() for r in reports]
+        return {
+            "meta_seed": self.meta_seed,
+            "n_islands": self.n_islands,
+            "lanes": self.lanes,
+            "generations": self._gen,
+            "exchange_every": self.exchange_every,
+            "sharded": False,
+            "coverage_bits": self.coverage_bits(),
+            "seeds_run": sum(r.seeds_run for r in reports),
+            "violations": sum(len(r.violations) for r in reports),
+            "exchanges": list(self.exchanges),
+            "wall_s": round(self._wall_s, 3),
+            "islands": [r.to_dict() for r in reports],
+            "fingerprint": self.fingerprint(island_fps),
+        }
+
+    def fingerprint(
+        self, island_fingerprints: Optional[List[str]] = None,
+    ) -> str:
+        """sha256 over every island's fingerprint plus the exchange log:
+        the JAX face's, and pinned across kill/resume.
+        `island_fingerprints` reuses already-built island reports."""
+        fps = island_fingerprints or [
+            ex.report().fingerprint() for ex in self.islands
+        ]
+        h = hashlib.sha256()
+        h.update(json.dumps({
+            "meta_seed": self.meta_seed,
+            "n_islands": self.n_islands,
+            "lanes": self.lanes,
+            "exchange_every": self.exchange_every,
+            "islands": fps,
+            "exchanges": self.exchanges,
+        }, sort_keys=True, separators=(",", ":")).encode())
+        return h.hexdigest()
+
+    # --------------------------------------------------------- persistence
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The complete federation state (JSON-safe, the JAX face's
+        dict): per-island Explorer snapshots (each with its MetaRng
+        counter cursor) and the exchange log. `restore()` into a
+        same-parameter Federation and `run(k)` continues bit-identically."""
+        return {
+            "meta_seed": self.meta_seed,
+            "n_islands": self.n_islands,
+            "lanes": self.lanes,
+            "exchange_every": self.exchange_every,
+            "generation": self._gen,
+            "wall_s": self._wall_s,
+            "exchanges": json.loads(json.dumps(self.exchanges)),
+            "islands": [ex.snapshot() for ex in self.islands],
+        }
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        for key in ("meta_seed", "n_islands", "lanes", "exchange_every"):
+            if int(snap[key]) != getattr(self, key):
+                raise ValueError(
+                    f"snapshot {key} {snap[key]} != federation "
+                    f"{key} {getattr(self, key)}"
+                )
+        self._gen = int(snap["generation"])
+        self._wall_s = float(snap["wall_s"])
+        self.exchanges = [dict(e) for e in snap["exchanges"]]
+        for ex, isnap in zip(self.islands, snap["islands"]):
+            ex.restore(isnap)
 
 
 # --------------------------------------------------------------------------
@@ -1367,10 +1670,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     parser.add_argument(
         "--islands", type=int, default=0,
-        help="an island-model federation of this many explorers (not "
-        "ported yet: ROADMAP.md item 12, campaigns)",
+        help="run an island-model FEDERATION of this many explorers: "
+        "per-island corpora and disjoint fresh-seed sub-queues, periodic "
+        "coverage exchange; the islands run one after another on the one "
+        "device (one island per card is not ported yet: ROADMAP.md item "
+        "14) (0 = single explorer)",
     )
-    parser.add_argument("--exchange-every", type=int, default=4)
+    parser.add_argument(
+        "--exchange-every", type=int, default=4,
+        help="federation coverage-exchange period in generations",
+    )
     parser.add_argument(
         "--mesh", action="store_true",
         help="shard each generation over the visible cards (not ported "
@@ -1379,22 +1688,53 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--out-dir", default=None)
     parser.add_argument(
         "--out", default=None, metavar="DIR",
-        help="write the report and the corpus/checkpoint to DIR in the "
-        "campaign format (not ported yet: ROADMAP.md item 12, campaigns)",
+        help="write the report AND the corpus/checkpoint to DIR in the "
+        "campaign on-disk format: the one-shot run becomes a resumable, "
+        "merge-importable campaign (python -m madsim_tpu_torch.campaign)",
     )
     parser.add_argument("--json", action="store_true", help="JSON line only")
     args = parser.parse_args(argv)
 
-    if args.islands:
-        raise _not_ported("explore --islands (island federation)",
-                          "item 12, campaigns")
-    if args.out:
-        raise _not_ported("explore --out (campaign export)",
-                          "item 12, campaigns")
     if args.mesh:
         raise _not_ported("explore --mesh (a multi-device mesh)", "item 14")
     wl = _named_workload(args.workload, args.virtual_secs, args.storm)
     shrink_kwargs = {"out_dir": args.out_dir} if args.out_dir else {}
+    if args.islands:
+        if (
+            torch.device(args.device).type == "cuda"
+            and 1 < args.islands <= torch.cuda.device_count()
+        ):
+            # where the JAX face would shard the islands over the cards
+            raise _not_ported(
+                "explore --islands over several cards (a multi-device "
+                "mesh)", "item 14")
+        fed = Federation(
+            wl, n_islands=args.islands, meta_seed=args.meta_seed,
+            lanes=args.lanes, exchange_every=args.exchange_every,
+            refill_lanes=args.refill_lanes,
+            shrink_violations=not args.no_shrink,
+            max_shrinks=args.max_shrinks, shrink_kwargs=shrink_kwargs,
+            device_loop=args.device_loop,
+            device_window=args.device_window,
+            log=None if args.json else lambda m: print(m, flush=True),
+            device=args.device,
+        )
+        rep = fed.run(args.dispatches)
+        if args.json:
+            print(json.dumps(rep), flush=True)
+        else:
+            print(
+                f"federation meta_seed={rep['meta_seed']}: "
+                f"{rep['n_islands']} islands x {rep['lanes']} lanes, "
+                f"{rep['generations']} generations "
+                f"(sharded={rep['sharded']})\n"
+                f"  coverage: {rep['coverage_bits']} union bits, "
+                f"violations: {rep['violations']}, "
+                f"exchanges: {len(rep['exchanges'])}\n"
+                f"  fingerprint: {rep['fingerprint']}",
+                flush=True,
+            )
+        return
     ex = Explorer(
         wl, meta_seed=args.meta_seed, lanes=args.lanes,
         chunk=args.chunk or None, shrink_violations=not args.no_shrink,
@@ -1406,6 +1746,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         device=args.device,
     )
     report = ex.run(args.dispatches)
+    if args.out:
+        from . import campaign
+
+        campaign.export_explorer(
+            args.out, ex,
+            workload_ref=campaign.named_workload_ref(
+                args.workload, args.virtual_secs, bool(args.storm)
+            ),
+        )
+        if not args.json:
+            print(f"checkpoint + corpus written to {args.out}", flush=True)
     if args.json:
         print(report.to_json(), flush=True)
     else:

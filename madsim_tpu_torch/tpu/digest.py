@@ -41,6 +41,11 @@ on `chip_smoke.explore_workload()`), and `PINNED_EXPLORE_CORPUS` its
 `explore_corpus_digest` (every corpus field and violation record);
 tests/test_torch_explore.py computes both there, and the port must
 reproduce them on every dispatch path.
+
+`PINNED_FEDERATION` is the JAX face's `Federation(..., mesh=None)`
+fingerprint of the pinned island federation (`FEDERATION_RUN` for
+`FEDERATION_GENERATIONS` generations on `chip_smoke.explore_workload(
+FEDERATION_H_US)`); tests/test_torch_campaign.py computes it there.
 """
 
 from __future__ import annotations
@@ -312,4 +317,20 @@ def explore_corpus_digest(ex) -> str:
 # the JAX face's explore_corpus_digest of the pinned run
 PINNED_EXPLORE_CORPUS = (
     "7d2eae373eac4a45f8ed08d5f9b2503c3ee17202a7120136c9e91b3810d7e9fc"
+)
+
+
+# the island federation's pinned run (madsim_tpu_torch/explore.py):
+# `Federation(chip_smoke.explore_workload(FEDERATION_H_US),
+# **FEDERATION_RUN).run(FEDERATION_GENERATIONS)` — two islands of 8 lanes,
+# a coverage exchange after generation 2, on the explorer's planted
+# workload cut to a 0.5-virtual-second horizon. The value is the JAX
+# face's `Federation(..., mesh=None)` report fingerprint for the same run
+# (tests/test_torch_campaign.py computes it there); the port must reach
+# it on the host loop and on the device loop.
+FEDERATION_RUN = dict(n_islands=2, meta_seed=7, lanes=8, exchange_every=2)
+FEDERATION_H_US = 500_000
+FEDERATION_GENERATIONS = 3
+PINNED_FEDERATION = (
+    "bd7390680f45bf3d3f172e926f02e6e8c5daeae7ef71eb775108b205efc9429f"
 )

@@ -291,6 +291,17 @@ class ReproBundle:
         # the format string is kept as read: it records what wrote the file
         return ReproBundle(**doc)
 
+    def stamp(
+        self, signature: str, campaign: Optional[str] = None,
+        generation: Optional[int] = None,
+    ) -> "ReproBundle":
+        """Attach campaign provenance (the dedup signature and where it
+        came from) in place; the caller re-saves. Returns self."""
+        self.signature = signature
+        self.campaign = campaign
+        self.generation = generation
+        return self
+
     def save(self, path: str) -> str:
         with open(path, "w") as f:
             f.write(self.to_json())

@@ -213,3 +213,27 @@ def test_card_devloop_window_equals_cpu(cuda_device):
     for f in ("seed", "origin", "bitmap", "violated"):
         for a, b in zip(results[0]["gens"], results[1]["gens"]):
             np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.mark.cuda
+def test_card_campaign_kill_resume_reaches_pinned_fingerprint(cuda_device,
+                                                              tmp_path):
+    """The pinned search as a campaign on the card, checkpointed after 1
+    generation, dropped, and resumed from its directory for 1 more,
+    reaches PINNED_EXPLORE."""
+    import chip_smoke
+    from madsim_tpu_torch.campaign import Campaign
+    from madsim_tpu_torch.tpu.digest import (
+        EXPLORE_GENERATIONS, EXPLORE_RUN, PINNED_EXPLORE,
+    )
+
+    wl = chip_smoke.explore_workload()
+    kw = {k: EXPLORE_RUN[k] for k in ("meta_seed", "lanes", "chunk")}
+    c = Campaign(wl, str(tmp_path), shrink=False, device=cuda_device, **kw)
+    c.run(1)
+    c.checkpoint()
+    del c
+    resumed = Campaign.resume(str(tmp_path), workload=wl, device=cuda_device)
+    assert resumed.generation == 1
+    rep = resumed.run(EXPLORE_GENERATIONS - 1)
+    assert rep.fingerprint() == PINNED_EXPLORE

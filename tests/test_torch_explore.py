@@ -19,9 +19,11 @@ The same inputs go through both faces on the CPU:
     uninterrupted fingerprint and corpus;
   * one explorer violation with a swarm candidate's `base_ctl` writes the
     JAX face's bundle JSON;
-  * tuning, the federation and the CLI's `--islands`, `--out` and
-    `--mesh` are refused with their ROADMAP items (the device loop is
-    tests/test_torch_devloop.py's); the
+  * tuning (the explorer's and a campaign's), the campaign CLI's
+    `serve`, a federation over a multi-device mesh and the CLI's `--mesh`
+    are refused with their ROADMAP items (the device loop is
+    tests/test_torch_devloop.py's, the federation and the CLI's
+    `--islands` and `--out` tests/test_torch_campaign.py's); the
     registry's rows and `names(explorable=True)` are the JAX registry's
     hand-written ones.
 
@@ -41,7 +43,7 @@ from madsim_tpu import explore as jex
 from madsim_tpu import nemesis as jn
 from madsim_tpu import workloads as jreg
 from madsim_tpu.tpu import nemesis as jtn
-from madsim_tpu_torch import explore, telemetry
+from madsim_tpu_torch import campaign, explore, telemetry
 from madsim_tpu_torch import nemesis as tn
 from madsim_tpu_torch import workloads as reg
 from madsim_tpu_torch.tpu import nemesis as ttn
@@ -296,11 +298,14 @@ def test_explorer_violation_bundle_equals_the_jax_face(tmp_path):
 
 REFUSED = [
     ("tuning", lambda: _pinned(tuning="auto"), "item 12, tune"),
-    ("federation", lambda: explore.Federation(
-        chip_smoke.explore_workload(), n_islands=2), "item 12, campaigns"),
-    ("cli-islands", lambda: explore.main(["--islands", "2"]),
-     "item 12, campaigns"),
-    ("cli-out", lambda: explore.main(["--out", "x"]), "item 12, campaigns"),
+    ("campaign-tuning", lambda: campaign.Campaign(
+        chip_smoke.explore_workload(), "x", tuning="auto", device="cpu"),
+     "item 12, tune"),
+    ("campaign-serve", lambda: campaign.main(["serve", "--dir", "x"]),
+     "item 12, serve"),
+    ("federation-mesh", lambda: explore.Federation(
+        chip_smoke.explore_workload(), n_islands=2,
+        mesh=["cuda:0", "cuda:1"], device="cpu"), "item 14"),
     ("cli-mesh", lambda: explore.main(["--mesh"]), "item 14"),
 ]
 
