@@ -10,7 +10,11 @@ workloads, the membership, durability and straggler paths with their
 workloads, the triage path (trace, shrink, replay), and continuous
 batching with the coverage plane, the causal-lineage plane, the telemetry
 plane, the coverage-guided explorer and its device-resident search loop,
-campaigns and the island federation — and checks it, in fifteen phases:
+campaigns and the island federation, and the speclang device face — and
+checks it, in sixteen phases. Every sweep without a refill queue runs
+`BatchedSim._run`'s captured blocks (one CUDA graph replay per 32 gated
+steps), so the pins and digests of phases 2, 4 and 6-9 are the capture's
+correctness gate too:
 
 1. device: needs a CUDA card (exits non-zero without one); prints the
    card's name and power limit as nvidia-smi reports them;
@@ -25,12 +29,18 @@ campaigns and the island federation — and checks it, in fifteen phases:
    seconds, max_steps 8000: a warm-up, then the median of 3 fresh-seed
    reps (seeds/s, events/s, step ms), and seeds 0..63 of the warm-up equal
    per seed to phase 2's 64-lane run;
+4b. the capture's A/B: 64 gated steps of the bench config at 32768 and at
+   16 lanes, eager (the engine's private `_eager_run`) and captured, every
+   leaf equal; ms/step, the first block's wall and peak memory of each;
 5. profile, in a child process (a profiler session slows its process's
-   later steps): torch.profiler over 20 steady steps at 32768 lanes —
-   kernels launched per step, device idle share, top device kernels — and
-   the same steps with and without deterministic mode's
-   uninitialized-memory fills, leaves equal; phases 7-15 then run without
-   the fills (as phase 6 and phase 9's parity runs did);
+   later steps): torch.profiler over 20 steady eager steps at 32768 lanes
+   — kernels launched per step, device idle share, top device kernels —
+   and the same steps with and without deterministic mode's
+   uninitialized-memory fills, leaves equal; then two captured blocks at
+   32768 and at 16 lanes: host launch calls per step, kernels and device
+   busy per step when the profiler sees inside the graph, and the replays
+   timed by CUDA events; phases 7-16 then run without the fills (as phase
+   6 and phase 9's parity runs did);
 6. golden (in a child process started after phase 1, beside phases 2
    and 3 and phase 9's parity runs, and joined before phase 4; the card
    is launch-bound and idle most of each step, so two processes share it;
@@ -160,7 +170,23 @@ campaigns and the island federation — and checks it, in fifteen phases:
    fingerprint, exchange log, coverage and violations; (c)
    `measure.time_scan_ms` on the 16-lane pinned sim beside
    `measure.fresh_seeds`' blocks (not gated). Phase 9's end moves earlier
-   by PHASE15_BUDGET_S to pay for it.
+   by PHASE15_BUDGET_S to pay for it;
+16. the speclang device face (after phase 15, before phase 8): (a)
+   `python -m madsim_tpu_torch.speclang emit --check` is clean; (b) in
+   phase 6's child, twopc-gen's golden run reaches GOLDEN["twopc"] and
+   lease-gen under RICH_PLAN (CHAOS_PLAN plus Duplicate and Reorder)
+   equals the hand lease on the card and itself on the CPU, leaf for
+   leaf; (c) twopc-gen and the hand twopc at 32768 lanes x 1 virtual s
+   give one canonical digest; (d) the generated backup, correct and
+   buggy, at 32768 lanes x 5 nodes and its default 10 virtual s (cut only
+   when a probed step says a build would overrun BACKUP_BUDGET_S, never
+   below half for the buggy build nor a quarter for the correct one; the
+   cut is printed): the correct build never violates, the buggy build on
+   at least 5/64 of its lanes, every enabled fire kind fires, and seeds
+   0..63 equal a 64-lane CPU run in every leaf but `key`; (e) the explorer
+   over the buggy backup (64 lanes, one generation, one shrink) finds the
+   bug, and its shrunk bundle keeps Duplicate or Reorder. Phase 9's end
+   moves earlier by PHASE16_BUDGET_S to pay for it.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -254,6 +280,9 @@ PHASE11_BUDGET_S = 60.0
 PHASE13_BUDGET_S = 160.0
 PHASE14_BUDGET_S = 45.0
 PHASE15_BUDGET_S = 45.0
+# phase 16 (the speclang device face: full-width twopc-gen and backup, the
+# explorer on the buggy backup) buys its time from phase 9 the same way
+PHASE16_BUDGET_S = 120.0
 # phase 6 runs in a child process beside phases 2 and 3 and phase 9's
 # parity runs (all correctness checks: the card is launch-bound and idle
 # most of each step, so two processes share it), which the anchor below
@@ -262,7 +291,7 @@ PHASE15_BUDGET_S = 45.0
 PHASE6_OVERLAP_S = 120.0
 PHASE9_END_S = (984.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
                 - PHASE13_BUDGET_S - PHASE14_BUDGET_S - PHASE15_BUDGET_S
-                - PHASE6_OVERLAP_S)
+                - PHASE16_BUDGET_S - PHASE6_OVERLAP_S)
 # the least share of its horizon a phase-9 cell may be cut to: the buggy
 # cells keep half (the JAX face's bug shares were measured there), the
 # correct cells' gates (no violation, every enabled kind fires) are
@@ -313,6 +342,24 @@ EXPLAIN_LINKS = 8
 # two-handler path and the straggler pool; one such run fits the time)
 PHASE9_INDEPENDENCE = "twopc_tail"
 PHASE9_PARITY_STEPS = 200
+# phase 4b: the captured `_run` against the eager loop, gated steps from
+# one initial state at each lane count
+CAPTURE_AB_LANES = (LANES, 16)
+CAPTURE_AB_STEPS = 64
+# phase 16(d): backup's lanes, the steps of its longest lane at the
+# default 10-virtual-second horizon (972 correct and 1025 buggy of 32768
+# lanes on one H100; 973 of 64 lanes on the CPU), each build's share
+# of PHASE16_BUDGET_S, the least share of its horizon a build may be cut
+# to, and the buggy build's share of violating lanes (the JAX test's 5 of
+# 64, tests/test_speclang.py:241)
+BACKUP_LANES = 32768
+BACKUP_EST_STEPS = 1100
+BACKUP_BUDGET_S = 30.0
+BACKUP_FLOOR = {False: 0.25, True: 0.5}
+BACKUP_BUG_SHARE = 5 / 64
+# phase 16(e): the explorer's lanes over the buggy backup (the JAX deep
+# test's, tests/test_speclang.py:251-276)
+SPECLANG_EXPLORE_LANES = 64
 # the whole script must end well inside the 1200 s the card run allows;
 # phase 8 (run last) splits what is left of this target across its runs
 TARGET_S = 1050.0
@@ -470,6 +517,21 @@ def probe(sim, lanes: int, steps: int = 10):
     return (time.perf_counter() - t0) / steps * 1e3, st
 
 
+def block_probe(sim, lanes: int, blocks: int = 2):
+    """(wall ms per step of `blocks` blocks of `sim.run`'s loop, the state
+    after them) at `lanes`, after one block that captures the graph on a
+    CUDA sim: the step time a sweep of this sim pays."""
+    from madsim_tpu_torch.tpu.engine import DONE_CHECK_STEPS
+
+    st = sim._run(sim.init(range(lanes)), DONE_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sim._run(st, blocks * DONE_CHECK_STEPS)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / (blocks * DONE_CHECK_STEPS) * 1e3,
+            st)
+
+
 def ab_probe(make_sim, lanes: int, pairs: int) -> dict:
     """Step ms of a plane off and on (`make_sim(on)` builds the sim):
     `pairs` alternating pairs of AB_STEPS-step probes (off, on / on,
@@ -559,6 +621,7 @@ def overlapped_start(cuda, report: dict) -> tuple:
             golden.kill()
             golden.wait()
     report["golden"] = res["golden"]
+    report["speclang_golden"] = res["speclang"]
     walls = {"main_s": main_s, "golden_s": res["wall_s"],
              "joined_s": time.perf_counter() - t0}
     phase(6, f"overlapped: phases 2, 3 and 9's parity runs took "
@@ -570,7 +633,7 @@ def overlapped_start(cuda, report: dict) -> tuple:
 
 def phases_2_3_parity(cuda, report: dict) -> tuple:
     """Phases 2 and 3 (fills on), then phase 9's 64-lane parity runs
-    (fills off, as in phases 6-15): (phase 2's leaves, the parity rows)."""
+    (fills off, as in phases 6-16): (phase 2's leaves, the parity rows)."""
     import torch.utils.deterministic as tdet
 
     small = phases_2_3(cuda, report)
@@ -719,15 +782,7 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
     spec = make_raft_spec(**kw)
     virtual_secs = 10.0
     sim = BatchedSim(spec, raft_bench_config(virtual_secs), device=cuda)
-    probe = sim.init(range(LANES))
-    for _ in range(3):
-        probe = sim.step(probe)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(PROFILE_STEPS):
-        probe = sim.step(probe)
-    torch.cuda.synchronize()
-    probe_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    probe_ms, probe_st = block_probe(sim, LANES)
     # a 10 s horizon takes ~1210 steps; 4 sweeps must fit the phase budget
     est_s = 4 * 1210 * probe_ms / 1e3
     cut = ""
@@ -736,7 +791,7 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
         cut = (f" (cut: virtual_secs 10 -> {virtual_secs}; 4 sweeps at "
                f"{probe_ms:.2f} ms/step were estimated at {est_s:.0f} s)")
         sim = BatchedSim(spec, raft_bench_config(virtual_secs), device=cuda)
-    del probe
+    del probe_st
     t_phase = time.perf_counter()
     warm = sim.run(range(LANES), MAX_STEPS)
     torch.cuda.synchronize()
@@ -790,13 +845,17 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
              f"{head['total_overflow']}, violations {head['violations']}, "
              f"log_saturated_lanes {head['log_saturated_lanes']}, peak "
              f"{peak_gib:.2f} GiB; {indep}")
+    # the sim's captured graph holds its memory pool while the sim lives
+    del sim
+    report["capture"] = phase4b_capture(cuda, card)
 
     # -- 5. profile over steady steps, in a child process: a CUDA profiler
     # session leaves its process's later host steps slower (PERF.md,
     # section 5), so the process that profiles is not the one that runs
     # the later phases
+    eager_ms = report["capture"][str(LANES)]["eager"]["ms_per_step"]
     prof_out = join_child(spawn_child(PROFILE_FLAG, str(virtual_secs),
-                                      str(head["step_ms"])), "phase 5", 900)
+                                      str(eager_ms)), "phase 5", 900)
     if prof_out["kernels_per_step"] is not None:
         phase(5, f"profile {PROFILE_STEPS} steps at {LANES} lanes: "
                  f"{prof_out['kernels_per_step']:.0f} kernels/step "
@@ -805,7 +864,7 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
                  f"ms/step; idle share {prof_out['idle_share']:.3f} of the "
                  f"profiled {prof_out['window_ms'] / PROFILE_STEPS:.3f} "
                  f"ms/step, {prof_out['idle_share_unprofiled']:.3f} of phase "
-                 f"4's {head['step_ms']:.3f} ms/step")
+                 f"4b's eager {eager_ms:.3f} ms/step")
         for i, k in enumerate(prof_out["top"]):
             print(f"  top{i + 1}: {k['ms_per_step']:.4f} ms/step "
                   f"x{k['count_per_step']:.0f} {k['name'][:90]}", flush=True)
@@ -815,6 +874,18 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
                  f"host clock, {prof_out['launch_calls_per_step']:.0f} "
                  "launch calls/step; device kernels and idle share not "
                  "measured")
+    for lanes, c in prof_out["captured"].items():
+        busy = ("device busy not seen by the profiler" if
+                c["device_busy_ms_per_step"] is None else
+                f"{c['kernels_per_step']:.0f} kernels/step, device busy "
+                f"{c['device_busy_ms_per_step']:.3f} ms/step, idle share "
+                f"{c['idle_share_of_replay']:.3f} of the replays")
+        phase(5, f"captured, {lanes} lanes x {c['steps']} steps: "
+                 f"{c['launch_calls_per_step']:.3f} host launch calls/step "
+                 f"({c['graph_launches']} graph launches; eager "
+                 f"{c['eager_launch_calls_per_step']} per step), {busy}; "
+                 f"{c['window_ms_per_step']:.3f} ms/step profiled, replays "
+                 f"{c['replay_ms_per_step']:.3f} ms/step by CUDA events")
     on, off = prof_out["fill_on"], prof_out["fill_off"]
     phase(5, f"uninitialized-memory fills on: {on['launch_calls_per_step']} "
              f"launches, {on['step_ms']:.3f} ms/step; off: "
@@ -826,7 +897,7 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
     import torch.utils.deterministic as tdet
 
     tdet.fill_uninitialized_memory = False
-    phase(5, "phases 7-15 run with uninitialized-memory fills off (as "
+    phase(5, "phases 7-16 run with uninitialized-memory fills off (as "
              "phase 6 and phase 9's parity runs did)")
     report["profile"] = prof_out
     report["storm"] = phase7_storm(cuda)
@@ -840,13 +911,143 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
         report["devloop"] = phase14_devloop(
             cuda, card, {**host13, "row": report["explore"]["wide"]})
         report["campaigns"] = phase15_campaigns(cuda, card, host13["dirs"])
+        report["speclang"] = phase16_speclang(cuda, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
 
 
-def phase5_profile(virtual_secs: float, head_step_ms: float) -> dict:
+def phase4b_capture(cuda, card: str) -> dict:
+    """The captured `_run` against the eager loop on the bench config
+    (`_eager_run`, the engine's private switch for this A/B): at each of
+    CAPTURE_AB_LANES, CAPTURE_AB_STEPS gated steps from one initial state,
+    eager then captured, every leaf equal; ms/step of each after a first
+    block (the eager allocator's warm-up; the capture), that block's wall,
+    and each side's peak device memory."""
+    from madsim_tpu_torch.tpu import BatchedSim
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.engine import DONE_CHECK_STEPS
+    from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
+
+    spec = make_raft_spec(5, client_rate=0.1, log_capacity=16)
+    cfg = raft_bench_config(10.0)
+    out = {}
+    for lanes in CAPTURE_AB_LANES:
+        row, leaves = {}, {}
+        for mode in ("eager", "captured"):
+            sim = BatchedSim(spec, cfg, device=cuda)
+            sim._eager_run = mode == "eager"
+            st0 = sim.init(range(lanes))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sim._run(st0, DONE_CHECK_STEPS)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            st = sim._run(st0, CAPTURE_AB_STEPS)
+            torch.cuda.synchronize()
+            row[mode] = {
+                "ms_per_step": (time.perf_counter() - t0)
+                / CAPTURE_AB_STEPS * 1e3,
+                "first_block_s": first_s,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            }
+            check(sim._graph is None if mode == "eager"
+                  else sim._graph is not None,
+                  f"capture A/B: the {mode} sim took the other path")
+            leaves[mode] = state_to_numpy(st)
+            del st, st0, sim
+        bad = leaves_equal(leaves["eager"], leaves["captured"])
+        check(not bad, f"capture A/B at {lanes} lanes: captured and eager "
+                       f"leaves differ: {bad}")
+        e, c = row["eager"], row["captured"]
+        row["speedup"] = e["ms_per_step"] / c["ms_per_step"]
+        out[str(lanes)] = row
+        phase("4b", f"on {card}, {lanes} lanes x {CAPTURE_AB_STEPS} gated "
+                    f"steps, eager / captured: {e['ms_per_step']:.3f} / "
+                    f"{c['ms_per_step']:.3f} ms/step (x{row['speedup']:.2f}),"
+                    f" first block {e['first_block_s']:.3f} / "
+                    f"{c['first_block_s']:.3f} s (the capture's), peak "
+                    f"{e['peak_gib']:.3f} / {c['peak_gib']:.3f} GiB; "
+                    f"{len(leaves['eager'])} leaves equal")
+    return out
+
+
+def busy_us(dev_events) -> float:
+    """Microseconds in the union of the device events' spans."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return busy + cur_e - cur_s
+
+
+def captured_profile(spec, cfg, lanes: int) -> dict:
+    """Under capture: torch.profiler over two replayed blocks of the sim's
+    `_run` at `lanes` (the graph captured by a first block): host launch
+    calls per step (kernel and graph launches; beside them one eager
+    step's), kernels and device busy ms per step when the profiler sees
+    the kernels inside the graph; and, whatever it sees, CUDA events over
+    two more replays, and the device's idle share of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from madsim_tpu_torch.tpu import BatchedSim
+    from madsim_tpu_torch.tpu.engine import DONE_CHECK_STEPS
+
+    sim = BatchedSim(spec, cfg, device=CARD)
+    st = sim.init(range(lanes))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sim.step(st)
+    eager_launches = sum(1 for e in prof.events()
+                         if e.name.startswith("cudaLaunch"))
+    st = sim._run(st, DONE_CHECK_STEPS)
+    torch.cuda.synchronize()
+    n = 2 * DONE_CHECK_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = sim._run(st, n)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.events())
+    dev = [e for e in events
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    row = {
+        "lanes": lanes, "steps": n, "window_ms_per_step": window_ms / n,
+        "eager_launch_calls_per_step": eager_launches,
+        "launch_calls_per_step": sum(
+            1 for e in events
+            if e.name.startswith(("cudaLaunch", "cudaGraphLaunch"))) / n,
+        "graph_launches": sum(1 for e in events
+                              if e.name.startswith("cudaGraphLaunch")),
+        "kernels_per_step": len(kernels) / n if kernels else None,
+        "device_busy_ms_per_step": (busy_us(dev) / n / 1e3 if kernels
+                                    else None),
+    }
+    graph = sim._graph[1]
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(2):
+        graph.replay()
+    ev1.record()
+    torch.cuda.synchronize()
+    row["replay_ms_per_step"] = ev0.elapsed_time(ev1) / n
+    row["idle_share_of_replay"] = (
+        None if row["device_busy_ms_per_step"] is None
+        else 1.0 - row["device_busy_ms_per_step"] / row["replay_ms_per_step"])
+    del st, sim
+    return row
+
+
+def phase5_profile(virtual_secs: float, eager_step_ms: float) -> dict:
     """Phase 5's measurements (run as a child process of the script):
     torch.profiler over PROFILE_STEPS steady steps of the headline sweep —
     kernels per step, device busy time, idle share, top kernels — and the
@@ -885,16 +1086,7 @@ def phase5_profile(virtual_secs: float, head_step_ms: float) -> dict:
                 "launch_calls_per_step": launch_calls / PROFILE_STEPS,
                 "kernels_per_step": None}
     if kernels:
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in dev_events)
-        busy, cur_s, cur_e = 0.0, *spans[0]
-        for a, b in spans[1:]:
-            if a > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = a, b
-            else:
-                cur_e = max(cur_e, b)
-        busy += cur_e - cur_s
+        busy = busy_us(dev_events)
         by_name: dict = {}
         for e in kernels:
             t, n = by_name.get(e.name, (0.0, 0))
@@ -906,9 +1098,9 @@ def phase5_profile(virtual_secs: float, head_step_ms: float) -> dict:
             "kernels_per_step": len(kernels) / PROFILE_STEPS,
             "device_busy_ms_per_step": busy_ms,
             # the profiler slows the host; the unprofiled share compares
-            # the same device time with phase 4's step time
+            # the same device time with phase 4b's eager step time
             "idle_share": 1.0 - busy / window_us,
-            "idle_share_unprofiled": 1.0 - busy_ms / head_step_ms,
+            "idle_share_unprofiled": 1.0 - busy_ms / eager_step_ms,
             "top": [{"name": n[:120], "ms_per_step": t / PROFILE_STEPS / 1e3,
                      "count_per_step": c / PROFILE_STEPS}
                     for n, (t, c) in top],
@@ -943,6 +1135,11 @@ def phase5_profile(virtual_secs: float, head_step_ms: float) -> dict:
                            "step_ms": ms_fill}
     prof_out["fill_off"] = {"launch_calls_per_step": launches_nofill,
                             "step_ms": ms_nofill}
+    del st
+    spec, cfg = sim.spec, sim.config
+    del sim
+    prof_out["captured"] = {str(lanes): captured_profile(spec, cfg, lanes)
+                            for lanes in CAPTURE_AB_LANES}
     return prof_out
 
 
@@ -1017,7 +1214,7 @@ def phase7_storm(cuda) -> dict:
     sim = BatchedSim(spec, cfg, device=cuda)
     # a 10 s horizon takes ~1277 steps; the timed run and the 64-lane run
     # must fit the phase budget, else the horizon is cut (printed)
-    ms = probe(sim, STORM_LANES)[0]
+    ms = block_probe(sim, STORM_LANES)[0]
     est_s = 2 * 1277 * ms / 1e3
     cut = ""
     if est_s > PHASE7_BUDGET_S:
@@ -1092,7 +1289,7 @@ def phase8_workloads(cuda) -> dict:
         virtual_secs = 10.0
         wl = factories[name](virtual_secs=virtual_secs)
         sim = BatchedSim(wl.spec, wl.config, device=cuda)
-        ms = probe(sim, lanes)[0]
+        ms = block_probe(sim, lanes)[0]
         est_s = est_steps[name] * ms / 1e3
         # each run also spends ~5 s outside its timed sweep (probe, build,
         # summary), which the split keeps back
@@ -1190,7 +1387,7 @@ def phase9_membership(cuda) -> dict:
         virtual_secs = full_secs
         spec, cfg = phase9_workload(name, buggy, virtual_secs)
         sim = BatchedSim(spec, cfg, device=cuda)
-        ms, st = probe(sim, lanes)
+        ms, st = block_probe(sim, lanes)
         strag_pending = (None if st.strag is None
                          else int(st.strag.valid.sum()))
         del st
@@ -1232,7 +1429,7 @@ def phase9_membership(cuda) -> dict:
             "total_unsynced_loss": s["total_unsynced_loss"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "fires": fires, "probe_step_ms": ms,
-            "strag_pending_after_13_steps": strag_pending,
+            "strag_pending_after_96_steps": strag_pending,
         }
         dead = [k for k, n in fires.items() if n <= 0]
         check(not dead, f"{tag}: enabled kinds that never fired: {dead}")
@@ -1279,7 +1476,7 @@ def phase9_membership(cuda) -> dict:
                  f"{row['peak_mem_gib']:.2f} GiB; fires "
                  + (", ".join(f"{k} {n}" for k, n in fires.items())
                     or "none enabled")
-                 + (f"; {strag_pending} stragglers pending after 13 "
+                 + (f"; {strag_pending} stragglers pending after 96 "
                     "steps" if strag_pending is not None else "")
                  + extra)
         del st
@@ -2452,6 +2649,223 @@ def phase14_devloop(cuda, card: str, host: dict) -> dict:
     return out
 
 
+def rich_plan():
+    """CHAOS_PLAN with every message clause armed on top: Duplicate 0.1 and
+    Reorder 0.2 / 120 ms (tests/test_speclang.py:76-82's RICH_PLAN)."""
+    from madsim_tpu_torch import nemesis as nm
+    from madsim_tpu_torch.tpu.digest import CHAOS_PLAN
+
+    return nm.FaultPlan(name="speclang-rich", clauses=CHAOS_PLAN.clauses + (
+        nm.Duplicate(rate=0.1), nm.Reorder(rate=0.2, window_us=120_000),
+    ))
+
+
+def phase16_golden(cuda) -> dict:
+    """Phase 16(b), in phase 6's child process: twopc-gen's golden run at
+    GOLDEN["twopc"], and lease-gen under RICH_PLAN equal to the hand lease
+    on the card and to lease-gen on the CPU, leaf for leaf."""
+    from madsim_tpu_torch.nemesis import FIRE_INDEX
+    from madsim_tpu_torch.speclang.generated import (
+        lease_device, twopc_device,
+    )
+    from madsim_tpu_torch.tpu import BatchedSim, SimConfig, compile_plan
+    from madsim_tpu_torch.tpu import make_lease_spec
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.digest import (
+        GOLDEN, canonical_digest, golden_run,
+    )
+
+    _, cfg, seeds, steps = golden_run("twopc")
+    st, wall = timed_run(BatchedSim(twopc_device.make_spec(), cfg,
+                                    device=cuda), seeds, steps)
+    g = state_to_numpy(st)
+    check(bool((g["steps"] == steps).all()),
+          f"twopc-gen golden: the run did not take exactly {steps} steps")
+    dg = canonical_digest(g)
+    check(dg == GOLDEN["twopc"],
+          f"twopc-gen golden: card digest {dg} != GOLDEN {GOLDEN['twopc']}")
+    out = {"twopc_gen": {"lanes": len(seeds), "steps": steps, "card_s": wall,
+                         "digest": dg}}
+    phase(16, f"(b) twopc-gen golden: {len(seeds)} lanes x {steps} steps in "
+              f"{wall:.3f} s, digest {dg[:16]} == GOLDEN['twopc']")
+    rcfg = compile_plan(rich_plan(), SimConfig(horizon_us=30_000_000))
+    gen_st, gen_s = timed_run(BatchedSim(lease_device.make_spec(), rcfg,
+                                         device=cuda), seeds, steps)
+    gen = state_to_numpy(gen_st)
+    hand = state_to_numpy(BatchedSim(make_lease_spec(), rcfg,
+                                     device=cuda).run(seeds, steps))
+    cpu = state_to_numpy(BatchedSim(lease_device.make_spec(), rcfg,
+                                    device="cpu").run(seeds, steps))
+    for what, other in (("the hand lease on the card", hand),
+                        ("lease-gen on the CPU", cpu)):
+        bad = leaves_equal(gen, other)
+        check(not bad, f"lease-gen under RICH_PLAN differs from {what}: {bad}")
+    fires = {k: int(gen["fires"][:, FIRE_INDEX[k]].sum())
+             for k in ("dup", "reorder")}
+    check(min(fires.values()) > 0, f"lease-gen under RICH_PLAN: {fires}")
+    out["lease_gen"] = {"lanes": len(seeds), "steps": steps,
+                        "card_s": gen_s, "fires": fires}
+    phase(16, f"(b) lease-gen under RICH_PLAN: {len(seeds)} lanes x {steps} "
+              f"steps in {gen_s:.3f} s, {len(gen)} leaves equal the hand "
+              f"lease on the card and lease-gen on the CPU; dup "
+              f"{fires['dup']}, reorder {fires['reorder']}")
+    return out
+
+
+def phase16_speclang(cuda, card: str, work: str) -> dict:
+    """Phase 16, the speclang device face at full width: (a) `emit --check`
+    is clean; (c) twopc-gen and the hand twopc at 32768 lanes x 1 virtual s
+    give one canonical digest; (d) backup, correct and buggy, at
+    BACKUP_LANES x 5 nodes at its defaults (a horizon cut only when the
+    probe says a build would overrun BACKUP_BUDGET_S, never below
+    BACKUP_FLOOR, printed): the correct build never violates, the buggy
+    one on at least BACKUP_BUG_SHARE of its lanes, every enabled fire kind
+    fires, and seeds 0..63 equal a 64-lane CPU run in every leaf but
+    `key`; (e) the explorer over the buggy backup (the JAX deep test's: 64
+    lanes, one generation, one shrink) finds the bug, and its shrunk
+    bundle keeps Duplicate or Reorder. (b) runs in phase 6's child."""
+    from madsim_tpu_torch import explore, triage
+    from madsim_tpu_torch.speclang.__main__ import main as speclang_main
+    from madsim_tpu_torch.speclang.generated import (
+        backup_device, twopc_device,
+    )
+    from madsim_tpu_torch.tpu import BatchedSim, summarize, twopc_workload
+    from madsim_tpu_torch.tpu.convert import state_to_numpy
+    from madsim_tpu_torch.tpu.digest import canonical_digest
+    from madsim_tpu_torch.tpu.nemesis import enabled_fire_kinds
+
+    t_phase = time.perf_counter()
+    out = {}
+    # -- (a) the drift gate
+    check(speclang_main(["emit", "--check"]) == 0,
+          "speclang: `emit --check` found drift")
+    phase(16, "(a) `python -m madsim_tpu_torch.speclang emit --check`: clean")
+
+    # -- (c) twopc-gen against the hand twopc at full width
+    gen_wl = twopc_device.make_workload(virtual_secs=1.0)
+    hand_wl = twopc_workload(virtual_secs=1.0)
+    check(gen_wl.config.to_toml() == hand_wl.config.to_toml(),
+          "twopc-gen's config differs from the hand twopc's")
+    digests, walls = {}, {}
+    for what, wl in (("gen", gen_wl), ("hand", hand_wl)):
+        st, walls[what] = timed_run(BatchedSim(wl.spec, wl.config,
+                                               device=cuda),
+                                    range(LANES), MAX_STEPS)
+        check(bool(st.done.all()), f"twopc {what}: hit max_steps")
+        digests[what] = canonical_digest(state_to_numpy(st))
+        steps_run = int(st.steps.max())
+        del st
+    check(digests["gen"] == digests["hand"],
+          f"twopc-gen {digests['gen']} != hand twopc {digests['hand']} at "
+          f"{LANES} lanes")
+    out["twopc"] = {"lanes": LANES, "virtual_secs": 1.0,
+                    "steps_run": steps_run, "walls_s": walls,
+                    "digest": digests["gen"]}
+    phase(16, f"(c) twopc-gen / hand twopc, {LANES} lanes x 1 virtual s x "
+              f"{steps_run} steps: {walls['gen']:.3f} / {walls['hand']:.3f}"
+              f" s, one canonical digest {digests['gen'][:16]}")
+
+    # -- (d) backup at full width, correct and buggy
+    for buggy in (False, True):
+        tag = "buggy" if buggy else "correct"
+        full_secs = virtual_secs = 10.0
+        wl = backup_device.make_workload(buggy=buggy)
+        sim = BatchedSim(wl.spec, wl.config, device=cuda)
+        ms = block_probe(sim, BACKUP_LANES)[0]
+        est_s = BACKUP_EST_STEPS * ms / 1e3
+        cut = ""
+        if est_s > BACKUP_BUDGET_S:
+            virtual_secs = round(max(BACKUP_FLOOR[buggy],
+                                     BACKUP_BUDGET_S / est_s) * full_secs, 2)
+            cut = (f" (cut: virtual_secs {full_secs} -> {virtual_secs}; "
+                   f"{BACKUP_EST_STEPS} steps at {ms:.2f} ms/step were "
+                   f"estimated at {est_s:.0f} s)")
+            wl = backup_device.make_workload(buggy=buggy,
+                                             virtual_secs=virtual_secs)
+            sim = BatchedSim(wl.spec, wl.config, device=cuda)
+        st, wall = timed_run(sim, range(BACKUP_LANES), MAX_STEPS)
+        check(bool(st.done.all()), f"backup {tag}: hit max_steps")
+        s = summarize(st, wl.spec)
+        steps_run = int(st.steps.max())
+        kinds = enabled_fire_kinds(wl.config)
+        fires = {k: s[f"fires_{k}"] for k in kinds}
+        check(set(kinds) >= {"crash", "dup", "reorder"},
+              f"backup {tag}: enabled fire kinds {kinds}")
+        dead = [k for k, n in fires.items() if n <= 0]
+        check(not dead, f"backup {tag}: enabled kinds that never fired: "
+                        f"{dead}")
+        if buggy:
+            check(s["violations"] >= BACKUP_BUG_SHARE * BACKUP_LANES,
+                  f"backup buggy: violated on {s['violations']}/"
+                  f"{BACKUP_LANES} lanes, the JAX test demands >= "
+                  f"{BACKUP_BUG_SHARE:.4f}")
+        else:
+            check(s["violations"] == 0,
+                  f"backup correct: violated on {s['violations']} lanes "
+                  f"{s['violation_lanes']}")
+        big = state_to_numpy(first_lanes(st, SEEDS_SMALL))
+        del st, sim
+        small = state_to_numpy(BatchedSim(wl.spec, wl.config, device="cpu")
+                               .run(range(SEEDS_SMALL), MAX_STEPS))
+        del big["key"], small["key"]
+        bad = leaves_equal(big, small)
+        check(not bad, f"backup {tag}: seeds 0..{SEEDS_SMALL - 1} of the "
+                       f"card run differ from a {SEEDS_SMALL}-lane CPU run "
+                       f"in {bad}")
+        out[f"backup_{tag}"] = {
+            "lanes": BACKUP_LANES, "virtual_secs": virtual_secs,
+            "probe_step_ms": ms, "wall_s": wall, "steps_run": steps_run,
+            "step_ms": wall / steps_run * 1e3,
+            "seeds_per_sec": BACKUP_LANES / wall,
+            "violations": s["violations"], "fires": fires,
+            "total_overflow": s["total_overflow"],
+        }
+        phase(16, f"(d) backup {tag} {BACKUP_LANES} lanes x 5 nodes, "
+                  f"{virtual_secs} virtual s{cut}: "
+                  f"{BACKUP_LANES / wall:.1f} seeds/s, "
+                  f"{wall / steps_run * 1e3:.3f} ms/step x {steps_run} steps "
+                  f"({wall:.3f} s), violations {s['violations']}/"
+                  f"{BACKUP_LANES}, overflow {s['total_overflow']}; fires "
+                  + ", ".join(f"{k} {n}" for k, n in fires.items())
+                  + f"; {len(big)} leaves (all but key) of seeds "
+                  f"0..{SEEDS_SMALL - 1} equal a {SEEDS_SMALL}-lane CPU run")
+
+    # -- (e) the explorer finds the planted bug and ddmin keeps its axis
+    t0 = time.perf_counter()
+    bundles = os.path.join(work, "speclang-bundles")
+    ex = explore.Explorer(
+        backup_device.make_workload(buggy=True), meta_seed=0,
+        lanes=SPECLANG_EXPLORE_LANES, shrink_violations=True, max_shrinks=1,
+        shrink_kwargs={"out_dir": bundles}, device=cuda,
+    )
+    rep = ex.run(1)
+    wall = time.perf_counter() - t0
+    check(bool(rep.violations), f"speclang explorer: the planted stale-read "
+                                f"bug not found in {SPECLANG_EXPLORE_LANES} "
+                                "lanes")
+    shrunk = [v for v in rep.violations if v.get("bundle_path")]
+    check(bool(shrunk), "speclang explorer: no violation was shrunk")
+    bundle = triage.ReproBundle.load(shrunk[0]["bundle_path"])
+    kept = sorted({type(c).__name__
+                   for c in triage.plan_from_json(bundle.plan).clauses})
+    check(bundle.violation_step > 0 and bool(set(kept) & {"Duplicate",
+                                                          "Reorder"}),
+          f"speclang explorer: the shrunk plan {kept} lost the "
+          "message-clause axis the stale-read bug needs")
+    out["explore"] = {"lanes": SPECLANG_EXPLORE_LANES, "wall_s": wall,
+                      "violations": len(rep.violations),
+                      "seed": shrunk[0]["seed"],
+                      "violation_step": bundle.violation_step,
+                      "kept": kept, "fingerprint": rep.fingerprint()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(16, f"(e) explorer over the buggy backup, "
+              f"{SPECLANG_EXPLORE_LANES} lanes x 1 generation in "
+              f"{wall:.1f} s: {len(rep.violations)} violations, seed "
+              f"{shrunk[0]['seed']} shrunk to {kept} at step "
+              f"{bundle.violation_step} [{out['phase_s']:.0f} s in phase 16]")
+    return out
+
+
 def timed_calls_of(obj, name: str, calls: list, keep=None) -> None:
     """Wrap obj.<name> (a sim's method or a module's function) to record
     (result, synchronized wall seconds) of each call; `keep(result)`, when
@@ -2476,7 +2890,7 @@ if __name__ == "__main__":
                                         float(sys.argv[3]))), flush=True)
         sys.exit(0)
     if sys.argv[1:2] == [GOLDEN_FLAG]:
-        # phase 6's child process, fills off as in phases 7-15: its phase
+        # phase 6's child process, fills off as in phases 7-16: its phase
         # lines count seconds from its own start; its result is its last
         # stdout line
         import torch.utils.deterministic as tdet
@@ -2484,7 +2898,8 @@ if __name__ == "__main__":
         torch.use_deterministic_algorithms(True)
         tdet.fill_uninitialized_memory = False
         golden = phase6_golden(torch.device(CARD))
-        print(json.dumps({"golden": golden,
+        speclang = phase16_golden(torch.device(CARD))
+        print(json.dumps({"golden": golden, "speclang": speclang,
                           "wall_s": time.perf_counter() - T_START}),
               flush=True)
         sys.exit(0)

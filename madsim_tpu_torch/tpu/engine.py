@@ -60,6 +60,13 @@ jump, the dedup a sorted membership test and a rank scan
 (tests/test_torch_devloop.py holds it against a sequential transcription
 and the window against the JAX face).
 
+On a CUDA card, a sweep without a refill queue runs each block of
+DONE_CHECK_STEPS gated steps as one replay of a captured CUDA graph
+(`_run`): the JAX face compiles its whole loop into one program, and an
+eager step is ~2000 kernel launches. The graph is the same step ops on
+static buffers, so every leaf equals the eager loop's
+(tests/test_torch_cuda.py holds them equal on the card).
+
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
 """
@@ -1199,6 +1206,12 @@ class BatchedSim:
         # counts its own XLA programs, so the two counts differ)
         self.dispatch_count = 0
         self.step = self._step
+        # `_run`'s captured block of DONE_CHECK_STEPS gated steps (CUDA
+        # sims): (layout key, CUDAGraph, static state) for the newest state
+        # layout only, since a graph holds its memory pool while it lives.
+        # `_eager_run` runs the eager loop instead (for A/B comparisons)
+        self._graph = None
+        self._eager_run = False
 
     # ------------------------------------------------------------------ init
 
@@ -1579,6 +1592,7 @@ class BatchedSim:
                 node_ids == restart_node[:, None]
             )
             ns_r, timer_r = spec.on_restart(node0, node_ids, t_next, rkeys)
+            timer_r = timer_r.to(i32)
             if cfg.nem_crash_enabled and cfg.nem_crash_wipe_rate > 0:
                 # crash-with-state-wipe: the marked node restarts from
                 # `init`, its absolute time fields and first timer shifted
@@ -1611,7 +1625,10 @@ class BatchedSim:
                     lambda old, e: torch.where(expand_to(evt, old), e, old),
                     node0, ns_e,
                 )
-            timer_m = timer_t = timer_e
+            # deadlines are int32, as on the JAX face (a handler's Python
+            # int constants can promote its arithmetic to int64; the cast
+            # wraps as the JAX face's int32 arithmetic does)
+            timer_m = timer_t = timer_e.to(i32)
         else:
             # both handlers run for every node; a 3-way select keeps the
             # one whose event fired (or the restart)
@@ -1620,6 +1637,7 @@ class BatchedSim:
                 node0, node_ids, m_src, m_kind, m_pay, t_evt, mkeys
             )
             ns_t, out_t, timer_t = spec.on_timer(node0, node_ids, t_evt, tkeys)
+            timer_m, timer_t = timer_m.to(i32), timer_t.to(i32)
 
             def merge(old, m, t, r=None):
                 out = torch.where(
@@ -1645,7 +1663,7 @@ class BatchedSim:
                 return torch.where(ok, stretched, deadline)
 
             if self._fused:
-                timer_m = timer_t = skew_deadline(timer_e, t_evt)
+                timer_m = timer_t = skew_deadline(timer_m, t_evt)
             else:
                 timer_m = skew_deadline(timer_m, t_evt)
                 timer_t = skew_deadline(timer_t, t_evt)
@@ -2982,16 +3000,98 @@ class BatchedSim:
     def _run(self, state: SimState, max_steps: int) -> SimState:
         """Step until every lane is done or `max_steps` steps ran: the JAX
         face's while-loop, with the all-done flag read every
-        DONE_CHECK_STEPS steps (gated steps past it are no-ops)."""
+        DONE_CHECK_STEPS steps (gated steps past it are no-ops). On a CUDA
+        sim a full block is one replay of the captured block
+        (`_block_graph`) and a shorter tail runs eagerly; refill and
+        device-loop states, whose steps read the host, always run eagerly.
+        The returned state never aliases the graph's buffers."""
+        captured = (
+            self.device.type == "cuda" and not self._eager_run
+            and state.refill is None and state.loop is None
+        )
+        graph = static = None
         i = 0
         while i < max_steps:
             k = min(DONE_CHECK_STEPS, max_steps - i)
-            for _ in range(k):
-                state = self._step(state, gate_key=True)
+            if captured and k == DONE_CHECK_STEPS:
+                if graph is None:
+                    graph, static = self._block_graph(state)
+                    for dst, src in zip(tree_leaves(static),
+                                        tree_leaves(state)):
+                        dst.copy_(src)
+                graph.replay()
+                state = static
+            else:
+                for _ in range(k):
+                    state = self._step(state, gate_key=True)
             i += k
             if bool(state.done.all()):
                 break
+        if graph is not None:
+            # a later run replays into `static`; an eager tail's pass-through
+            # leaves are static's own tensors
+            state = tree_map(torch.clone, state)
         return state
+
+    def _block_graph(self, state: SimState):
+        """(CUDAGraph, static state) of DONE_CHECK_STEPS gated steps over
+        `state`'s layout: the graph reads the static state and writes the
+        last step's leaves back into it, so replays chain on the card. It
+        is captured once per layout (leaf shapes and dtypes, which planes
+        are present) and deterministic-mode setting, after a warm-up on a
+        side stream; a failed capture raises."""
+        import gc
+
+        import torch.utils.deterministic as tdet
+
+        key = (_layout(state), torch.are_deterministic_algorithms_enabled(),
+               tdet.fill_uninitialized_memory)
+        if self._graph is not None and self._graph[0] == key:
+            return self._graph[1], self._graph[2]
+        self._graph = None  # release the previous layout's pool first
+        static = tree_map(torch.clone, state)
+        dev_stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(dev_stream)
+        with torch.cuda.stream(side):
+            warm = static
+            for _ in range(2):
+                warm = self._step(warm, gate_key=True)
+            del warm
+        dev_stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # a dead sim (a sim is a reference cycle) collected mid-capture
+        # would free its graph inside this capture, which CUDA refuses and
+        # which ends the capture: no cyclic collection while capturing
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = static
+                for _ in range(DONE_CHECK_STEPS):
+                    out = self._step(out, gate_key=True)
+                if _layout(out) != key[0]:
+                    raise RuntimeError(
+                        "the captured step changed the state's layout"
+                    )
+                dst_leaves = tree_leaves(static)
+                held = {t.untyped_storage().data_ptr() for t in dst_leaves}
+                # an output that views a static buffer other than its own
+                # is copied out before any write-back
+                src_leaves = [
+                    s if s is d or s.untyped_storage().data_ptr() not in held
+                    else s.clone()
+                    for d, s in zip(dst_leaves, tree_leaves(out))
+                ]
+                for d, s in zip(dst_leaves, src_leaves):
+                    if s is not d:
+                        d.copy_(s)
+                del out, src_leaves
+        finally:
+            if gc_on:
+                gc.enable()
+        self._graph = (key, graph, static)
+        return graph, static
 
     def run(
         self, seeds, max_steps: int = 100_000,
@@ -3096,6 +3196,16 @@ class BatchedSim:
         return state._replace(key=torch.as_tensor(
             np.asarray(keys, np.int64), device=self.device
         )), recs
+
+
+def _layout(tree):
+    """The structure of a state: None, a tuple of its fields' layouts, or a
+    tensor's (shape, dtype)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return tuple(_layout(x) for x in tree)
+    return (tuple(tree.shape), tree.dtype)
 
 
 def abs_time_us(state: SimState) -> np.ndarray:

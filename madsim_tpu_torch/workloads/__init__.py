@@ -6,12 +6,13 @@ factory; the explorer CLI (`python -m madsim_tpu_torch.explore
 --workload <name>`) and any later consumer read the rows here instead of
 keeping private lists.
 
-The port has rows for the eight hand-written workloads, pointing at
-`madsim_tpu_torch.tpu.<x>`. None ships a host face (`host_module=None`):
-the host runtime is not part of the port (ROADMAP.md queue 1, item 16).
-The speclang-generated rows (`twopc-gen`, `lease-gen`, `backup`) wait for
-the speclang device face (item 13). `names(explorable=True)` is the JAX
-registry's hand-written explorable set; wal stays unexplorable, as there.
+The port has the JAX registry's rows, field for field: the eight
+hand-written workloads, pointing at `madsim_tpu_torch.tpu.<x>`, and the
+three speclang-generated ones (`twopc-gen`, `lease-gen`, `backup`),
+pointing at the device modules that `python -m madsim_tpu_torch.speclang
+emit` writes into `madsim_tpu_torch/speclang/generated/`. None ships a
+host face (`host_module=None`): the host runtime is not part of the port
+(ROADMAP.md queue 1, item 16). wal stays unexplorable, as there.
 
 Entries hold dotted module paths and attribute names, resolved on first
 use, so importing this package imports no workload module.
@@ -44,7 +45,7 @@ class WorkloadEntry:
     explorable: bool = True
     # analysis target (static analysis is a later slice, item 15)
     analysis: bool = True
-    # emitted by speclang from a spec source (item 13)
+    # emitted by speclang from a spec source (`source_module` names it)
     generated: bool = False
     source_module: Optional[str] = None
     # optional tune SpecKnob hook on `module`
@@ -52,6 +53,8 @@ class WorkloadEntry:
 
 
 _TPU = "madsim_tpu_torch.tpu"
+_GEN = "madsim_tpu_torch.speclang.generated"
+_SRC = "madsim_tpu_torch.speclang.specs"
 
 ENTRIES: Tuple[WorkloadEntry, ...] = (
     WorkloadEntry("raft", f"{_TPU}.raft", "make_raft_spec", "raft_workload",
@@ -71,6 +74,16 @@ ENTRIES: Tuple[WorkloadEntry, ...] = (
     # (as on the JAX face)
     WorkloadEntry("wal", f"{_TPU}.wal", "make_wal_spec", "wal_workload",
                   explorable=False),
+    # --- speclang-generated (one spec source, the device face emitted) ---
+    WorkloadEntry("twopc-gen", f"{_GEN}.twopc_device", "make_spec",
+                  "make_workload", generated=True,
+                  source_module=f"{_SRC}.twopc", knobs_attr="spec_knobs"),
+    WorkloadEntry("lease-gen", f"{_GEN}.lease_device", "make_spec",
+                  "make_workload", generated=True,
+                  source_module=f"{_SRC}.lease"),
+    WorkloadEntry("backup", f"{_GEN}.backup_device", "make_spec",
+                  "make_workload", generated=True,
+                  source_module=f"{_SRC}.backup"),
 )
 
 _BY_NAME: Dict[str, WorkloadEntry] = {e.name: e for e in ENTRIES}

@@ -237,3 +237,83 @@ def test_card_campaign_kill_resume_reaches_pinned_fingerprint(cuda_device,
     assert resumed.generation == 1
     rep = resumed.run(EXPLORE_GENERATIONS - 1)
     assert rep.fingerprint() == PINNED_EXPLORE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_steps", [32, 95, 8000])
+def test_captured_run_equals_eager_run(cuda_device, max_steps):
+    """`_run`'s captured blocks (a CUDA graph per 32 gated steps, an eager
+    tail) against the eager loop on the same card, 64 lanes: every leaf
+    and the dispatch count equal."""
+    spec, cfg, seeds, _ = pinned_run("raft_bench")
+    captured = BatchedSim(spec, cfg, device=cuda_device)
+    eager = BatchedSim(spec, cfg, device=cuda_device)
+    eager._eager_run = True
+    got = state_to_numpy(captured.run(seeds, max_steps))
+    want = state_to_numpy(eager.run(seeds, max_steps))
+    assert captured._graph is not None and eager._graph is None
+    assert captured.dispatch_count == eager.dispatch_count
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_second_captured_run_leaves_the_first_result_unchanged(cuda_device):
+    from madsim_tpu_torch.tpu.spec import tree_leaves
+
+    spec, cfg, seeds, _ = pinned_run("raft_bench")
+    sim = BatchedSim(spec, cfg, device=cuda_device)
+    first = sim.run(seeds, 95)
+    before = state_to_numpy(first)
+    second = sim.run(seeds[::-1], 95)
+    after = state_to_numpy(first)
+    for k in before:
+        np.testing.assert_array_equal(after[k], before[k], err_msg=k)
+    held = {t.untyped_storage().data_ptr() for t in tree_leaves(first)}
+    assert not held & {t.untyped_storage().data_ptr()
+                       for t in tree_leaves(second)}
+    eager = BatchedSim(spec, cfg, device=cuda_device)
+    eager._eager_run = True
+    want = state_to_numpy(eager.run(seeds[::-1], 95))
+    got = state_to_numpy(second)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_generated_twopc_on_the_card_matches_golden_digest(cuda_device):
+    from madsim_tpu_torch.speclang.generated import twopc_device
+    from madsim_tpu_torch.tpu.digest import GOLDEN, golden_run
+
+    _, cfg, seeds, steps = golden_run("twopc")
+    st = BatchedSim(twopc_device.make_spec(), cfg,
+                    device=cuda_device).run(seeds, steps)
+    assert canonical_digest(state_to_numpy(st)) == GOLDEN["twopc"]
+
+
+@pytest.mark.cuda
+def test_no_cyclic_collection_inside_a_capture(cuda_device):
+    """A sim is a reference cycle, so a dropped sim and its graph are
+    freed by the cyclic collector, whenever it runs; freeing a graph
+    inside another sim's capture ends that capture (CUDA refuses it). The
+    collector is off for exactly the 32 captured steps, and on again
+    after."""
+    import gc
+
+    spec, cfg, seeds, _ = pinned_run("raft_bench")
+    sim = BatchedSim(spec, cfg, device=cuda_device)
+    seen = []
+    inner = sim._step
+
+    def step(state, gate_key=False, record=False):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return inner(state, gate_key=gate_key, record=record)
+
+    sim._step = step
+    sim.run(seeds, 95)
+    assert gc.isenabled()
+    inside = [on for capturing, on in seen if capturing]
+    assert len(inside) == 32 and not any(inside)
+    assert all(on for capturing, on in seen if not capturing)

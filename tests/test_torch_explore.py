@@ -24,8 +24,8 @@ The same inputs go through both faces on the CPU:
     are refused with their ROADMAP items (the device loop is
     tests/test_torch_devloop.py's, the federation and the CLI's
     `--islands` and `--out` tests/test_torch_campaign.py's); the
-    registry's rows and `names(explorable=True)` are the JAX registry's
-    hand-written ones.
+    registry's rows are the JAX registry's, the speclang-generated ones
+    included, each without a host face.
 
 Tolerances: exact everywhere (integers, float32 bit patterns, bitmaps and
 JSON byte for byte).
@@ -318,26 +318,30 @@ def test_unported_explorer_options_are_refused(call, item):
 
 
 def test_registry_rows_equal_the_jax_registry(capsys):
-    hand = jreg.names(generated=False)
-    assert reg.names() == hand
-    assert reg.names(explorable=True) == jreg.names(explorable=True,
-                                                    generated=False)
+    """Every row of the JAX registry, the speclang-generated ones
+    included, field for field, with the port's module paths and no host
+    face."""
+    assert reg.names() == jreg.names()
+    for flags in (dict(explorable=True), dict(tunable=True),
+                  dict(oracle_twin=True), dict(analysis=True),
+                  dict(generated=True), dict(generated=False)):
+        assert reg.names(**flags) == jreg.names(**flags), flags
     assert "wal" not in reg.names(explorable=True)
-    for flags in (dict(tunable=True), dict(oracle_twin=True),
-                  dict(analysis=True), dict(generated=True)):
-        assert reg.names(**flags) == tuple(
-            n for n in jreg.names(**flags) if n in hand), flags
-    for name in hand:
+    def port(module):
+        return module and module.replace("madsim_tpu.", "madsim_tpu_torch.",
+                                         1)
+
+    for name in jreg.names():
         e, je = reg.get(name), jreg.get(name)
-        assert e.module == je.module.replace("madsim_tpu.", "madsim_tpu_torch.")
-        assert (e.spec_attr, e.workload_attr) == (je.spec_attr,
-                                                  je.workload_attr)
-        assert e.host_module is None
+        assert dataclasses.asdict(e) == dataclasses.asdict(je) | {
+            "module": port(je.module), "host_module": None,
+            "source_module": port(je.source_module),
+        }, name
         assert reg.spec_factory(name).__module__ == e.module
         with pytest.raises(KeyError, match="host twin"):
             reg.host_fuzz(name)
     with pytest.raises(KeyError, match="unknown workload"):
-        reg.get("backup")
+        reg.get("nonesuch")
     # the CLI's named workload: the JAX face's config, storm plan included
     for storm in (False, True):
         wl = explore._named_workload("raft", 0.5, storm)

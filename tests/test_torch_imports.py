@@ -56,6 +56,10 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert len(seen) >= 10
     assert {os.path.join("madsim_tpu_torch", f) for f in (
         "telemetry.py", "explore.py", os.path.join("workloads", "__init__.py"),
+        os.path.join("speclang", "lang.py"),
+        os.path.join("speclang", "device.py"),
+        os.path.join("speclang", "specs", "backup.py"),
+        os.path.join("speclang", "generated", "backup_device.py"),
     )} <= seen
 
 
@@ -63,7 +67,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys; import madsim_tpu_torch.tpu, madsim_tpu_torch.tpu.digest, "
         "madsim_tpu_torch.tpu.convert, madsim_tpu_torch.telemetry, "
-        "madsim_tpu_torch.explore, madsim_tpu_torch.workloads; "
+        "madsim_tpu_torch.explore, madsim_tpu_torch.workloads, "
+        "madsim_tpu_torch.speclang.emit; "
         "from madsim_tpu_torch import workloads; "
         "[workloads.workload_factory(n) for n in workloads.names()]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
