@@ -10,8 +10,8 @@ workloads, the membership, durability and straggler paths with their
 workloads, the triage path (trace, shrink, replay), and continuous
 batching with the coverage plane, the causal-lineage plane, the telemetry
 plane, the coverage-guided explorer and its device-resident search loop,
-campaigns and the island federation, and the speclang device face — and
-checks it, in sixteen phases. Every sweep without a refill queue runs
+campaigns and the island federation, the speclang device face, measured
+tuning and the fuzz service — and checks it, in seventeen phases. Every sweep without a refill queue runs
 `BatchedSim._run`'s captured blocks (one CUDA graph replay per 32 gated
 steps), so the pins and digests of phases 2, 4 and 6-9 are the capture's
 correctness gate too:
@@ -186,7 +186,32 @@ correctness gate too:
    0..63 equal a 64-lane CPU run in every leaf but `key`; (e) the explorer
    over the buggy backup (64 lanes, one generation, one shrink) finds the
    bug, and its shrunk bundle keeps Duplicate or Reorder. Phase 9's end
-   moves earlier by PHASE16_BUDGET_S to pay for it.
+   moves earlier by PHASE16_BUDGET_S to pay for it;
+17. measured tuning and the fuzz service (after phase 16, before phase
+   8): (a) `tune.tune_workload` over the registry's raft at 2 virtual s,
+   4096 seeds, the quick Tier-A grid, into a fresh cache directory: its
+   trials, winner, fallback, baseline and tuned seeds/s and cache key are
+   printed; the entry's device kind is the card's sanitized name,
+   `load_tuned` finds it, and no timed trial captured a graph (captures
+   counted around every trial's timed rep); (b) `run_batch` over the
+   same seeds under `tuning="auto"` (that cache), under a forced {chunk
+   1024, dispatch_steps 5000, pipeline off} and under {refill_lanes
+   1024}: every seed's violated / deadlocked / violation-step row equals
+   the default run's (and its step count, on the chunked paths), and
+   seeds 0..63 equal a 64-lane CPU run; (c) the Tier-B gate's legs 1-2
+   (engine acceptance, zero overflow and saturation) reject the planted
+   pool budget (msg_capacity 8) for overflow and pass the shipped config
+   at 48 seeds, with the CPU's reasons and summaries; (d)
+   `campaign.serve(oracle=False)` on the card over a watch dir with two
+   requests at `EXPLORE_RUN`'s size for 2 generations, one slice each per
+   round: the pinned explorer run ("planted", under "tuning": "auto" with
+   a card entry for its scale) and the registry's raft at 1 virtual s;
+   stopped after round 1 and restarted on the same dir: "planted" ends
+   at `PINNED_EXPLORE`, under its persisted tuning, and raft at the final
+   fingerprint of an uninterrupted CPU serve of the same request. Phase
+   9's end moves earlier by PHASE17_BUDGET_S to pay for it, and later by
+   PHASE9_SLACK_S, the slack the runs before phase 17 left below 1150 s;
+   its horizons are printed.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -283,15 +308,25 @@ PHASE15_BUDGET_S = 45.0
 # phase 16 (the speclang device face: full-width twopc-gen and backup, the
 # explorer on the buggy backup) buys its time from phase 9 the same way
 PHASE16_BUDGET_S = 120.0
+# phase 17 (measured tuning and the fuzz service) buys its time from phase
+# 9 the same way (its 4096-admission refill sweep steps eagerly, ~35 ms an
+# iteration)
+PHASE17_BUDGET_S = 110.0
+# before phase 17, five runs on one H100 ended at 884.0-973.6 s with
+# phase 9 at its floors, ending ~90 s past the anchor below: those 90 s
+# and the 176 s the slowest run left below 1150 s go back to phase 9,
+# toward its full horizons
+PHASE9_SLACK_S = 265.0
 # phase 6 runs in a child process beside phases 2 and 3 and phase 9's
 # parity runs (all correctness checks: the card is launch-bound and idle
 # most of each step, so two processes share it), which the anchor below
 # was set without: the overlap moves phase 9's start earlier by about
 # this much
 PHASE6_OVERLAP_S = 120.0
-PHASE9_END_S = (984.0 - PHASE10_BUDGET_S - PHASE11_BUDGET_S
-                - PHASE13_BUDGET_S - PHASE14_BUDGET_S - PHASE15_BUDGET_S
-                - PHASE16_BUDGET_S - PHASE6_OVERLAP_S)
+PHASE9_END_S = (984.0 + PHASE9_SLACK_S - PHASE10_BUDGET_S
+                - PHASE11_BUDGET_S - PHASE13_BUDGET_S - PHASE14_BUDGET_S
+                - PHASE15_BUDGET_S - PHASE16_BUDGET_S - PHASE17_BUDGET_S
+                - PHASE6_OVERLAP_S)
 # the least share of its horizon a phase-9 cell may be cut to: the buggy
 # cells keep half (the JAX face's bug shares were measured there), the
 # correct cells' gates (no violation, every enabled kind fires) are
@@ -360,6 +395,23 @@ BACKUP_BUG_SHARE = 5 / 64
 # phase 16(e): the explorer's lanes over the buggy backup (the JAX deep
 # test's, tests/test_speclang.py:251-276)
 SPECLANG_EXPLORE_LANES = 64
+# phase 17: the Tier-A tune's sweep (the registry's raft at TUNE_SECS
+# virtual seconds, TUNE_SEEDS seeds, the quick grid), the forced Tier-A
+# assignments run beside its cache hit, the Tier-B gate's seeds (the JAX
+# test's, tests/test_tune.py:426-440), and serve's requests: the pinned
+# explorer run (as "planted", on explore_workload) and the registry's raft
+# at SERVE_SECS, both at EXPLORE_RUN's size for SERVE_GENERATIONS
+TUNE_SEEDS = 4096
+TUNE_SECS = 2.0
+TUNE_FORCED = {"forced": {"chunk": 1024, "dispatch_steps": 5000,
+                          "pipeline": False},
+               "refill": {"refill_lanes": 1024}}
+GATE_SEEDS = 48
+SERVE_SECS = 1.0
+SERVE_GENERATIONS = 2
+# the tuned-cache entry phase 17(d) writes for its "planted" request's
+# scale (16 lanes): a hit for the card, so the request runs tuned
+SERVE_TUNED = {"refill_lanes": 8, "dispatch_steps": 5000, "pipeline": False}
 # the whole script must end well inside the 1200 s the card run allows;
 # phase 8 (run last) splits what is left of this target across its runs
 TARGET_S = 1050.0
@@ -772,7 +824,7 @@ def phases_2_3(cuda, report: dict) -> dict:
 
 def phase_4_5_on(cuda, report: dict, small: dict, card: str,
                  parity: dict) -> None:
-    """Phases 4, 5, 7, 9-15 and 8, in that order, into `report`."""
+    """Phases 4, 5, 7, 9-17 and 8, in that order, into `report`."""
     from madsim_tpu_torch.tpu import BatchedSim, summarize
     from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
 
@@ -912,6 +964,7 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
             cuda, card, {**host13, "row": report["explore"]["wide"]})
         report["campaigns"] = phase15_campaigns(cuda, card, host13["dirs"])
         report["speclang"] = phase16_speclang(cuda, card, work)
+        report["tune_serve"] = phase17_tune_serve(cuda, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["workloads"] = phase8_workloads(cuda)
@@ -1480,6 +1533,10 @@ def phase9_membership(cuda) -> dict:
                     "steps" if strag_pending is not None else "")
                  + extra)
         del st
+    phase(9, "horizons (virtual s, of the full): " + ", ".join(
+        f"{tag} {row['virtual_secs']}/{full}" for (tag, row), full in zip(
+            out.items(), [secs for _, _, *h in MEMBERSHIP for secs in h]))
+        + f"; anchor PHASE9_END_S {PHASE9_END_S:.0f} s")
     return out
 
 
@@ -2863,6 +2920,252 @@ def phase16_speclang(cuda, card: str, work: str) -> dict:
               f"{wall:.1f} s: {len(rep.violations)} violations, seed "
               f"{shrunk[0]['seed']} shrunk to {kept} at step "
               f"{bundle.violation_step} [{out['phase_s']:.0f} s in phase 16]")
+    return out
+
+
+def card_kind(index: int = 0) -> str:
+    """The card's name as the tuned cache keys it (`tune.device_kind`)."""
+    return "".join(c if c.isalnum() else "_"
+                   for c in torch.cuda.get_device_name(index))
+
+
+def count_captures(sim_cls, counter: list):
+    """Wrap `sim_cls._block_graph` to add one to counter[0] per CUDA graph
+    it captures (the sim's graph slot changing); returns the undo."""
+    inner = sim_cls._block_graph
+
+    def counted(self, state):
+        before = self._graph
+        out = inner(self, state)
+        if self._graph is not before:
+            counter[0] += 1
+        return out
+
+    sim_cls._block_graph = counted
+    return lambda: setattr(sim_cls, "_block_graph", inner)
+
+
+def phase17_tune_serve(cuda, card: str, work: str) -> dict:
+    """Phase 17, measured tuning and the fuzz service on the card: (a) the
+    Tier-A tune, every timed trial's graph captures counted; (b) the tuned
+    sweeps' rows against the default's and the CPU's; (c) the Tier-B
+    gate's legs 1-2 against the CPU's; (d) serve stopped and restarted,
+    against PINNED_EXPLORE and an uninterrupted CPU serve."""
+    import dataclasses
+
+    from madsim_tpu_torch import campaign, tune
+    from madsim_tpu_torch.explore import _named_workload
+    from madsim_tpu_torch.tpu import BatchedSim, raft_workload
+    from madsim_tpu_torch.tpu.batch import run_batch
+    from madsim_tpu_torch.tpu.digest import EXPLORE_RUN, PINNED_EXPLORE
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    cache = os.path.join(work, "tuned")
+    prev_cache = os.environ.get("MADSIM_TUNED_DIR")
+    os.environ["MADSIM_TUNED_DIR"] = cache
+    try:
+        # -- (a) Tier A on the card, no capture inside a timed trial
+        wl = _named_workload("raft", TUNE_SECS, False)
+        captures, timed = [0], []
+        inner_timer = tune.SweepTimer
+
+        def timer(run, **kw):
+            def counted(assign, rep):
+                before = captures[0]
+                res = run(assign, rep)
+                if rep != 0:  # SweepTimer's warm rep is rep 0
+                    timed.append(captures[0] - before)
+                return res
+            return inner_timer(counted, **kw)
+
+        undo = count_captures(BatchedSim, captures)
+        tune.SweepTimer = timer
+        trial_lines: list = []
+        t0 = time.perf_counter()
+        try:
+            entry = tune.tune_workload(
+                wl, "raft", lanes=TUNE_SEEDS, quick=True, cache_dir=cache,
+                log=trial_lines.append, device=cuda)
+        finally:
+            tune.SweepTimer = inner_timer
+            undo()
+        tune_s = time.perf_counter() - t0
+        check(entry.device_kind == card_kind(),
+              f"tune: entry device kind {entry.device_kind!r} is not the "
+              f"card's {card_kind()!r}")
+        check(tune.load_tuned(wl.spec.name, wl.config, TUNE_SEEDS, dir=cache,
+                              device=cuda) == entry,
+              "tune: load_tuned does not find the entry it wrote")
+        check(len(timed) == entry.trials,
+              f"tune: {len(timed)} timed reps for {entry.trials} trials")
+        check(sum(timed) == 0 and captures[0] > 0,
+              f"tune: timed trials captured {sum(timed)} graphs "
+              f"({captures[0]} captures in all)")
+        out["tune"] = {"seeds": TUNE_SEEDS, "virtual_secs": TUNE_SECS,
+                       "wall_s": tune_s, "entry": entry.to_doc(),
+                       "key": entry.key(), "trial_lines": trial_lines,
+                       "captures": captures[0], "timed_captures": sum(timed)}
+        phase(17, f"(a) Tier-A tune of raft5, {TUNE_SEEDS} seeds x "
+                  f"{TUNE_SECS} virtual s, quick grid, in {tune_s:.1f} s: "
+                  f"{entry.trials} trials ("
+                  + "; ".join(x.replace("[tune] ", "") for x in trial_lines)
+                  + f"); winner {entry.dispatch or 'the defaults'}, fallback "
+                  f"{entry.fallback}, baseline {entry.baseline_seeds_per_sec}"
+                  f" / tuned {entry.tuned_seeds_per_sec} seeds/s; key "
+                  f"{entry.key()}; {captures[0]} graph captures, none inside "
+                  f"a timed trial; {card}")
+
+        # -- (b) the tuned sweeps' rows on the card
+        rows = ("violated", "deadlocked", "violation_step")
+        sim = BatchedSim(wl.spec, wl.config, device=cuda)
+        walls = {}
+
+        def sweep(what, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run_batch(range(TUNE_SEEDS), wl, sim=sim, max_traces=0,
+                            repro_on_host=False, **kw)
+            walls[what] = time.perf_counter() - t
+            return res
+
+        base = sweep("default")
+        for what, tuning in (("auto", "auto"), *TUNE_FORCED.items()):
+            res = sweep(what, tuning=tuning)
+            for k in rows:
+                check(np.array_equal(getattr(res, k), getattr(base, k)),
+                      f"tuned sweep {what}: {k} differs from the default's")
+            if "refill_lanes" not in tune.resolve_tuning(
+                    tuning, wl.spec.name, wl.config, TUNE_SEEDS, device=cuda):
+                check(np.array_equal(res.retired_step, base.retired_step),
+                      f"tuned sweep {what}: step counts differ")
+        cpu = run_batch(range(SEEDS_SMALL), wl, device="cpu", max_traces=0,
+                        repro_on_host=False)
+        for k in rows + ("retired_step",):
+            check(np.array_equal(getattr(base, k)[:SEEDS_SMALL],
+                                 getattr(cpu, k)),
+                  f"tuned sweeps: seeds 0..{SEEDS_SMALL - 1} differ from the "
+                  f"CPU in {k}")
+        out["sweeps"] = {"walls_s": walls,
+                         "violations": int(base.violated.sum())}
+        phase(17, f"(b) {TUNE_SEEDS}-seed sweeps default / auto / "
+                  + " / ".join(f"{k} {v}" for k, v in TUNE_FORCED.items())
+                  + ": " + " / ".join(f"{w:.2f}" for w in walls.values())
+                  + f" s; every seed's rows equal, violations "
+                  f"{int(base.violated.sum())}; seeds 0..{SEEDS_SMALL - 1} "
+                  "equal a CPU run")
+
+        # -- (c) the Tier-B gate's legs 1-2, card against CPU
+        gwl = dataclasses.replace(raft_workload(virtual_secs=0.5),
+                                  host_repro=None)
+        planted = dataclasses.replace(gwl.config, msg_capacity=8,
+                                      msg_depth_msg=None)
+        gates = {}
+        for what, cfg in (("planted", planted), ("shipped", gwl.config)):
+            g = tune.tier_b_gate(gwl, cfg, seeds=GATE_SEEDS, certify=False,
+                                 device=cuda)
+            c = tune.tier_b_gate(gwl, cfg, seeds=GATE_SEEDS, certify=False,
+                                 device="cpu")
+            check(g == c, f"Tier-B gate {what}: card {g} != CPU {c}")
+            gates[what] = g
+        check(not gates["planted"]["ok"] and any(
+            "overflow" in r for r in gates["planted"]["reasons"]),
+            f"Tier-B gate: the planted config passed: {gates['planted']}")
+        check(gates["shipped"]["ok"],
+              f"Tier-B gate: the shipped config failed: {gates['shipped']}")
+        out["gate"] = gates
+        phase(17, f"(c) Tier-B gate legs 1-2 at {GATE_SEEDS} seeds, card = "
+                  f"CPU: planted msg_capacity 8 rejected "
+                  f"({gates['planted']['reasons'][0][:60]}...), shipped "
+                  f"config passes (overflow "
+                  f"{gates['shipped']['summary']['total_overflow']})")
+
+        # -- (d) serve on the card, stopped after round 1 and restarted
+        pwl = explore_workload()
+        tune.TunedEntry(
+            device_kind=card_kind(), workload=pwl.spec.name,
+            config_hash=tune.config_hash_sans_tier_b(pwl.config),
+            lane_bucket=tune.lane_bucket(EXPLORE_RUN["lanes"]),
+            dispatch=dict(SERVE_TUNED),
+        ).save(cache)
+        size = {k: EXPLORE_RUN[k] for k in ("meta_seed", "lanes", "chunk")}
+        requests = {
+            "planted": dict(size, workload="planted", tuning="auto",
+                            generations=SERVE_GENERATIONS, shrink=False),
+            "raft": dict(size, workload="raft", virtual_secs=SERVE_SECS,
+                         generations=SERVE_GENERATIONS, shrink=False),
+        }
+
+        def serve_on(device, d, **kw):
+            def factory(request, campaign_dir, regression_dir, log):
+                if request["workload"] != "planted":
+                    return campaign._default_factory(
+                        request, campaign_dir, regression_dir, log,
+                        device=device)
+                if os.path.exists(os.path.join(campaign_dir,
+                                               campaign.MANIFEST)):
+                    return campaign.Campaign.resume(
+                        campaign_dir, workload=pwl, device=device,
+                        regression_dir=regression_dir)
+                return campaign.Campaign(
+                    pwl, campaign_dir, campaign_id=request["id"],
+                    shrink=False, regression_dir=regression_dir,
+                    tuning=request["tuning"], device=device, **size)
+
+            lines: list = []
+            campaign.serve(d, out=lambda x: lines.append(json.loads(x)),
+                           factory=factory, sleep=lambda x: None,
+                           oracle=False, device=device, **kw)
+            return [x for x in lines if "fingerprint" in x]
+
+        svc = os.path.join(work, "serve")
+        for name, req in requests.items():
+            os.makedirs(os.path.join(svc, "queue"), exist_ok=True)
+            with open(os.path.join(svc, "queue", f"{name}.json"), "w") as f:
+                json.dump(req, f)
+        t0 = time.perf_counter()
+        first = serve_on(cuda, svc, max_rounds=1)
+        check(sorted(os.listdir(os.path.join(svc, "active"))) ==
+              ["planted.json", "raft.json"] and len(first) == 2,
+              "serve: round 1 did not leave both requests in flight")
+        second = serve_on(cuda, svc, idle_rounds=1)
+        serve_s = time.perf_counter() - t0
+        final = {x["campaign"]: x["fingerprint"] for x in first + second
+                 if x["generation"] == SERVE_GENERATIONS}
+        man = campaign._read_manifest(os.path.join(svc, "campaigns",
+                                                   "planted"))
+        check(man["tuning"] == SERVE_TUNED,
+              f"serve: planted ran under {man['tuning']}, not the card "
+              f"entry's {SERVE_TUNED}")
+        check(final.get("planted") == PINNED_EXPLORE,
+              f"serve: planted ended at {final.get('planted')}, not "
+              f"PINNED_EXPLORE {PINNED_EXPLORE}")
+        ref = os.path.join(work, "serve-cpu")
+        os.makedirs(os.path.join(ref, "queue"))
+        with open(os.path.join(ref, "queue", "raft.json"), "w") as f:
+            json.dump(requests["raft"], f)
+        t0 = time.perf_counter()
+        cpu_lines = serve_on("cpu", ref, idle_rounds=1)
+        cpu_s = time.perf_counter() - t0
+        want = [x["fingerprint"] for x in cpu_lines
+                if x["generation"] == SERVE_GENERATIONS]
+        check(final.get("raft") is not None and [final["raft"]] == want,
+              f"serve: raft ended at {final.get('raft')}, an uninterrupted "
+              f"CPU serve at {want}")
+        out["serve"] = {"wall_s": serve_s, "cpu_s": cpu_s, "final": final,
+                        "slices": len(first) + len(second)}
+        out["phase_s"] = time.perf_counter() - t_phase
+        phase(17, f"(d) serve on the card, {len(requests)} requests x "
+                  f"{SERVE_GENERATIONS} generations, stopped after round 1 "
+                  f"and restarted, {serve_s:.1f} s: planted under "
+                  f"{SERVE_TUNED} at PINNED_EXPLORE, raft "
+                  f"{final['raft'][:16]} = the uninterrupted CPU serve's "
+                  f"({cpu_s:.1f} s) [{out['phase_s']:.0f} s in phase 17]")
+    finally:
+        if prev_cache is None:
+            os.environ.pop("MADSIM_TUNED_DIR", None)
+        else:
+            os.environ["MADSIM_TUNED_DIR"] = prev_cache
     return out
 
 

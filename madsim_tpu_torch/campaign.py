@@ -1,6 +1,7 @@
-"""Campaigns: persistent corpus, bug dedup, merge + minimize, regression.
+"""Campaigns: persistent corpus, bug dedup, merge + minimize, regression,
+and the watch-dir fuzz service.
 
-The port of `madsim_tpu/campaign.py` (its serve loop aside). The explorer
+The port of `madsim_tpu/campaign.py` (serve's oracle tenant aside). The explorer
 (`explore.py`) lives one process at a time: the corpus, the coverage union
 and every violation it found end with it. A campaign persists them:
 
@@ -32,8 +33,8 @@ each with its sha256, and carries the snapshot's scalar state (`state`:
 meta-seed, lanes, `meta_cursor`, `next_fresh`, generation, curves, the
 union), `params` (`explorer_params`: exactly the JAX face's keys),
 `campaign_params`, `config_hash`, `spec_name`, `campaign_id`,
-`workload`, `seen_violations`, `shrinks_done`, `tuning` (always None
-here) and `kind`. The card a run uses (`device=`) is a runtime argument
+`workload`, `seen_violations`, `shrinks_done`, `tuning` (the resolved
+Tier-A dict the campaign runs under, or None) and `kind`. The card a run uses (`device=`) is a runtime argument
 and is never written. The port holds u32 words in int64 tensors; every
 bitmap leaves the engine through `explore._u32` as a true uint32 array,
 so a corpus line's `bitmap` is the hex of the JAX face's little-endian
@@ -44,15 +45,19 @@ scales as the float32 values the JAX face writes (0.25, 0.5, 1.0).
 Named workloads write `spec_ref` "madsim_tpu_torch.campaign:spec_for";
 a JAX checkpoint's "madsim_tpu.campaign:spec_for" is read as it.
 
-Not ported yet, each refused with its ROADMAP item (ROADMAP.md queue 1):
-measured tuning (`tuning=`, item 12, tune) and the fuzz service
-(`serve`, item 12, serve; its oracle tenant is item 16).
+The fuzz service (`serve`) watches `<dir>/queue/` for request files,
+time-slices the campaigns round-robin, streams one JSON line per slice and
+checkpoints after every slice, as on the JAX face. Its differential-oracle
+tenant replays lanes on the host twins, which are not ported
+(ROADMAP.md queue 1, item 16): `serve(oracle=True)` refuses, so run it
+with `oracle=False` (`--no-oracle`).
 
 CLI:
 
     python -m madsim_tpu_torch.campaign run --workload raft --storm --generations 8 --dir D
     python -m madsim_tpu_torch.campaign merge --out MERGED D1 D2 ...
     python -m madsim_tpu_torch.campaign regress [--dir D]
+    python -m madsim_tpu_torch.campaign serve --no-oracle --dir D
 
 (each with `--device cpu` to run on the CPU; the card is the default).
 """
@@ -61,13 +66,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import glob
 import hashlib
 import json
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import telemetry
 from .explore import (
@@ -85,11 +93,14 @@ from .tpu.engine import _not_ported
 CAMPAIGN_FORMAT = "madsim-tpu-campaign/1"
 
 MANIFEST = "manifest.json"
+STATUS = "status.json"  # the serve farm-status surface
+METRICS_TEXTFILE = "metrics.prom"
 CORPUS = "corpus.jsonl"
 SEEN = "seen.jsonl"
 VIOLATIONS = "violations.jsonl"
 BUGS = "bugs.jsonl"
 REPORT = "report.json"
+REPORTS_STREAM = "reports.jsonl"
 BUNDLE_DIR = "bundles"
 REGRESSION_DIR = "regression"
 
@@ -574,8 +585,10 @@ class Campaign:
     (`<dir>/regression/` unless `regression_dir` or
     $MADSIM_REGRESSION_DIR names a shared one). `device` is the card the
     explorer's sim is built on when no `sim` is passed ("cpu" runs on the
-    CPU); it is a runtime argument, never persisted. Measured tuning
-    (`tuning=`) is not ported yet.
+    CPU); it is a runtime argument, never persisted. `tuning` is resolved
+    once, here, for that device ("auto" consults its tuned-config cache),
+    and the RESOLVED Tier-A dict is what the checkpoint persists: a resume
+    replays it without re-tuning.
     """
 
     def __init__(
@@ -602,11 +615,19 @@ class Campaign:
         tuning: Any = None,
         device="cuda",
     ) -> None:
-        if tuning is not None:
-            raise _not_ported("Campaign(tuning=...)", "item 12, tune")
         self.workload = workload
         self.dir = str(dir)
         self.tuning: Optional[Dict[str, Any]] = None
+        if tuning is not None:
+            from . import tune as _tune
+            from .tpu.spec import SimConfig
+
+            resolved = _tune.resolve_tuning(
+                tuning, workload.spec.name,
+                workload.config or SimConfig(), int(lanes),
+                device=device if sim is None else sim.device,
+            )
+            self.tuning = resolved or None
         self.shrink = bool(shrink)
         self.max_shrinks = int(max_shrinks)
         # runtime policy like shrink: resume restores it from
@@ -620,10 +641,13 @@ class Campaign:
         self.spec_ref = spec_ref
         self.spec_kwargs = dict(spec_kwargs or {})
         self.say = log or (lambda msg: None)
+        # pipeline rides the Explorer's None sentinel so a tuned value can
+        # land when the caller omitted it; explorer_params persists the
+        # APPLIED value, which resume replays explicitly
         self.ex = Explorer(
             workload, meta_seed=meta_seed, lanes=lanes, chunk=chunk,
             shrink_violations=False, pipeline=pipeline, sim=sim, log=log,
-            device=device, **(explorer_kwargs or {}),
+            tuning=self.tuning, device=device, **(explorer_kwargs or {}),
         )
         self.campaign_id = campaign_id or default_campaign_id(self.ex)
         self.workload_ref = workload_ref or {"kind": "custom"}
@@ -796,6 +820,8 @@ class Campaign:
             },
             "seen_violations": self._seen_violations,
             "shrinks_done": self._shrinks_done,
+            # the RESOLVED Tier-A tuning (None = the defaults): resume
+            # replays it verbatim and never re-tunes
             "tuning": self.tuning,
             "kind": "campaign",
         }
@@ -819,7 +845,9 @@ class Campaign:
         workload (rebuilt from the manifest for named workloads, else
         passed in), same explorer parameters, exact search state —
         `resume(d).run(k)` fingerprints as the uninterrupted run does.
-        A checkpoint made under measured tuning is refused."""
+        The checkpoint's resolved tuning applies; an explicit `tuning` must
+        resolve (for `device`) to the same dict, or the resume is refused
+        rather than silently change the dispatch shape mid-campaign."""
         ck = load_checkpoint(dir)
         man = ck["manifest"]
         if man.get("kind") == "merged":
@@ -827,8 +855,6 @@ class Campaign:
                 "a merged corpus has no meta-rng cursor to resume; import "
                 "it via merge, or start a fresh campaign over it"
             )
-        if tuning is not None or man.get("tuning"):
-            raise _not_ported("Campaign.resume under tuning", "item 12, tune")
         if workload is None:
             workload = build_workload(man["workload"])
         params = dict(man["params"])
@@ -845,6 +871,24 @@ class Campaign:
                 "name": man["workload"]["name"],
                 "virtual_secs": man["workload"].get("virtual_secs", 2.0),
             }
+        man_tuning = man.get("tuning") or None
+        if tuning is not None:
+            from . import tune as _tune
+            from .tpu.spec import SimConfig
+
+            resolved = _tune.resolve_tuning(
+                tuning, workload.spec.name,
+                workload.config or SimConfig(), int(params["lanes"]),
+                device=device if sim is None else sim.device,
+            ) or None
+            if resolved != man_tuning:
+                raise ValueError(
+                    f"resume tuning {resolved} conflicts with the "
+                    f"checkpoint's persisted tuning {man_tuning} — a "
+                    "resumed campaign replays the tuning it was created "
+                    "under; omit tuning= (the checkpoint's applies), or "
+                    "start a fresh campaign to re-tune"
+                )
         c = cls(
             workload, dir,
             meta_seed=int(params["meta_seed"]),
@@ -865,6 +909,7 @@ class Campaign:
             sim=sim,
             pipeline=bool(params.get("pipeline", True)),
             log=log,
+            tuning=man_tuning,
             explorer_kwargs={
                 k: params[k] for k in
                 ("fresh_frac", "mutant_frac", "top_k", "swarm_group",
@@ -1226,6 +1271,467 @@ def check_resume_conflicts(manifest: Dict[str, Any],
         )
 
 
+def _explicit_request_params(
+    request: Dict[str, Any], manifest: Optional[Dict[str, Any]] = None,
+    device="cuda",
+) -> Dict[str, Any]:
+    """The knobs a service request explicitly pins (chunk 0/null means
+    'default', like the CLI flag, so it never counts as explicit). A
+    request's string `tuning` ("auto", a cache path) resolves FIRST, for
+    `device` and against the checkpoint's own workload and lane scale —
+    exactly what Campaign() resolved at creation — so the conflict check
+    compares resolved dicts: a restart with "tuning": "auto" resumes while
+    the tuned cache is unchanged and is rejected once it was re-tuned."""
+    given = {
+        k: request[k]
+        for k in ("workload", "virtual_secs", "storm", "meta_seed", "lanes")
+        if request.get(k) is not None
+    }
+    if request.get("chunk"):
+        given["chunk"] = request["chunk"]
+    if "tuning" in request:
+        given["tuning"] = request["tuning"]
+        ref = (manifest or {}).get("workload") or {}
+        if isinstance(given["tuning"], str) and ref.get("kind") == "named":
+            from . import tune as _tune
+            from .tpu.spec import SimConfig
+
+            wl = build_workload(ref)
+            given["tuning"] = _tune.resolve_tuning(
+                given["tuning"], wl.spec.name,
+                wl.config or SimConfig(),
+                int((manifest or {}).get("params", {}).get("lanes", 256)),
+                device=device,
+            ) or None
+    return given
+
+
+def _default_factory(request: Dict[str, Any], campaign_dir: str,
+                     regression_dir: str, log, device="cuda") -> Campaign:
+    """serve's campaign factory: resume `campaign_dir` when it holds a
+    checkpoint (refusing a request that explicitly contradicts it), else
+    start the request's named-workload campaign on `device`."""
+    name = str(request.get("workload", "raft"))
+    virtual_secs = float(request.get("virtual_secs", 2.0))
+    storm = bool(request.get("storm", False))
+    if os.path.exists(os.path.join(campaign_dir, MANIFEST)):
+        man = _read_manifest(campaign_dir)
+        check_resume_conflicts(
+            man, _explicit_request_params(request, man, device=device)
+        )
+        c = Campaign.resume(
+            campaign_dir, regression_dir=regression_dir, log=log,
+            device=device,
+        )
+        # triage knobs are runtime policy, not search identity (they never
+        # touch the explorer fingerprint) — an explicit request overrides
+        if "shrink" in request:
+            c.shrink = bool(request["shrink"])
+        if request.get("max_shrinks") is not None:
+            c.max_shrinks = int(request["max_shrinks"])
+        return c
+    ref = named_workload_ref(name, virtual_secs, storm)
+    return Campaign(
+        build_workload(ref), campaign_dir,
+        meta_seed=int(request.get("meta_seed", 0)),
+        lanes=int(request.get("lanes", 256)),
+        chunk=int(request["chunk"]) if request.get("chunk") else None,
+        campaign_id=request.get("id"),
+        workload_ref=ref,
+        shrink=bool(request.get("shrink", True)),
+        max_shrinks=int(request.get("max_shrinks", 8)),
+        spec_ref=SPEC_FOR_REF,
+        spec_kwargs={"name": name, "virtual_secs": virtual_secs},
+        regression_dir=regression_dir,
+        log=log,
+        tuning=request.get("tuning"),
+        device=device,
+    )
+
+
+def _device_ctx(dev):
+    """`torch.cuda.device(dev)` for a CUDA torch device; a no-op context
+    for None, a CPU device and the stub tokens the scheduling tests use."""
+    import contextlib
+
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def serve(
+    dir: str,
+    poll_s: float = 0.5,
+    slice_generations: int = 1,
+    max_rounds: Optional[int] = None,
+    idle_rounds: Optional[int] = None,
+    out=print,
+    log: Optional[Callable[[str], None]] = None,
+    factory: Optional[Callable[..., Any]] = None,
+    sleep: Callable[[float], None] = time.sleep,
+    devices: Optional[Sequence[Any]] = None,
+    oracle: bool = True,
+    oracle_sample_rate: float = 0.25,
+    oracle_per_round: int = 2,
+    device="cuda",
+) -> Dict[str, Any]:
+    """The fuzz-farm front end: watch `<dir>/queue/` for request files,
+    time-slice the device between active campaigns round-robin
+    (`slice_generations` explorer generations per turn), stream ONE JSON
+    line per slice ({campaign, generation, device, fingerprint, report}),
+    and checkpoint after every slice — a kill at any slice boundary
+    resumes exactly where it stopped.
+
+    With `devices` (the CLI's `--devices`), every round distributes the
+    active campaigns over the devices — least-loaded first, honoring each
+    request's optional `"devices": [idx, ...]` pin — and the per-device
+    slice lanes run concurrently, one thread per device. Campaign results
+    do not depend on the placement. More than one card is a multi-device
+    setup, which is not ported (item 14); stub device tokens (the
+    scheduling tests) may be many.
+
+    Request file (JSON): {"id"?, "workload", "virtual_secs"?, "storm"?,
+    "meta_seed"?, "lanes"?, "chunk"?, "generations", "shrink"?,
+    "max_shrinks"?, "devices"?, "tuning"?}. Requests move queue/ ->
+    active/ -> done/; `generations` is the campaign's TOTAL target. The
+    default factory builds each campaign on `device`. `status.json` and a
+    Prometheus textfile are replaced after every round.
+
+    `max_rounds` / `idle_rounds` bound the loop for tests and cron-style
+    runs; the default (None/None) serves forever. The differential-oracle
+    tenant (`oracle=True`, with `oracle_sample_rate` and
+    `oracle_per_round`) replays lanes on the host twins, which are not
+    ported (item 16): pass `oracle=False`.
+    """
+    if int(slice_generations) < 1:
+        raise ValueError(
+            f"slice_generations must be >= 1 (got {slice_generations}): a "
+            "zero-generation slice never finishes any request"
+        )
+    if oracle:
+        raise _not_ported(
+            "serve's differential-oracle tenant (it replays lanes on the "
+            "host twins); run serve with oracle=False (--no-oracle)",
+            "item 16",
+        )
+    # an empty device sequence is exactly "no pinning" — same as None
+    devs: List[Any] = list(devices) if devices else [None]
+    pinned_devices = bool(devices)
+    if sum(isinstance(d, torch.device) and d.type == "cuda"
+           for d in devs) > 1:
+        raise _not_ported("serve over several cards (--devices N > 1)",
+                          "item 14")
+    queue_dir = os.path.join(dir, "queue")
+    active_dir = os.path.join(dir, "active")
+    done_dir = os.path.join(dir, "done")
+    campaigns_dir = os.path.join(dir, "campaigns")
+    regression_dir = os.path.join(dir, REGRESSION_DIR)
+    for d in (queue_dir, active_dir, done_dir, campaigns_dir):
+        os.makedirs(d, exist_ok=True)
+    build = factory or functools.partial(_default_factory, device=device)
+
+    # crash recovery: requests in flight when a previous service died are
+    # requeued — their campaigns resume from checkpoint, and `generations`
+    # counts TOTAL campaign generations, so re-admission runs exactly the
+    # remainder. A freshly resubmitted request of the same name supersedes
+    # its stale orphan.
+    for path in sorted(glob.glob(os.path.join(active_dir, "*.json"))):
+        target = os.path.join(queue_dir, os.path.basename(path))
+        if os.path.exists(target):
+            os.replace(path, os.path.join(done_dir, os.path.basename(path)))
+        else:
+            os.replace(path, target)
+
+    jobs: Dict[str, Dict[str, Any]] = {}
+    completed: List[str] = []
+    rounds = 0
+    idle = 0
+    unparseable: Dict[str, int] = {}  # queue path -> consecutive bad polls
+
+    def reject(path: str, cid: Optional[str], why: str) -> None:
+        out(json.dumps({"campaign": cid, "rejected": why}))
+        os.replace(path, os.path.join(done_dir, os.path.basename(path)))
+
+    def poll_queue() -> None:
+        """One request must never take the service down: malformed JSON is
+        retried a few polls (a non-atomic writer may still be mid-write)
+        then rejected to done/; a request that fails to build (unknown
+        workload, checkpoint mismatch, ...) is rejected immediately."""
+        for path in sorted(glob.glob(os.path.join(queue_dir, "*.json"))):
+            try:
+                with open(path) as f:
+                    request = json.load(f)
+            except (json.JSONDecodeError, OSError) as e:
+                n = unparseable.get(path, 0) + 1
+                if n >= 3:
+                    unparseable.pop(path, None)
+                    reject(
+                        path, None,
+                        f"unreadable request after {n} polls: "
+                        f"{type(e).__name__}: {str(e)[:120]}",
+                    )
+                else:
+                    unparseable[path] = n
+                continue
+            unparseable.pop(path, None)
+            cid = str(
+                request.get("id")
+                or os.path.splitext(os.path.basename(path))[0]
+            )
+            request["id"] = cid
+            if cid in jobs:
+                reject(path, cid, "duplicate id; request ignored")
+                continue
+            remaining = int(request.get("generations", 4))
+            if remaining <= 0:
+                reject(path, cid, "generations must be positive")
+                continue
+            # per-campaign device set: indices into this service's device
+            # list, validated here so a bad pin is a loud reject
+            dev_set: Optional[set] = None
+            if request.get("devices") is not None:
+                try:
+                    dev_set = {int(i) for i in request["devices"]}
+                except (TypeError, ValueError):
+                    reject(path, cid, "devices must be a list of indices")
+                    continue
+                bad = {i for i in dev_set if not 0 <= i < len(devs)}
+                if bad or not dev_set:
+                    reject(
+                        path, cid,
+                        f"device indices {sorted(bad) or '[]'} out of "
+                        f"range — this service has {len(devs)} device(s)",
+                    )
+                    continue
+            # active/ entries are keyed by CAMPAIGN id, not request-file
+            # basename: two files with distinct explicit ids must never
+            # share (and clobber) one in-flight path
+            active_path = os.path.join(active_dir, f"{cid}.json")
+            os.replace(path, active_path)
+            campaign_dir = os.path.join(campaigns_dir, cid)
+            try:
+                built = build(request, campaign_dir, regression_dir, log)
+            except Exception as e:  # noqa: BLE001 - service must survive
+                reject(active_path, cid,
+                       f"{type(e).__name__}: {str(e)[:200]}")
+                continue
+            # a resumed campaign runs only the remainder of its TOTAL
+            # target; an already-satisfied request completes immediately
+            left = remaining - int(getattr(built, "generation", 0))
+            if left <= 0:
+                os.replace(
+                    active_path,
+                    os.path.join(done_dir, os.path.basename(active_path)),
+                )
+                completed.append(cid)
+                out(json.dumps({
+                    "campaign": cid, "completed": True,
+                    "generation": int(getattr(built, "generation", 0)),
+                }))
+                continue
+            jobs[cid] = {
+                "campaign": built,
+                "request": request,
+                "active_path": active_path,
+                "campaign_dir": campaign_dir,
+                "remaining": left,
+                "devices": dev_set,
+                # seeds/s baseline of the status surface: a resumed
+                # campaign's explorer already carries its checkpointed
+                # seeds_run
+                "seeds_run_prev": int(
+                    getattr(getattr(built, "ex", None), "seeds_run", 0)
+                    or 0
+                ),
+            }
+            out(json.dumps({
+                "campaign": cid, "accepted": True, "generations": left,
+                **({"devices": sorted(dev_set)} if dev_set else {}),
+            }))
+
+    def assign_round() -> Dict[int, List[str]]:
+        """Every active campaign gets exactly ONE slice per round, placed
+        on the least-loaded device its device set allows — lowest index
+        on ties, in sorted-campaign order, so the assignment (and the
+        output stream) is deterministic."""
+        assignment: Dict[int, List[str]] = {i: [] for i in range(len(devs))}
+        for cid in sorted(jobs):
+            allowed = jobs[cid]["devices"] or range(len(devs))
+            di = min(allowed, key=lambda i: (len(assignment[i]), i))
+            assignment[di].append(cid)
+        return assignment
+
+    def run_lane(assignment, di: int) -> Dict[str, tuple]:
+        """One device's slice lane: its campaigns' slices, sequentially,
+        on the device. Raises never escape — a failing tenant is reported
+        per campaign in the fold below. Each slice's wall rides along for
+        the status surface."""
+        res: Dict[str, tuple] = {}
+        for cid in assignment[di]:
+            job = jobs[cid]
+            g = min(int(slice_generations), job["remaining"])
+            t_slice = time.perf_counter()
+            try:
+                with _device_ctx(devs[di]):
+                    with telemetry.span(
+                        "slice", site="serve", campaign=cid, device=di
+                    ):
+                        report = job["campaign"].run(g)
+                    with telemetry.span(
+                        "checkpoint", site="serve", campaign=cid
+                    ):
+                        job["campaign"].checkpoint()
+                res[cid] = (g, report, None, time.perf_counter() - t_slice)
+            except Exception as e:  # noqa: BLE001 - one tenant's failing
+                # workload must not take the other campaigns down; its
+                # last good checkpoint stays resumable
+                res[cid] = (g, None, e, time.perf_counter() - t_slice)
+        return res
+
+    # the live status surface: status.json + a Prometheus textfile, both
+    # atomically replaced after every round
+    t_serve = time.perf_counter()
+    dev_busy_s = [0.0] * len(devs)
+    dev_seeds = [0] * len(devs)
+    last_device: Dict[str, Optional[int]] = {}
+
+    def write_status_surfaces() -> None:
+        uptime = max(time.perf_counter() - t_serve, 1e-9)
+        status = {
+            "uptime_s": round(uptime, 3),
+            "rounds": rounds,
+            "devices": len(devs) if pinned_devices else 1,
+            "queue_depth": len(glob.glob(os.path.join(queue_dir, "*.json"))),
+            "active": {
+                cid: {
+                    "generation": int(getattr(
+                        jobs[cid]["campaign"], "generation", 0
+                    )),
+                    "remaining": int(jobs[cid]["remaining"]),
+                    "bugs": len(getattr(jobs[cid]["campaign"], "bugs", ())),
+                    "device": (
+                        last_device.get(cid) if pinned_devices else None
+                    ),
+                }
+                for cid in sorted(jobs)
+            },
+            "completed": list(completed),
+            "per_device": [
+                {
+                    "busy_s": round(dev_busy_s[d], 3),
+                    "occupancy": round(dev_busy_s[d] / uptime, 4),
+                    "seeds_run": dev_seeds[d],
+                    "seeds_per_sec": round(
+                        dev_seeds[d] / dev_busy_s[d], 1
+                    ) if dev_busy_s[d] > 0 else 0.0,
+                }
+                for d in range(len(devs))
+            ],
+        }
+        telemetry.write_status(os.path.join(dir, STATUS), status)
+        telemetry.write_farm_textfile(
+            os.path.join(dir, METRICS_TEXTFILE), status
+        )
+
+    # the slice lanes start here: one thread per device. A CUDA sim
+    # captures its step's graph in the global capture mode, during which
+    # no other thread may touch the card; with at most one card (more is
+    # refused above) there is one lane and no thread, so the status
+    # writers on this thread never overlap a capture
+    pool = None
+    if len(devs) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(
+            max_workers=len(devs), thread_name_prefix="madsim-serve",
+        )
+    try:
+        while True:
+            poll_queue()
+            progressed = False
+            assignment = assign_round()
+            lanes = [di for di in sorted(assignment) if assignment[di]]
+            device_of = {
+                cid: di for di in lanes for cid in assignment[di]
+            }
+            last_device.update(device_of)
+            results: Dict[str, tuple] = {}
+            if pool is not None and len(lanes) > 1:
+                futs = [
+                    pool.submit(run_lane, assignment, di) for di in lanes
+                ]
+                for f in futs:
+                    results.update(f.result())
+            else:
+                for di in lanes:
+                    results.update(run_lane(assignment, di))
+            for cid in sorted(results):
+                g, report, err, slice_s = results[cid]
+                job = jobs[cid]
+                dev_busy_s[device_of[cid]] += slice_s
+                if err is not None:
+                    reject(
+                        job["active_path"], cid,
+                        f"slice failed: {type(err).__name__}: "
+                        f"{str(err)[:200]}",
+                    )
+                    del jobs[cid]
+                    progressed = True
+                    continue
+                job["remaining"] -= g
+                campaign = job["campaign"]
+                seeds_run = int(getattr(report, "seeds_run", 0))
+                dev_seeds[device_of[cid]] += max(
+                    seeds_run - job.get("seeds_run_prev", 0), 0
+                )
+                job["seeds_run_prev"] = seeds_run
+                line = {
+                    "campaign": cid,
+                    "generation": campaign.generation,
+                    "remaining": job["remaining"],
+                    "device": device_of[cid] if pinned_devices else None,
+                    "fingerprint": report.fingerprint(),
+                    "bugs": len(getattr(campaign, "bugs", ())),
+                    "report": report.to_dict(),
+                }
+                out(json.dumps(line))
+                if telemetry.enabled():
+                    telemetry.record_slice(line)
+                with open(
+                    os.path.join(job["campaign_dir"], REPORTS_STREAM), "a"
+                ) as f:
+                    f.write(json.dumps(line) + "\n")
+                progressed = True
+                if job["remaining"] <= 0:
+                    os.replace(
+                        job["active_path"],
+                        os.path.join(
+                            done_dir, os.path.basename(job["active_path"])
+                        ),
+                    )
+                    completed.append(cid)
+                    del jobs[cid]
+            rounds += 1
+            write_status_surfaces()
+            if max_rounds is not None and rounds >= max_rounds:
+                break
+            if progressed:
+                idle = 0
+            else:
+                idle += 1
+                if idle_rounds is not None and idle >= idle_rounds:
+                    break
+                sleep(poll_s)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
+        write_status_surfaces()
+    return {
+        "rounds": rounds, "completed": completed, "pending": sorted(jobs),
+        "devices": len(devs) if pinned_devices else 1,
+    }
+
+
 # --------------------------------------------------------------------------
 # CLI
 # --------------------------------------------------------------------------
@@ -1316,7 +1822,40 @@ def _cmd_regress(args) -> int:
 
 
 def _cmd_serve(args) -> int:
-    raise _not_ported("campaign serve (the fuzz service)", "item 12, serve")
+    devices = None
+    if args.devices:
+        dev = torch.device(args.device)
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" else [dev])
+        if args.devices == "all":
+            devices = devs
+        else:
+            try:
+                n = int(args.devices)
+            except ValueError:
+                raise SystemExit(
+                    f"--devices must be an integer or 'all', got "
+                    f"{args.devices!r}"
+                ) from None
+            if n < 1 or n > len(devs):
+                raise SystemExit(
+                    f"--devices {n} out of range: {len(devs)} device(s) "
+                    "visible"
+                )
+            devices = devs[:n]
+    serve(
+        args.dir, poll_s=args.poll,
+        slice_generations=args.slice_generations,
+        max_rounds=args.max_rounds, idle_rounds=args.idle_rounds,
+        log=lambda m: print(m, flush=True) if args.verbose else None,
+        devices=devices,
+        oracle=not args.no_oracle,
+        oracle_sample_rate=args.oracle_sample_rate,
+        oracle_per_round=args.oracle_per_round,
+        device=args.device,
+    )
+    return 0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -1374,15 +1913,38 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     g.set_defaults(fn=_cmd_regress)
 
     s = sub.add_parser(
-        "serve", help="the watch-dir fuzz service (not ported yet: "
-        "ROADMAP.md item 12, serve)",
+        "serve", help="watch-dir fuzz service: queue/ -> active/ -> done/"
     )
+    s.add_argument("--dir", required=True)
+    s.add_argument("--poll", type=float, default=0.5)
+    s.add_argument("--slice-generations", type=int, default=1)
+    s.add_argument("--max-rounds", type=int, default=None)
+    s.add_argument("--idle-rounds", type=int, default=None)
+    s.add_argument(
+        "--devices", default=None, metavar="N|all",
+        help="schedule campaigns across this many visible devices "
+        "(requests may pin a device subset with \"devices\": [i, ...]); "
+        "more than one card is not ported yet",
+    )
+    s.add_argument(
+        "--no-oracle", action="store_true",
+        help="disable the differential-oracle tenant (required: the "
+        "tenant's host twins are not ported)",
+    )
+    s.add_argument(
+        "--oracle-sample-rate", type=float, default=0.25,
+        help="fraction of each generation's lanes the oracle replays "
+        "schedule-matched on the host twin",
+    )
+    s.add_argument(
+        "--oracle-per-round", type=int, default=2,
+        help="max host replays per serve round",
+    )
+    s.add_argument("--verbose", action="store_true")
+    device_flag(s)
     s.set_defaults(fn=_cmd_serve)
 
-    # serve's own flags are refused with it, not as unknown arguments
-    args, extra = p.parse_known_args(argv)
-    if extra and args.cmd != "serve":
-        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = p.parse_args(argv)
     return args.fn(args)
 
 

@@ -45,10 +45,11 @@ sub-queues and a periodic coverage exchange through the campaign layer's
 merge + minimize (`campaign.py`), the islands one after another on one
 device; its fingerprint is the JAX face's `mesh=None` federation's.
 
-Not ported yet, each refused with its ROADMAP item (ROADMAP.md queue 1):
-tuned dispatch knobs (`tuning=`, item 12), and a multi-device mesh (the
-federation's `mesh=`, the CLI's `--mesh` and `--islands` over several
-cards, item 14).
+`tuning=` applies the device's tuned Tier-A dispatch knobs
+(madsim_tpu_torch/tune.py) where the caller kept the defaults. Not ported
+yet, refused with its ROADMAP item (ROADMAP.md queue 1, item 14): a
+multi-device mesh (the federation's `mesh=`, the CLI's `--mesh` and
+`--islands` over several cards).
 
 CLI:  python -m madsim_tpu_torch.explore --workload raft --storm --dispatches 12
       (add --device cpu to run on the CPU, --device-loop for the
@@ -565,12 +566,31 @@ class Explorer:
         from .tpu.engine import DEFAULT_DISPATCH_STEPS, BatchedSim
         from .tpu.spec import SimConfig
 
-        if tuning is not None:
-            raise _not_ported("Explorer(tuning=...)", "item 12, tune")
         self.workload = workload
         self.cfg = workload.config or SimConfig()
         self.meta_seed = int(meta_seed)
         self.lanes = int(lanes)
+        if tuning is not None:
+            # Tier-A dispatch knobs from the tuned-config cache of the
+            # device the explorer runs on, applied only where the caller
+            # kept the defaults; corpus, curves and fingerprints do not
+            # depend on them. `chunk` is recorded in explorer_params, so a
+            # campaign persists the applied value. A cached `devices` is
+            # not consumed: the explorer's topology is the Federation's.
+            from . import tune as _tune
+
+            tn = _tune.resolve_tuning(
+                tuning, workload.spec.name, self.cfg, self.lanes,
+                device=device if sim is None else sim.device,
+            )
+            if chunk is None and tn.get("chunk"):
+                chunk = min(int(tn["chunk"]), self.lanes)
+            if refill_lanes is None and tn.get("refill_lanes"):
+                refill_lanes = int(tn["refill_lanes"])
+            if dispatch_steps is None and tn.get("dispatch_steps"):
+                dispatch_steps = int(tn["dispatch_steps"])
+            if pipeline is None and "pipeline" in tn:
+                pipeline = bool(tn["pipeline"])
         self.chunk = int(chunk) if chunk else self.lanes
         self.fresh_frac = float(fresh_frac)
         self.mutant_frac = float(mutant_frac)

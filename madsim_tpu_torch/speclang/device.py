@@ -24,6 +24,7 @@ here from the spec-source declarations, exactly once:
   msg_kind_names     Protocol.messages
   durable plane      DiskPlane.fields / .sync_field + the body's
                      optional on_recover
+  tune knob rows     KnobDecl -> tune.SpecKnob (`knob_rows`)
 
 `build` introduces no operation of its own into the handler dataflow, so
 a spec transcribed from a hand module runs bit-identically to it
@@ -33,13 +34,13 @@ lease-gen to the hand lease, leaf for leaf).
 
 from __future__ import annotations
 
+import dataclasses
 from collections import namedtuple
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..tpu.engine import _not_ported
 from ..tpu.spec import (
     HardCap,
     ProtocolSpec,
@@ -225,7 +226,17 @@ def build_workload(
 
 
 def knob_rows(proto: Protocol, virtual_secs: float = 10.0) -> tuple:
-    """The tune SpecKnob rows of the spec source's KnobDecl declarations:
-    tune is not ported, so this refuses."""
-    raise _not_ported(f"{proto.name}'s spec knobs (tune's SpecKnob)",
-                      "item 12, tune")
+    """The Tier-B SpecKnob rows derived from the spec source's KnobDecl
+    declarations: every generated spec is born autotunable. Each row's
+    rebuild swaps in the spec rebuilt through `build` at its value."""
+    from ..tune import SpecKnob
+
+    rows = []
+    for k in proto.knobs:
+        def rebuild(wl, v, _param=k.param):
+            val = int(v) if isinstance(v, (int, float)) else v
+            return dataclasses.replace(wl, spec=build(proto, **{_param: val}))
+
+        rows.append(SpecKnob(k.name, tuple(k.values), rebuild,
+                             default=k.default))
+    return tuple(rows)

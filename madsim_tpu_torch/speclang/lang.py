@@ -31,7 +31,7 @@ What each declaration DERIVES on the device face (device.py):
   Field.time             the time_fields entry (epoch-rebased stamps)
   Messages               msg_kind_names + the payload width
   DiskPlane              durable_fields / sync_field / on_recover
-  KnobDecl               the tune SpecKnob rows (not ported yet)
+  KnobDecl               the tune SpecKnob rows (`device.knob_rows`)
 """
 
 from __future__ import annotations

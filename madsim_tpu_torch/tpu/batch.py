@@ -16,8 +16,10 @@ reproducer when it has one. With telemetry enabled
 the result is recorded, and each traced seed's timeline is written as a
 Perfetto file into `telemetry.out_dir()`. `@batch_test` runs the env-configured seed
 range as one sweep, the analog of `#[madsim::test]`. `mesh="auto"` (the
-default, as on the JAX face) runs unsharded on the CPU or one card; tuning
-and multi-device sharding are later slices (ROADMAP.md queue 1).
+default, as on the JAX face) runs unsharded on the CPU or one card;
+multi-device sharding is a later slice (ROADMAP.md queue 1, item 14).
+`tuning="auto"` applies the device's measured Tier-A dispatch knobs
+(madsim_tpu_torch/tune.py).
 """
 
 from __future__ import annotations
@@ -350,13 +352,44 @@ def run_batch(
     workload's spec and config, with the same coverage); `device` is used
     only when run_batch builds the sim. `mesh` resolves through
     `resolve_mesh`. Per-seed results do not depend on `chunk` or `refill`:
-    no draw folds the lane index."""
+    no draw folds the lane index. `tuning` ("auto", a Tier-A dict, a
+    `tune.TunedEntry` or a saved entry's path) fills `chunk`,
+    `dispatch_steps`, `pipeline` and `refill` where the caller left them
+    None, from the tuned-config cache entry of the device the sweep runs
+    on (an explicit `refill=0` pins the chunked path); a miss runs the
+    defaults."""
     seeds_arr = np.asarray(list(seeds), dtype=np.uint32)
     if seeds_arr.ndim != 1 or seeds_arr.size == 0:
         raise ValueError("seeds must be a non-empty 1-D sequence")
+    run_device = device if sim is None else sim.device
     if tuning is not None:
-        raise _not_ported("run_batch(tuning=...)", "item 12")
-    resolve_mesh(mesh, device if sim is None else sim.device)
+        # Tier-A dispatch knobs from the tuned-config cache, keyed by the
+        # device this sweep runs on: a tuned value lands only where the
+        # caller left the None sentinel (an explicit argument always wins,
+        # even one equal to the default), and every knob is
+        # result-invariant, so this is a throughput decision only
+        from .. import tune as _tune
+
+        tn = _tune.resolve_tuning(
+            tuning, workload.spec.name, workload.config or SimConfig(),
+            seeds_arr.size, device=run_device,
+        )
+        if "chunk" in tn and chunk is None:
+            chunk = int(tn["chunk"])
+        if "pipeline" in tn and pipeline is None:
+            pipeline = bool(tn["pipeline"])
+        if "dispatch_steps" in tn and dispatch_steps is None:
+            dispatch_steps = int(tn["dispatch_steps"])
+        if (
+            "refill_lanes" in tn and refill is None
+            and workload.lane_check is None
+        ):
+            refill = int(tn["refill_lanes"])
+        if "devices" in tn and isinstance(mesh, str) and mesh == "auto":
+            # an entry recorded on a bigger host of the same kind falls
+            # back to the default mesh instead of failing the sweep
+            mesh = _tune._mesh_for(tn["devices"], cached=True)
+    resolve_mesh(mesh, run_device)
     chunk = DEFAULT_CHUNK if chunk is None else int(chunk)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")

@@ -83,13 +83,6 @@ class NotReproducible(AssertionError):
     shrink."""
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to madsim_tpu_torch yet "
-        f"(ROADMAP.md queue 1, {item})"
-    )
-
-
 # --------------------------------------------------------------------------
 # FaultPlan <-> SimConfig <-> JSON plumbing
 # --------------------------------------------------------------------------
@@ -614,16 +607,29 @@ def shrink_seed(
     never carry the lineage plane. With telemetry enabled, the shrink's
     dispatches are spans and its result (and causal digest) is recorded
     (`telemetry.record_shrink`, `record_causal`). `mesh="auto"`
-    resolves as `run_batch`'s does. Not ported yet, each refused with its
-    ROADMAP item: a multi-device `mesh` and `tuning`."""
+    resolves as `run_batch`'s does; a multi-device `mesh` is not ported
+    (ROADMAP item 14). `tuning` may set the evaluator's `lane_width` where
+    the caller left it None (the tuned `refill_lanes` at the 16-lane
+    bucket); the bundle is the same at any width."""
     from .tpu.engine import BatchedSim
     from .tpu.spec import SimConfig
 
-    if tuning is not None:
-        raise _not_ported("shrink_seed(tuning=...)", "item 12")
     say = log or (lambda msg: None)
     spec = workload.spec
     cfg = workload.config or SimConfig()
+    if tuning is not None:
+        # Tier A only: the tuned refill lane width sizes the evaluator's
+        # generation dispatches (a bundle does not depend on it), looked up
+        # at the ddmin scale (lane_width's bucket, l16 by default) for the
+        # device the shrink runs on
+        from . import tune as _tune
+
+        tn = _tune.resolve_tuning(
+            tuning, spec.name, cfg, lane_width or 16,
+            device=device if sim is None else sim.device,
+        )
+        if tn.get("refill_lanes") and lane_width is None:
+            lane_width = int(tn["refill_lanes"])
     if lane_width is None:
         lane_width = 16
     if sim is None:

@@ -288,7 +288,7 @@ def test_construction_refuses_out_of_slice_option(opt):
     """Every one of these options was once refused at construction: a
     two-handler spec (item 4), a triage sim with its default ctl (item
     10), a coverage sim and a lineage sim (item 9) and a device-loop sim
-    (item 12; its plan is inert outside `init_devloop`) each run 40 steps
+    (its plan is inert outside `init_devloop`) each run 40 steps
     leaf-equal to the JAX engine (the ctl's float32 rate scales compared
     exactly)."""
     from madsim_tpu.tpu.spec import replace_handlers as jax_replace_handlers

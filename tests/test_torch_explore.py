@@ -43,7 +43,7 @@ from madsim_tpu import explore as jex
 from madsim_tpu import nemesis as jn
 from madsim_tpu import workloads as jreg
 from madsim_tpu.tpu import nemesis as jtn
-from madsim_tpu_torch import campaign, explore, telemetry
+from madsim_tpu_torch import campaign, explore, telemetry, tune
 from madsim_tpu_torch import nemesis as tn
 from madsim_tpu_torch import workloads as reg
 from madsim_tpu_torch.tpu import nemesis as ttn
@@ -296,13 +296,18 @@ def test_explorer_violation_bundle_equals_the_jax_face(tmp_path):
 
 # ------------------------------------------------------- refusals, registry
 
+# (tuning=, Campaign(tuning=) and serve were refused until item 12 came;
+# what stays refused of them is Tier B's certifier, item 15, and serve's
+# oracle tenant, item 16)
 REFUSED = [
-    ("tuning", lambda: _pinned(tuning="auto"), "item 12, tune"),
-    ("campaign-tuning", lambda: campaign.Campaign(
-        chip_smoke.explore_workload(), "x", tuning="auto", device="cpu"),
-     "item 12, tune"),
+    ("tuning", lambda: tune.tune_workload(
+        chip_smoke.explore_workload(), "planted", tier="AB", device="cpu"),
+     "item 15"),
+    ("campaign-tuning", lambda: tune.tier_b_gate(
+        chip_smoke.explore_workload(), chip_smoke.explore_workload().config,
+        device="cpu"), "item 15"),
     ("campaign-serve", lambda: campaign.main(["serve", "--dir", "x"]),
-     "item 12, serve"),
+     "item 16"),
     ("federation-mesh", lambda: explore.Federation(
         chip_smoke.explore_workload(), n_islands=2,
         mesh=["cuda:0", "cuda:1"], device="cpu"), "item 14"),

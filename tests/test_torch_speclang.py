@@ -215,8 +215,15 @@ def test_registry_generated_rows_and_refused_knobs(capsys):
     assert wl.host_repro is None
     jwl = j_twopc.make_workload(virtual_secs=2.0)
     assert wl.config.to_toml() == jwl.config.to_toml()
-    with pytest.raises(NotImplementedError, match="item 12, tune"):
-        registry.spec_knobs("twopc-gen", 2.0)
+    # the tune SpecKnob rows (refused until tune came, item 12): the JAX
+    # face's names, values and defaults, each rebuilding the spec
+    rows = registry.spec_knobs("twopc-gen", 2.0)
+    jrows = j_twopc.spec_knobs(2.0)
+    assert [(r.name, r.values, r.default) for r in rows] == \
+        [(r.name, r.values, r.default) for r in jrows] and rows
+    for r in rows:
+        spec = r.rebuild(wl, r.values[0]).spec
+        assert spec.name == wl.spec.name and spec is not wl.spec
     # the explorer CLI takes a generated row through the registry
     explore.main(["--workload", "backup", "--virtual-secs", "0.2",
                   "--lanes", "4", "--dispatches", "1", "--no-shrink",

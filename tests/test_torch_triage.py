@@ -44,7 +44,7 @@ from madsim_tpu.tpu.engine import _occ_on as jax_occ_on
 from madsim_tpu.tpu.engine import default_ctl as jax_default_ctl
 from madsim_tpu.tpu.engine import named_leaves
 from madsim_tpu_torch import nemesis as tn
-from madsim_tpu_torch import causal, repro, triage
+from madsim_tpu_torch import causal, repro, triage, tune
 from madsim_tpu_torch.tpu import BatchedSim, SimConfig, make_raft_spec, run_batch
 from madsim_tpu_torch.tpu import nemesis as ttn
 from madsim_tpu_torch.tpu import prng
@@ -502,8 +502,10 @@ REFUSED = [
                                     device="cpu"), "item 14"),
     ("mesh", lambda wl: triage.shrink_seed(wl, 0, mesh=MESH,
                                            device="cpu"), "item 14"),
-    ("tuning", lambda wl: triage.shrink_seed(wl, 0, tuning="auto",
-                                             device="cpu"), "item 12"),
+    # (shrink_seed(tuning=) was refused until item 12; a Tier-B tune,
+    # whose certifier is item 15, stays refused)
+    ("tuning", lambda wl: tune.tune_workload(wl, "planted", tier="B",
+                                             device="cpu"), "item 15"),
     ("host backend", lambda wl: repro.replay(
         triage.ReproBundle(**_bundle()), backend="host"), "host runtime"),
     ("both backends", lambda wl: repro.replay(
