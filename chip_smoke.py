@@ -11,7 +11,8 @@ workloads, the triage path (trace, shrink, replay), and continuous
 batching with the coverage plane, the causal-lineage plane, the telemetry
 plane, the coverage-guided explorer and its device-resident search loop,
 campaigns and the island federation, the speclang device face, measured
-tuning and the fuzz service — and checks it, in seventeen phases. Every sweep without a refill queue runs
+tuning, the fuzz service and the lane mesh — and checks it, in eighteen
+phases. Every sweep without a refill queue runs
 `BatchedSim._run`'s captured blocks (one CUDA graph replay per 32 gated
 steps), so the pins and digests of phases 2, 4 and 6-9 are the capture's
 correctness gate too:
@@ -211,7 +212,33 @@ correctness gate too:
    fingerprint of an uninterrupted CPU serve of the same request. Phase
    9's end moves earlier by PHASE17_BUDGET_S to pay for it, and later by
    PHASE9_SLACK_S, the slack the runs before phase 17 left below 1150 s;
-   its horizons are printed.
+   its horizons are printed;
+18. the lane mesh (in a child process started after phase 9, beside
+   phases 10-17, joined before phase 8: its lines appear after phase
+   17's and count seconds from the child's start; the host shows one
+   card, so every mesh repeats it and a mesh's shards run one after
+   another there): (a) the sharded refill of 32 admissions of
+   tests/test_multichip.py's plan with a 10x horizon spread, 4 lanes a
+   shard, at 1, 2 and 4 shards: rows equal to the CPU's one-shard
+   refill, per-shard occupancy, lane-steps per iteration and ms per
+   iteration printed; (b) `run_batch(mesh=<4 shards>)` over 32 seeds,
+   chunked and refill (8 lanes a shard): per-seed rows equal to
+   `mesh=None`'s on the card and on the CPU, `n_devices` 4; (c) the
+   chaos-free violation's shrink on 2 shards: the CPU's unsharded
+   bundle; (d) the pinned federation on a 2-shard "islands" mesh:
+   sharded, at `PINNED_FEDERATION`; (e) `serve` over [card, card] (two
+   slice lanes on two threads) drains three requests at the one-device
+   CPU serve's fingerprints, and two threads capture and replay their
+   own sims' graphs at once with the CPU's rows; (f) at full width:
+   `run_batch` over 32768 seeds of the bench config at 1 virtual s,
+   chunked, on 4 shards (8192 lanes a shard) against `mesh=None` at the
+   same width, rows equal and both peaks of device memory printed, and
+   phase 11's spread mix (32768 admissions) as a sharded refill of 4096
+   lanes a shard on 2 shards, rows equal to the unsharded refill of 4096
+   lanes. Every check is asserted. Its walls and per-iteration times are
+   taken beside phases 10-17 (the two processes share the card and the
+   host). Phase 9's end moves earlier by PHASE18_BUDGET_S, the time the
+   child is expected to add to the phases beside it.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -246,6 +273,8 @@ PROFILE_STEPS = 20
 PROFILE_FLAG = "--phase5-profile"
 # the argument that runs phase 6 (the golden runs) as a child process
 GOLDEN_FLAG = "--phase6-golden"
+# the argument that runs phase 18 (the lane mesh) as a child process
+MESH_FLAG = "--phase18-mesh"
 # the argument that times phases 2, 3, 9's parity runs and phase 6 one
 # after the other, then overlapped (serial_probe), without the rest of the
 # script
@@ -312,6 +341,11 @@ PHASE16_BUDGET_S = 120.0
 # 9 the same way (its 4096-admission refill sweep steps eagerly, ~35 ms an
 # iteration)
 PHASE17_BUDGET_S = 110.0
+# phase 18 (the lane mesh on one card: 96-104 s alone on one H100, its
+# full-width legs included) runs in a child process beside phases 10-17,
+# whose eager steps leave the card idle most of the time; it buys from
+# phase 9 the time it is expected to add to them there
+PHASE18_BUDGET_S = 30.0
 # before phase 17, five runs on one H100 ended at 884.0-973.6 s with
 # phase 9 at its floors, ending ~90 s past the anchor below: those 90 s
 # and the 176 s the slowest run left below 1150 s go back to phase 9,
@@ -326,7 +360,7 @@ PHASE6_OVERLAP_S = 120.0
 PHASE9_END_S = (984.0 + PHASE9_SLACK_S - PHASE10_BUDGET_S
                 - PHASE11_BUDGET_S - PHASE13_BUDGET_S - PHASE14_BUDGET_S
                 - PHASE15_BUDGET_S - PHASE16_BUDGET_S - PHASE17_BUDGET_S
-                - PHASE6_OVERLAP_S)
+                - PHASE18_BUDGET_S - PHASE6_OVERLAP_S)
 # the least share of its horizon a phase-9 cell may be cut to: the buggy
 # cells keep half (the JAX face's bug shares were measured there), the
 # correct cells' gates (no violation, every enabled kind fires) are
@@ -412,6 +446,32 @@ SERVE_GENERATIONS = 2
 # the tuned-cache entry phase 17(d) writes for its "planted" request's
 # scale (16 lanes): a hit for the card, so the request runs tuned
 SERVE_TUNED = {"refill_lanes": 8, "dispatch_steps": 5000, "pipeline": False}
+# phase 18: the lane mesh on one card (every mesh repeats the card): (a)
+# the sharded refill of MESH_ADMISSIONS admissions of the multichip plan
+# at MESH_H_US with the 10x horizon spread (one long admission in 4),
+# MESH_LANES lanes per shard, at each shard count of MESH_SHARDS; (b)
+# run_batch over MESH_BATCH_SEEDS seeds on a MESH_BATCH_SHARDS-shard mesh,
+# chunked and refill (MESH_BATCH_REFILL lanes per shard); (c) the
+# chaos-free violation's shrink on a 2-shard mesh; (d) the pinned
+# federation on a 2-shard "islands" mesh; (e) serve over two slice lanes
+# on the card with MESH_SERVE_REQUEST x 3, and two threads' captured runs
+# of MESH_THREAD_LANES lanes
+MESH_H_US = 500_000
+MESH_ADMISSIONS = 32
+MESH_LANES = 4
+MESH_SHARDS = (1, 2, 4)
+MESH_BATCH_SEEDS = 32
+MESH_BATCH_SHARDS = 4
+MESH_BATCH_REFILL = 8
+MESH_SERVE_REQUEST = {"workload": "raft", "virtual_secs": 0.2, "lanes": 8,
+                      "chunk": 8, "generations": 2, "shrink": False}
+MESH_THREAD_LANES = 64
+# (f): the bench config's horizon (virtual s) of the full-width chunked
+# run_batch over STORM_LANES seeds on MESH_BATCH_SHARDS shards, and the
+# shard count of phase 11's spread mix as a sharded refill of
+# REFILL_WIDE_LANES lanes a shard
+MESH_WIDE_SECS = 1.0
+MESH_REFILL_SHARDS = 2
 # the whole script must end well inside the 1200 s the card run allows;
 # phase 8 (run last) splits what is left of this target across its runs
 TARGET_S = 1050.0
@@ -824,7 +884,7 @@ def phases_2_3(cuda, report: dict) -> dict:
 
 def phase_4_5_on(cuda, report: dict, small: dict, card: str,
                  parity: dict) -> None:
-    """Phases 4, 5, 7, 9-17 and 8, in that order, into `report`."""
+    """Phases 4, 5, 7, 9-18 and 8, in that order, into `report`."""
     from madsim_tpu_torch.tpu import BatchedSim, summarize
     from madsim_tpu_torch.tpu.raft import make_raft_spec, raft_bench_config
 
@@ -954,19 +1014,33 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
     report["profile"] = prof_out
     report["storm"] = phase7_storm(cuda)
     report["membership"] = phase9_membership(cuda) | {"parity": parity}
-    report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
-    report["refill"] = phase11_refill(cuda, card)
-    report["lineage"] = phase12_lineage_cost(cuda, card)
+    # phase 18 runs in a child process beside phases 10-17: both sides
+    # are host-bound eager sweeps (the card idles most of each step), so
+    # its walls overlap theirs, as phase 6's do phases 2-3's
+    mesh_child = spawn_child(MESH_FLAG)
     work = tempfile.mkdtemp(prefix="chip_smoke_campaigns-")
     try:
+        report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
+        report["refill"] = phase11_refill(cuda, card)
+        report["lineage"] = phase12_lineage_cost(cuda, card)
         report["explore"], host13 = phase13_explore(cuda, card, work)
         report["devloop"] = phase14_devloop(
             cuda, card, {**host13, "row": report["explore"]["wide"]})
         report["campaigns"] = phase15_campaigns(cuda, card, host13["dirs"])
         report["speclang"] = phase16_speclang(cuda, card, work)
         report["tune_serve"] = phase17_tune_serve(cuda, card, work)
+        report["mesh"] = join_child(mesh_child, "phase 18", 900)
     finally:
+        if mesh_child.poll() is None:
+            mesh_child.kill()
+            mesh_child.wait()
         shutil.rmtree(work, ignore_errors=True)
+    fed = report["mesh"]["federation"]["wall_s"]
+    phase(18, f"overlapped: the child ran phase 18 in "
+              f"{report['mesh']['wall_s']:.1f} s beside phases 10-17; its "
+              f"sharded federation took {fed:.2f} s against phase 15's "
+              f"{report['campaigns']['federation']['host_s']:.2f} s island "
+              "by island")
     report["workloads"] = phase8_workloads(cuda)
     report["total_s"] = time.perf_counter() - T_START
 
@@ -3169,6 +3243,402 @@ def phase17_tune_serve(cuda, card: str, work: str) -> dict:
     return out
 
 
+def multichip_plan():
+    """tests/test_multichip.py's plan: Crash, Partition and 5% loss."""
+    from madsim_tpu_torch import nemesis as nm
+
+    return nm.FaultPlan(name="multichip-tests", clauses=(
+        nm.Crash(interval_lo_us=150_000, interval_hi_us=450_000,
+                 down_lo_us=100_000, down_hi_us=300_000),
+        nm.Partition(interval_lo_us=200_000, interval_hi_us=600_000,
+                     heal_lo_us=150_000, heal_hi_us=450_000),
+        nm.MsgLoss(rate=0.05),
+    ))
+
+
+def chaos_free_violation():
+    """The planted workload with an invariant that breaks once virtual
+    time reaches 600 ms: every seed violates within a few dozen steps
+    whatever the chaos, so its shrink drops every atom in two dispatches
+    (tests/test_triage.py's chaos-free case)."""
+    import dataclasses
+
+    from madsim_tpu_torch.tpu import make_raft_spec
+    from madsim_tpu_torch.tpu.spec import replace_handlers
+
+    return dataclasses.replace(triage_workload(), spec=replace_handlers(
+        make_raft_spec(5),
+        check_invariants=lambda ns, alive, now: now < 600_000))
+
+
+def phase18_mesh(cuda, card: str, work: str) -> dict:
+    """Phase 18, the lane mesh on the card. The host shows one card, so
+    every mesh repeats it and its shards run one after another there
+    (concurrency across cards is not measured). (a) The sharded refill at
+    each of MESH_SHARDS shards: rows equal to the CPU's one-shard refill,
+    per-shard occupancy, lane-steps per iteration and ms per iteration
+    beside the one-shard run's. (b) `run_batch` on a 4-shard mesh, chunked
+    and refill: per-seed rows equal to `mesh=None`'s on the card and on
+    the CPU, `n_devices` 4. (c) The chaos-free violation's shrink on a
+    2-shard mesh: the CPU's unsharded bundle. (d) The pinned federation on
+    a 2-shard "islands" mesh: sharded, at PINNED_FEDERATION. (e) `serve`
+    over [card, card] (two slice lanes on two threads) drains three
+    requests at the one-device CPU serve's fingerprints, and two threads
+    capture and replay their own sims' graphs at once with the CPU's rows.
+    (f) At full width: the chunked `run_batch` over STORM_LANES seeds of
+    the bench config on a 4-shard mesh against `mesh=None`, rows equal and
+    both device-memory peaks printed; phase 11's spread mix as a sharded
+    refill of REFILL_WIDE_LANES lanes a shard on MESH_REFILL_SHARDS shards,
+    rows equal to the unsharded refill of REFILL_WIDE_LANES lanes. Every
+    check is asserted."""
+    import threading
+
+    from madsim_tpu_torch import campaign, triage
+    from madsim_tpu_torch.explore import Federation
+    from madsim_tpu_torch.tpu import (
+        BatchedSim, BatchWorkload, SimConfig, TriageCtl, compile_plan,
+        make_raft_spec, run_batch,
+    )
+    from madsim_tpu_torch.tpu.digest import (
+        FEDERATION_GENERATIONS, FEDERATION_H_US, FEDERATION_RUN,
+        PINNED_FEDERATION, spread_ctl, spread_mix,
+    )
+    from madsim_tpu_torch.tpu.engine import (
+        refill_results, refill_results_sharded,
+    )
+    from madsim_tpu_torch.tpu.mesh import Mesh, canonical_device
+    from madsim_tpu_torch.tpu.raft import raft_bench_config
+    from madsim_tpu_torch.tpu.spec import REBASE_US
+
+    t_phase = time.perf_counter()
+    dev = canonical_device(cuda)
+    out: dict = {"visible_cards": torch.cuda.device_count()}
+    phase(18, f"the host shows {out['visible_cards']} card(s): every mesh "
+              f"repeats {dev}, so a mesh's shards run one after another on "
+              "it (concurrency across cards is not measured)")
+
+    def mesh(n: int, axis: str = "seeds") -> Mesh:
+        return Mesh((dev,) * n, axis)
+
+    def same(a, b) -> bool:
+        return a is None and b is None or np.array_equal(
+            np.asarray(a).astype(np.int64), np.asarray(b).astype(np.int64))
+
+    # -- (a) the sharded refill at 1, 2 and 4 shards against the CPU
+    cfg = compile_plan(multichip_plan(), SimConfig(horizon_us=MESH_H_US))
+    A = MESH_ADMISSIONS
+    h = np.where(np.arange(A) % 4 == 0, MESH_H_US,
+                 MESH_H_US // 10).astype(np.int64)
+    ctl = TriageCtl(
+        off=torch.zeros((A,), dtype=torch.int32),
+        occ=torch.zeros((A, 4), dtype=torch.int32),
+        rate_scale=torch.ones((A, 3), dtype=torch.float32),
+        h_epoch=torch.as_tensor((h // REBASE_US).astype(np.int32)),
+        h_off=torch.as_tensor((h % REBASE_US).astype(np.int32)),
+    )
+    seeds = np.arange(A, dtype=np.uint32)
+    fields = ("violated", "deadlocked", "violation_at", "violation_epoch",
+              "violation_step", "steps", "events", "overflow", "dead_drops",
+              "clock", "epoch", "fires", "occ_fired", "cov_bitmap",
+              "cov_hiwater", "cov_transitions")
+    cpu_rows = refill_results(BatchedSim(
+        make_raft_spec(), cfg, triage=True, coverage=True, device="cpu",
+    ).run_refill(seeds, lanes=MESH_LANES, max_steps=30_000, ctl=ctl))
+    sim = BatchedSim(make_raft_spec(), cfg, triage=True, coverage=True,
+                     device=cuda)
+    # warm-up: a one-admission sweep, so the first timed run does not pay
+    # the process's first launches of the refill step's kernels
+    sim.run_refill(seeds[1:2], lanes=1, max_steps=30_000,
+                   ctl=TriageCtl(*(x[1:2] for x in ctl)))
+    out["refill"] = {}
+    for D in MESH_SHARDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if D == 1:
+            res = refill_results(sim.run_refill(
+                seeds, lanes=MESH_LANES, max_steps=30_000, ctl=ctl))
+            per = [{k: res[k] for k in ("iters", "busy_lane_steps",
+                                        "total_lane_steps", "occupancy")}]
+            lspi = res["busy_lane_steps"] / max(res["iters"], 1)
+        else:
+            res = refill_results_sharded(sim.run_refill_sharded(
+                seeds, lanes=MESH_LANES, mesh=mesh(D), max_steps=30_000,
+                ctl=ctl), admissions=A)
+            per, lspi = res["per_device"], res["lane_steps_per_iter"]
+        wall = time.perf_counter() - t0
+        bad = [f for f in fields if not same(res[f], cpu_rows[f])]
+        check(not bad, f"mesh (a): {D} shards' rows differ from the CPU's "
+                       f"one-shard refill in {bad}")
+        check(res["truncated"] == 0, f"mesh (a): {D} shards truncated "
+                                     f"{res['truncated']} admissions")
+        shard_iters = sum(p["iters"] for p in per)
+        row = {
+            "wall_s": wall, "iters": max(p["iters"] for p in per),
+            "shard_iters": shard_iters,
+            "ms_per_iter": wall / max(max(p["iters"] for p in per), 1) * 1e3,
+            "ms_per_shard_iter": wall / max(shard_iters, 1) * 1e3,
+            "occupancy": [p["occupancy"] for p in per],
+            "lane_steps_per_iter": lspi,
+        }
+        out["refill"][D] = row
+        phase(18, f"(a) refill over {D} shard(s) x {MESH_LANES} lanes, {A} "
+                  f"admissions: rows = the CPU's one-shard refill; occupancy "
+                  f"{[round(o, 3) for o in row['occupancy']]}, "
+                  f"{lspi:.2f} lane-steps/iteration, {row['iters']} "
+                  f"iterations ({shard_iters} shard-iterations) in "
+                  f"{wall:.2f} s: {row['ms_per_iter']:.2f} ms/iteration, "
+                  f"{row['ms_per_shard_iter']:.2f} ms/shard-iteration")
+    one = out["refill"][1]
+    for D in MESH_SHARDS[1:]:
+        out["refill"][D]["scaling_vs_1"] = (
+            out["refill"][D]["lane_steps_per_iter"]
+            / max(one["lane_steps_per_iter"], 1e-9))
+    phase(18, "(a) lane-steps per iteration over the one-shard run's: "
+              + ", ".join(f"{D} shards {out['refill'][D]['scaling_vs_1']:.2f}x"
+                          for D in MESH_SHARDS[1:])
+              + f"; ms per shard-iteration {one['ms_per_shard_iter']:.2f} "
+              "(1 shard) vs " + ", ".join(
+                  f"{out['refill'][D]['ms_per_shard_iter']:.2f} ({D})"
+                  for D in MESH_SHARDS[1:]))
+    del sim
+
+    # -- (b) run_batch on a 4-shard mesh, both paths
+    wl = BatchWorkload(spec=make_raft_spec(), config=cfg, max_steps=30_000)
+    bseeds = range(MESH_BATCH_SEEDS)
+    kw = dict(max_traces=0, repro_on_host=False, coverage=True)
+    ref = run_batch(bseeds, wl, mesh=None, device=cuda, **kw)
+    cpu_ref = run_batch(bseeds, wl, mesh=None, device="cpu", **kw)
+    out["batch"] = {}
+    for path, extra in (("chunked", {}),
+                        ("refill", {"refill": MESH_BATCH_REFILL})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run_batch(bseeds, wl, mesh=mesh(MESH_BATCH_SHARDS), device=cuda,
+                      **kw, **extra)
+        wall = time.perf_counter() - t0
+        check(r.summary["n_devices"] == MESH_BATCH_SHARDS,
+              f"mesh (b) {path}: n_devices {r.summary['n_devices']}")
+        for base, what in ((ref, "mesh=None on the card"),
+                           (cpu_ref, "mesh=None on the CPU")):
+            for f in ("violated", "deadlocked", "violation_step"):
+                check(np.array_equal(getattr(r, f), getattr(base, f)),
+                      f"mesh (b) {path}: {f} differs from {what}")
+            check(np.array_equal(r.coverage.bitmap, base.coverage.bitmap),
+                  f"mesh (b) {path}: coverage differs from {what}")
+            if path == "chunked":
+                check(np.array_equal(r.retired_step, base.retired_step),
+                      f"mesh (b) {path}: steps differ from {what}")
+        out["batch"][path] = {
+            "wall_s": wall, "per_device_occupancy":
+            r.summary.get("per_device_occupancy")}
+    phase(18, f"(b) run_batch over {MESH_BATCH_SEEDS} seeds on "
+              f"{MESH_BATCH_SHARDS} shards: chunked "
+              f"{out['batch']['chunked']['wall_s']:.2f} s, refill "
+              f"({MESH_BATCH_REFILL} lanes a shard) "
+              f"{out['batch']['refill']['wall_s']:.2f} s, occupancy "
+              f"{out['batch']['refill']['per_device_occupancy']}; per-seed "
+              "rows = mesh=None's on the card and on the CPU, n_devices "
+              f"{MESH_BATCH_SHARDS}")
+
+    # -- (c) the shrink on a 2-shard mesh against the CPU's, unsharded
+    # (the planted shrink on a mesh, ~30 s more on the card, is
+    # tests/test_torch_multichip.py's)
+    swl = chaos_free_violation()
+    t0 = time.perf_counter()
+    sr = triage.shrink_seed(swl, 3, lane_width=4, device=cuda, mesh=mesh(2),
+                            out_dir=os.path.join(work, "mesh-card"))
+    shrink_s = time.perf_counter() - t0
+    cpu_sr = triage.shrink_seed(swl, 3, lane_width=4, device="cpu",
+                                out_dir=os.path.join(work, "mesh-cpu"))
+    check(sr.bundle.to_json() == cpu_sr.bundle.to_json()
+          and sr.kept_atoms == cpu_sr.kept_atoms == []
+          and sr.dispatches == cpu_sr.dispatches,
+          "mesh (c): the sharded shrink's bundle differs from the CPU's "
+          "unsharded one")
+    out["shrink"] = {"wall_s": shrink_s, "dispatches": sr.dispatches,
+                     "step": sr.bundle.violation_step}
+    phase(18, f"(c) shrink of the chaos-free violation on 2 shards: "
+              f"{sr.dispatches} dispatches, {shrink_s:.2f} s, the CPU's "
+              f"unsharded bundle (every atom dropped, violation step "
+              f"{sr.bundle.violation_step})")
+
+    # -- (d) the pinned federation, one shard per island
+    fed = Federation(explore_workload(FEDERATION_H_US), device=cuda,
+                     mesh=mesh(FEDERATION_RUN["n_islands"], "islands"),
+                     **FEDERATION_RUN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = fed.run(FEDERATION_GENERATIONS)
+    fed_s = time.perf_counter() - t0
+    check(rep["sharded"] and rep["fingerprint"] == PINNED_FEDERATION,
+          f"mesh (d): sharded {rep['sharded']}, fingerprint "
+          f"{rep['fingerprint']} (pinned {PINNED_FEDERATION})")
+    out["federation"] = {"wall_s": fed_s}
+    phase(18, f"(d) federation {FEDERATION_RUN['n_islands']} islands on "
+              f"{FEDERATION_RUN['n_islands']} shards, "
+              f"{FEDERATION_GENERATIONS} generations: sharded, at "
+              f"PINNED_FEDERATION, {fed_s:.2f} s")
+
+    # -- (e) serve over two slice lanes on the card, and two threads'
+    # captures
+    def serve_on(device, devices, d):
+        for i, cid in enumerate(("a", "b", "c")):
+            os.makedirs(os.path.join(d, "queue"), exist_ok=True)
+            with open(os.path.join(d, "queue", f"{cid}.json"), "w") as f:
+                json.dump(dict(MESH_SERVE_REQUEST, meta_seed=i + 1), f)
+        lines: list = []
+        res = campaign.serve(d, out=lambda x: lines.append(json.loads(x)),
+                             sleep=lambda x: None, oracle=False,
+                             idle_rounds=1, devices=devices, device=device)
+        check(sorted(res["completed"]) == ["a", "b", "c"],
+              f"mesh (e): serve on {device} completed {res['completed']}")
+        return sorted((x["campaign"], x["generation"], x["fingerprint"])
+                      for x in lines if "fingerprint" in x), lines
+
+    t0 = time.perf_counter()
+    two, lines = serve_on(cuda, [dev, dev], os.path.join(work, "mesh-serve"))
+    serve_s = time.perf_counter() - t0
+    one_cpu, _ = serve_on("cpu", None, os.path.join(work, "mesh-serve-cpu"))
+    check(two == one_cpu and len(two) == 6,
+          "mesh (e): serve over two lanes on the card streamed other "
+          "fingerprints than the one-device CPU serve")
+    check({x["device"] for x in lines if "report" in x} == {0, 1},
+          "mesh (e): serve did not use both slice lanes")
+    tcfg = compile_plan(multichip_plan(), SimConfig(horizon_us=MESH_H_US))
+    tseeds = [np.arange(MESH_THREAD_LANES) + i * MESH_THREAD_LANES
+              for i in range(2)]
+    sims = [BatchedSim(make_raft_spec(), tcfg, device=cuda)
+            for _ in range(2)]
+    got: dict = {}
+
+    def run(i):
+        st = sims[i].run(tseeds[i], 30_000)
+        got[i] = (st.violated.cpu().numpy(), st.steps.cpu().numpy(),
+                  st.events.cpu().numpy())
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    threads_s = time.perf_counter() - t0
+    csim = BatchedSim(make_raft_spec(), tcfg, device="cpu")
+    for i in range(2):
+        check(i in got and (sims[i]._graph is not None
+                            or dev.type != "cuda"),
+              f"mesh (e): thread {i} did not run its captured sweep")
+        st = csim.run(tseeds[i], 30_000)
+        want = (st.violated.numpy(), st.steps.numpy(), st.events.numpy())
+        check(all(np.array_equal(a, b) for a, b in zip(got[i], want)),
+              f"mesh (e): thread {i}'s captured rows differ from the CPU's")
+    out["serve"] = {"wall_s": serve_s, "threads_s": threads_s}
+    phase(18, f"(e) serve over [{dev}, {dev}] (two slice lanes), 3 "
+              f"requests x {MESH_SERVE_REQUEST['generations']} generations "
+              f"in {serve_s:.2f} s: the one-device CPU serve's "
+              f"fingerprints; two threads captured and replayed their own "
+              f"{MESH_THREAD_LANES}-lane sims at once in {threads_s:.2f} s, "
+              f"rows = the CPU's")
+
+    # -- (f) full width: the chunked run_batch over STORM_LANES seeds of
+    # the bench config, 4 shards against none, each with its memory peak
+    bwl = BatchWorkload(
+        spec=make_raft_spec(n_nodes=5, client_rate=0.1, log_capacity=16),
+        config=raft_bench_config(MESH_WIDE_SECS), max_steps=MAX_STEPS)
+    wide: dict = {}
+    for m in (None, mesh(MESH_BATCH_SHARDS)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        r = run_batch(range(STORM_LANES), bwl, mesh=m, device=cuda,
+                      chunk=STORM_LANES, **kw)
+        torch.cuda.synchronize()
+        wide[0 if m is None else m.size] = (
+            r, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+    (r0, w0, p0), (r4, w4, p4) = wide[0], wide[MESH_BATCH_SHARDS]
+    check(r4.summary["n_devices"] == MESH_BATCH_SHARDS,
+          f"mesh (f): n_devices {r4.summary['n_devices']}")
+    for f in ("violated", "deadlocked", "violation_step", "retired_step"):
+        check(np.array_equal(getattr(r4, f), getattr(r0, f)),
+              f"mesh (f): the {STORM_LANES}-seed sweep's {f} differs "
+              "between 4 shards and mesh=None")
+    check(np.array_equal(r4.coverage.bitmap, r0.coverage.bitmap),
+          f"mesh (f): the {STORM_LANES}-seed sweep's coverage differs "
+          "between 4 shards and mesh=None")
+    steps = int(r0.retired_step.max())
+    out["wide_batch"] = {"seeds": STORM_LANES, "steps": steps,
+                         "wall_s": w0, "sharded_wall_s": w4,
+                         "peak_gib": p0, "sharded_peak_gib": p4}
+    phase(18, f"(f) run_batch over {STORM_LANES} seeds of the bench config "
+              f"at {MESH_WIDE_SECS} virtual s ({steps} steps), chunked: "
+              f"{MESH_BATCH_SHARDS} shards x {STORM_LANES // MESH_BATCH_SHARDS}"
+              f" lanes in {w4:.2f} s against mesh=None's {w0:.2f} s, peak "
+              f"device memory {p4:.2f} GiB against {p0:.2f} GiB above the "
+              f"start; per-seed rows and coverage equal, n_devices "
+              f"{MESH_BATCH_SHARDS}")
+    del wide, r0, r4
+
+    # -- (f) full width: phase 11's spread mix as a refill of L lanes, then
+    # as a sharded refill of L lanes a shard, each with its memory peak
+    A, L, D = REFILL_ADMISSIONS, REFILL_WIDE_LANES, MESH_REFILL_SHARDS
+    msim = BatchedSim(make_raft_spec(), spread_mix(REFILL_H_US), triage=True,
+                      coverage=True, device=cuda)
+    mctl = spread_ctl(REFILL_H_US, A)
+    legs: dict = {}
+    for m in (None, mesh(D)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if m is None:
+            res = refill_results(msim.run_refill(
+                np.arange(A, dtype=np.int64), lanes=L,
+                max_steps=REFILL_MAX_STEPS, ctl=mctl))
+        else:
+            res = refill_results_sharded(msim.run_refill_sharded(
+                np.arange(A, dtype=np.int64), lanes=L, mesh=m,
+                max_steps=REFILL_MAX_STEPS, ctl=mctl), admissions=A)
+        wall = time.perf_counter() - t0
+        check(res["truncated"] == 0, f"mesh (f): the refill over "
+                                     f"{1 if m is None else D} shard(s) "
+                                     f"truncated {res['truncated']} admissions")
+        legs[m is not None] = (res, wall, (torch.cuda.max_memory_allocated(
+            dev) - base) / 2**30)
+    (r1, w1, p1), (rd, wd, pd) = legs[False], legs[True]
+    bad = [f for f in fields if not same(rd[f], r1[f])]
+    check(not bad, f"mesh (f): the sharded refill's rows differ from the "
+                   f"unsharded refill's in {bad}")
+    per = rd["per_device"]
+    shard_iters = sum(p["iters"] for p in per)
+    out["wide_refill"] = {
+        "admissions": A, "lanes": L, "shards": D, "wall_s": w1,
+        "sharded_wall_s": wd, "iters": r1["iters"],
+        "shard_iters": shard_iters,
+        "ms_per_iter": w1 / max(r1["iters"], 1) * 1e3,
+        "ms_per_shard_iter": wd / max(shard_iters, 1) * 1e3,
+        "occupancy": r1["occupancy"],
+        "shard_occupancy": [p["occupancy"] for p in per],
+        "lane_steps_per_iter": rd["lane_steps_per_iter"],
+        "peak_gib": p1, "sharded_peak_gib": pd,
+    }
+    w = out["wide_refill"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(18, f"(f) phase 11's spread mix, {A} admissions, refill over "
+              f"{D} shards x {L} lanes: rows = the unsharded {L}-lane "
+              f"refill's; {shard_iters} shard-iterations in {wd:.2f} s "
+              f"({w['ms_per_shard_iter']:.2f} ms/shard-iteration) against "
+              f"{r1['iters']} iterations in {w1:.2f} s "
+              f"({w['ms_per_iter']:.2f} ms/iteration), occupancy "
+              f"{[round(o, 4) for o in w['shard_occupancy']]} against "
+              f"{r1['occupancy']:.4f}, {rd['lane_steps_per_iter']:.1f} "
+              f"lane-steps/iteration, peak device memory {pd:.2f} GiB "
+              f"against {p1:.2f} GiB above the start "
+              f"[{out['phase_s']:.0f} s in phase 18 on {card}]")
+    return out
+
+
 def timed_calls_of(obj, name: str, calls: list, keep=None) -> None:
     """Wrap obj.<name> (a sim's method or a module's function) to record
     (result, synchronized wall seconds) of each call; `keep(result)`, when
@@ -3208,6 +3678,24 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == [SERIAL_FLAG]:
         print(json.dumps(serial_probe()), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == [MESH_FLAG]:
+        # phase 18's child process, fills off as in phases 7-17, two CPU
+        # threads for its CPU references (the parent's phases run beside
+        # it): its phase lines count seconds from its own start; its
+        # result is its last stdout line
+        import torch.utils.deterministic as tdet
+
+        torch.use_deterministic_algorithms(True)
+        tdet.fill_uninitialized_memory = False
+        torch.set_num_threads(2)
+        mesh_work = tempfile.mkdtemp(prefix="chip_smoke_mesh-")
+        try:
+            mesh = phase18_mesh(torch.device(CARD), card_line(), mesh_work)
+        finally:
+            shutil.rmtree(mesh_work, ignore_errors=True)
+        print(json.dumps(mesh | {"wall_s": time.perf_counter() - T_START}),
+              flush=True)
         sys.exit(0)
     report = main()
     print("report: " + json.dumps(report), flush=True)

@@ -1359,6 +1359,16 @@ def _device_ctx(dev):
     return contextlib.nullcontext()
 
 
+def _place(campaign, dev) -> None:
+    """Run `campaign`'s sweeps on `dev` from this slice on: its explorer's
+    sim becomes the sim's twin there (`BatchedSim.on`; the search state is
+    on the host, so the results do not change). Stub campaigns and device
+    tokens that are not torch devices are left as they are."""
+    ex = getattr(campaign, "ex", None)
+    if isinstance(dev, torch.device) and getattr(ex, "sim", None) is not None:
+        ex.sim = ex.sim.on(dev)
+
+
 def serve(
     dir: str,
     poll_s: float = 0.5,
@@ -1385,10 +1395,11 @@ def serve(
     With `devices` (the CLI's `--devices`), every round distributes the
     active campaigns over the devices — least-loaded first, honoring each
     request's optional `"devices": [idx, ...]` pin — and the per-device
-    slice lanes run concurrently, one thread per device. Campaign results
-    do not depend on the placement. More than one card is a multi-device
-    setup, which is not ported (item 14); stub device tokens (the
-    scheduling tests) may be many.
+    slice lanes run concurrently, one thread per device (a device may be
+    listed more than once: two lanes on one card, or on the CPU). A slice
+    on a torch device runs the campaign's sweeps there (`_place`).
+    Campaign results do not depend on the placement. Stub device tokens
+    (the scheduling tests) are passed through as they are.
 
     Request file (JSON): {"id"?, "workload", "virtual_secs"?, "storm"?,
     "meta_seed"?, "lanes"?, "chunk"?, "generations", "shrink"?,
@@ -1417,10 +1428,6 @@ def serve(
     # an empty device sequence is exactly "no pinning" — same as None
     devs: List[Any] = list(devices) if devices else [None]
     pinned_devices = bool(devices)
-    if sum(isinstance(d, torch.device) and d.type == "cuda"
-           for d in devs) > 1:
-        raise _not_ported("serve over several cards (--devices N > 1)",
-                          "item 14")
     queue_dir = os.path.join(dir, "queue")
     active_dir = os.path.join(dir, "active")
     done_dir = os.path.join(dir, "done")
@@ -1573,6 +1580,7 @@ def serve(
             t_slice = time.perf_counter()
             try:
                 with _device_ctx(devs[di]):
+                    _place(job["campaign"], devs[di])
                     with telemetry.span(
                         "slice", site="serve", campaign=cid, device=di
                     ):
@@ -1634,10 +1642,9 @@ def serve(
         )
 
     # the slice lanes start here: one thread per device. A CUDA sim
-    # captures its step's graph in the global capture mode, during which
-    # no other thread may touch the card; with at most one card (more is
-    # refused above) there is one lane and no thread, so the status
-    # writers on this thread never overlap a capture
+    # captures its step's graph one capture at a time in the process, in
+    # the thread-local error mode, so the other lanes' work on the cards
+    # (and the status writers on this thread) may run beside a capture
     pool = None
     if len(devs) > 1:
         from concurrent.futures import ThreadPoolExecutor

@@ -42,14 +42,16 @@ the host loop's, bit for bit, whatever the window partition.
 
 `Federation` runs `n_islands` explorers with disjoint fresh-seed
 sub-queues and a periodic coverage exchange through the campaign layer's
-merge + minimize (`campaign.py`), the islands one after another on one
-device; its fingerprint is the JAX face's `mesh=None` federation's.
+merge + minimize (`campaign.py`): with a mesh of one shard per island, a
+generation is one sharded refill sweep (island i's population is shard
+i's sub-queue), otherwise the islands run one after another on one
+device; the fingerprint is the same either way, and the JAX face's.
 
 `tuning=` applies the device's tuned Tier-A dispatch knobs
-(madsim_tpu_torch/tune.py) where the caller kept the defaults. Not ported
-yet, refused with its ROADMAP item (ROADMAP.md queue 1, item 14): a
-multi-device mesh (the federation's `mesh=`, the CLI's `--mesh` and
-`--islands` over several cards).
+(madsim_tpu_torch/tune.py) where the caller kept the defaults. As on the
+JAX face, a single explorer takes no mesh: the explorer's device topology
+is the federation's islands (`--islands`), so the CLI's `--mesh` is
+refused.
 
 CLI:  python -m madsim_tpu_torch.explore --workload raft --storm --dispatches 12
       (add --device cpu to run on the CPU, --device-loop for the
@@ -87,7 +89,7 @@ from .nemesis import (
     mix32,
     mutation_vocab,
 )
-from .tpu.engine import _not_ported
+from .tpu.mesh import Mesh, visible_devices
 
 
 def island_meta_seed(meta_seed: int, island: int) -> int:
@@ -1294,14 +1296,17 @@ class Federation:
         fed = Federation(workload, n_islands=8, meta_seed=7, lanes=32)
         report = fed.run(generations=12)
 
-    The islands run one after another through one shared sim on one
-    device (`device`, or a pre-built `sim`'s), each generation a refill
-    sweep of the island's population; this is the JAX face's `mesh=None`
-    path, and the federation fingerprint is the JAX face's. A
-    multi-device `mesh` (one island per card in one sharded dispatch) is
-    not ported yet. `device_loop=True` runs each island's generations in
-    device-resident windows clipped to exchange boundaries, with the same
-    fingerprint and exchange log as the host loop.
+    With a `mesh` of exactly `n_islands` shards, every generation is ONE
+    sharded refill sweep: island i's population is shard i's admission
+    sub-queue, nothing crosses shards in the step, and the rows are
+    gathered at segment end (`report()["sharded"]` is true). Otherwise the
+    islands run one after another through one shared sim on one device
+    (`device`, or a pre-built `sim`'s). The rows are the same either way,
+    so the federation fingerprint is pinned across shard counts, and it is
+    the JAX face's. `device_loop=True` runs each island's generations in
+    device-resident windows clipped to exchange boundaries (one island
+    after another, whatever the mesh), with the same fingerprint and
+    exchange log as the host loop.
     """
 
     def __init__(
@@ -1333,9 +1338,7 @@ class Federation:
             raise ValueError(
                 f"exchange_every must be >= 1, got {exchange_every}"
             )
-        # one card or the CPU: "auto" resolves to None; a multi-device
-        # mesh (one island per card, one sharded dispatch) is refused
-        resolve_mesh(mesh, device if sim is None else sim.device)
+        self.mesh = resolve_mesh(mesh, device if sim is None else sim.device)
         self.workload = workload
         self.n_islands = int(n_islands)
         self.meta_seed = int(meta_seed)
@@ -1409,26 +1412,50 @@ class Federation:
 
     # ----------------------------------------------------------- dispatch
 
-    def _run_generation(self) -> None:
-        """One federated generation: every island's next population runs
-        as one refill sweep, island after island, and folds into that
-        island's corpus in admission order."""
-        from .tpu.engine import refill_results
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.size == self.n_islands
 
+    def _run_generation(self) -> None:
+        """One federated generation: every island contributes its next
+        population; the rows come back from one sharded refill sweep (a
+        mesh of one shard per island) or from one refill sweep per island,
+        and fold into each island's corpus in admission order."""
+        from .tpu.engine import refill_results, refill_results_sharded
+
+        pops = [ex._population(ex._gen) for ex in self.islands]
         L = self.lanes
-        for ex in self.islands:
-            pop = ex._population(ex._gen)
-            seeds = np.asarray([c.seed for c in pop], np.uint32)
-            st = self.sim.run_refill(
-                seeds, lanes=min(self.refill_lanes, L),
+        if self._sharded():
+            # island i's population IS shard i's contiguous sub-queue:
+            # A = n_islands * lanes over n_islands shards, so Ad = lanes
+            cands = [c for pop in pops for c in pop]
+            st = self.sim.run_refill_sharded(
+                np.asarray([c.seed for c in cands], np.uint32),
+                lanes=min(self.refill_lanes, L), mesh=self.mesh,
                 max_steps=self.workload.max_steps,
-                ctl=ex._ctl_for(pop),
+                ctl=ctl_for(cands, int(self.sim.config.horizon_us),
+                            self.sim.device),
             )
-            res = refill_results(st)
-            ex._fold_generation(ex._gen, [(
-                pop, _u32(res["cov_bitmap"]), res["cov_hiwater"],
-                res["cov_transitions"], res["violated"],
-            )])
+            res = refill_results_sharded(st, admissions=len(cands))
+            rows = [
+                tuple(res[f][i * L:(i + 1) * L] for f in (
+                    "cov_bitmap", "cov_hiwater", "cov_transitions",
+                    "violated"))
+                for i in range(self.n_islands)
+            ]
+        else:
+            rows = []
+            for ex, pop in zip(self.islands, pops):
+                st = self.sim.run_refill(
+                    np.asarray([c.seed for c in pop], np.uint32),
+                    lanes=min(self.refill_lanes, L),
+                    max_steps=self.workload.max_steps,
+                    ctl=ex._ctl_for(pop),
+                )
+                res = refill_results(st)
+                rows.append((res["cov_bitmap"], res["cov_hiwater"],
+                             res["cov_transitions"], res["violated"]))
+        for ex, pop, (bm, hw, tr, vi) in zip(self.islands, pops, rows):
+            ex._fold_generation(ex._gen, [(pop, _u32(bm), hw, tr, vi)])
             ex._gen += 1
 
     # ----------------------------------------------------------- exchange
@@ -1526,7 +1553,7 @@ class Federation:
             "lanes": self.lanes,
             "generations": self._gen,
             "exchange_every": self.exchange_every,
-            "sharded": False,
+            "sharded": self._sharded(),
             "coverage_bits": self.coverage_bits(),
             "seeds_run": sum(r.seeds_run for r in reports),
             "violations": sum(len(r.violations) for r in reports),
@@ -1692,9 +1719,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         "--islands", type=int, default=0,
         help="run an island-model FEDERATION of this many explorers: "
         "per-island corpora and disjoint fresh-seed sub-queues, periodic "
-        "coverage exchange; the islands run one after another on the one "
-        "device (one island per card is not ported yet: ROADMAP.md item "
-        "14) (0 = single explorer)",
+        "coverage exchange; with at least this many visible cards, each "
+        "generation runs as one sharded sweep, one island per card "
+        "(0 = single explorer)",
     )
     parser.add_argument(
         "--exchange-every", type=int, default=4,
@@ -1702,8 +1729,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     parser.add_argument(
         "--mesh", action="store_true",
-        help="shard each generation over the visible cards (not ported "
-        "yet: ROADMAP.md item 14)",
+        help="refused: a single explorer takes no mesh (as on the JAX "
+        "face); shard over cards with --islands",
     )
     parser.add_argument("--out-dir", default=None)
     parser.add_argument(
@@ -1716,22 +1743,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser.parse_args(argv)
 
     if args.mesh:
-        raise _not_ported("explore --mesh (a multi-device mesh)", "item 14")
+        raise ValueError(
+            "explore --mesh: a single explorer takes no mesh (the JAX "
+            "face's explorer has none); its device topology is the "
+            "federation's islands — pass --islands N"
+        )
     wl = _named_workload(args.workload, args.virtual_secs, args.storm)
     shrink_kwargs = {"out_dir": args.out_dir} if args.out_dir else {}
     if args.islands:
-        if (
-            torch.device(args.device).type == "cuda"
-            and 1 < args.islands <= torch.cuda.device_count()
-        ):
-            # where the JAX face would shard the islands over the cards
-            raise _not_ported(
-                "explore --islands over several cards (a multi-device "
-                "mesh)", "item 14")
+        # one island per card when there are enough cards, as the JAX
+        # face does with its visible devices
+        cards = (visible_devices("cuda")
+                 if torch.device(args.device).type == "cuda" else ())
+        mesh = (Mesh(cards[:args.islands], "islands")
+                if 1 < args.islands <= len(cards) else None)
         fed = Federation(
             wl, n_islands=args.islands, meta_seed=args.meta_seed,
             lanes=args.lanes, exchange_every=args.exchange_every,
-            refill_lanes=args.refill_lanes,
+            mesh=mesh, refill_lanes=args.refill_lanes,
             shrink_violations=not args.no_shrink,
             max_shrinks=args.max_shrinks, shrink_kwargs=shrink_kwargs,
             device_loop=args.device_loop,

@@ -15,9 +15,11 @@ reproducer when it has one. With telemetry enabled
 (madsim_tpu_torch/telemetry.py), dispatch, decode and trace are spans,
 the result is recorded, and each traced seed's timeline is written as a
 Perfetto file into `telemetry.out_dir()`. `@batch_test` runs the env-configured seed
-range as one sweep, the analog of `#[madsim::test]`. `mesh="auto"` (the
-default, as on the JAX face) runs unsharded on the CPU or one card;
-multi-device sharding is a later slice (ROADMAP.md queue 1, item 14).
+range as one sweep, the analog of `#[madsim::test]`. `mesh` (a
+`tpu.mesh.Mesh`; "auto", the default as on the JAX face, is every visible
+card, and unsharded on the CPU or one card) shards each chunk's lanes, or
+each refill chunk's admission queue, over the mesh's devices; per-seed
+rows do not depend on it.
 `tuning="auto"` applies the device's measured Tier-A dispatch knobs
 (madsim_tpu_torch/tune.py).
 """
@@ -37,12 +39,13 @@ import torch
 from ..testing import single_seed_repro_command
 from .convert import state_to_numpy
 from .engine import (
-    BatchedSim, DEFAULT_DISPATCH_STEPS, SimState, _not_ported,
-    refill_results, summarize, summarize_refill,
+    BatchedSim, DEFAULT_DISPATCH_STEPS, ShardedState, SimState,
+    refill_results, refill_results_sharded, summarize, summarize_refill,
 )
+from .mesh import Mesh, visible_devices
 from .. import telemetry
 from .nemesis import coverage_report, enabled_fire_kinds
-from .spec import ProtocolSpec, SimConfig
+from .spec import ProtocolSpec, SimConfig, tree_map
 
 # lanes per device dispatch: bounds peak memory for huge sweeps
 DEFAULT_CHUNK = 65_536
@@ -101,7 +104,11 @@ class BatchDeterminismError(AssertionError):
     """Two runs of the same seed batch diverged."""
 
 
-def _assert_runs_bitwise_equal(a: SimState, b: SimState, context: str) -> None:
+def _assert_runs_bitwise_equal(a, b, context: str) -> None:
+    if isinstance(a, ShardedState):
+        for d, (x, y) in enumerate(zip(a.shards, b.shards)):
+            _assert_runs_bitwise_equal(x, y, f"{context}, shard {d}")
+        return
     la, lb = state_to_numpy(a), state_to_numpy(b)
     for i, (name, x) in enumerate(la.items()):
         if not np.array_equal(x, lb[name]):
@@ -219,7 +226,8 @@ class BatchResult:
                 raise ValueError("no violating seeds to shrink")
             seed = self.violating_seeds[0]
         kwargs.setdefault("out_dir", triage.default_bundle_dir())
-        kwargs.setdefault("device", self.state.clock.device)
+        kwargs.setdefault("device", self.state.device if isinstance(
+            self.state, ShardedState) else self.state.clock.device)
         sr = triage.shrink_seed(self.workload, seed, **kwargs)
         self.bundle = sr.bundle
         self.bundle_path = sr.bundle_path
@@ -283,12 +291,12 @@ def _fold_summary(totals: dict, weights: dict, s: dict, size: int) -> None:
 
 def _finish_totals(totals: dict, weights: dict, violated: np.ndarray,
                    cfg: SimConfig, occupancy: float, sweep_ms: float,
-                   cov: Optional[LaneCoverage]) -> None:
+                   cov: Optional[LaneCoverage], n_devices: int) -> None:
     """The sweep-wide summary keys both paths add after their loop."""
     for k, w in weights.items():
         totals[k] = totals[k] / w
     totals["violation_lanes"] = np.nonzero(violated)[0].tolist()[:32]
-    totals["n_devices"] = 1
+    totals["n_devices"] = n_devices
     if enabled_fire_kinds(cfg):
         totals["chaos_coverage"] = coverage_report(totals, cfg)
     totals["device_ms"] = round(sweep_ms, 3)
@@ -299,18 +307,26 @@ def _finish_totals(totals: dict, weights: dict, violated: np.ndarray,
     totals["occupancy"] = round(occupancy, 4)
 
 
-def resolve_mesh(mesh, device="cuda") -> None:
-    """Resolve `run_batch`'s and `shrink_seed`'s `mesh` argument. As the
-    JAX face's `resolve_mesh` does with one device, "auto" runs unsharded
-    (None) on the CPU or on a host with at most one card. A multi-device
-    mesh, explicit or "auto" over several cards, is not ported."""
+def resolve_mesh(mesh, device="cuda") -> Optional[Mesh]:
+    """Resolve `run_batch`'s, `shrink_seed`'s and `Federation`'s `mesh`
+    argument, with the JAX face's rules: None runs unsharded; "auto" is a
+    "seeds" mesh over every visible device of `device`'s type (each card
+    for CUDA), unsharded when that is one device, and always on the CPU; a
+    `Mesh` is used as is, even of size 1 (a sequence of devices is made
+    one)."""
     if mesh is None:
         return None
-    if isinstance(mesh, str) and mesh == "auto" and (
-        torch.device(device).type != "cuda" or torch.cuda.device_count() <= 1
-    ):
-        return None
-    raise _not_ported("a multi-device mesh (mesh=...)", "item 14")
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be None, 'auto' or a Mesh, got "
+                             f"{mesh!r}")
+        devs = visible_devices(device)
+        if torch.device(device).type != "cuda" or len(devs) <= 1:
+            return None
+        return Mesh(devs, "seeds")
+    if isinstance(mesh, Mesh):
+        return mesh
+    return Mesh(mesh, "seeds")
 
 
 def run_batch(
@@ -351,13 +367,16 @@ def run_batch(
     must run chunked. `sim` passes a pre-built BatchedSim (built for the
     workload's spec and config, with the same coverage); `device` is used
     only when run_batch builds the sim. `mesh` resolves through
-    `resolve_mesh`. Per-seed results do not depend on `chunk` or `refill`:
-    no draw folds the lane index. `tuning` ("auto", a Tier-A dict, a
-    `tune.TunedEntry` or a saved entry's path) fills `chunk`,
-    `dispatch_steps`, `pipeline` and `refill` where the caller left them
-    None, from the tuned-config cache entry of the device the sweep runs
-    on (an explicit `refill=0` pins the chunked path); a miss runs the
-    defaults."""
+    `resolve_mesh`: each chunk's lanes (padded to a multiple of the mesh
+    with repeats of its first seed, stripped after) or each refill chunk's
+    queue (`refill` lanes per shard) split over its shards, and the
+    summary's `n_devices` is its size. Per-seed results do not depend on
+    `chunk`, `refill` or `mesh`: no draw folds the lane index. `tuning`
+    ("auto", a Tier-A dict, a `tune.TunedEntry` or a saved entry's path)
+    fills `chunk`, `dispatch_steps`, `pipeline` and `refill` where the
+    caller left them None, from the tuned-config cache entry of the device
+    the sweep runs on (an explicit `refill=0` pins the chunked path); a
+    miss runs the defaults."""
     seeds_arr = np.asarray(list(seeds), dtype=np.uint32)
     if seeds_arr.ndim != 1 or seeds_arr.size == 0:
         raise ValueError("seeds must be a non-empty 1-D sequence")
@@ -389,7 +408,8 @@ def run_batch(
             # an entry recorded on a bigger host of the same kind falls
             # back to the default mesh instead of failing the sweep
             mesh = _tune._mesh_for(tn["devices"], cached=True)
-    resolve_mesh(mesh, run_device)
+    mesh = resolve_mesh(mesh, run_device)
+    n_dev = 1 if mesh is None else mesh.size
     chunk = DEFAULT_CHUNK if chunk is None else int(chunk)
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
@@ -420,8 +440,9 @@ def run_batch(
         )
     if refill:
         return _run_batch_refill(
-            seeds_arr, workload, sim, refill, chunk=chunk, pipeline=pipeline,
-            coverage=coverage, check_determinism=check_determinism,
+            seeds_arr, workload, sim, refill, chunk=chunk, mesh=mesh,
+            pipeline=pipeline, coverage=coverage,
+            check_determinism=check_determinism,
             repro_on_host=repro_on_host, max_host_repros=max_host_repros,
             max_traces=max_traces, shrink_on_violation=shrink_on_violation,
             shrink_kwargs=shrink_kwargs, dispatch_steps=dispatch_steps,
@@ -440,14 +461,18 @@ def run_batch(
 
     def dispatch(off: int):
         part = seeds_arr[off: off + chunk]
+        # a mesh takes a multiple of its size: pad with repeats of the
+        # first seed, whose lanes run and are stripped in decode
+        pad = (-part.size) % n_dev
+        part_in = np.concatenate([part, np.repeat(part[:1], pad)])
         with telemetry.span("dispatch", site="run_batch", off=off):
             st = sim.run(
-                part, max_steps=workload.max_steps,
-                dispatch_steps=dispatch_steps,
+                part_in, max_steps=workload.max_steps,
+                dispatch_steps=dispatch_steps, mesh=mesh,
             )
             rerun = sim.run(
-                part, max_steps=workload.max_steps,
-                dispatch_steps=dispatch_steps,
+                part_in, max_steps=workload.max_steps,
+                dispatch_steps=dispatch_steps, mesh=mesh,
             ) if check_determinism else None
         return off, part.size, st, rerun
 
@@ -460,6 +485,8 @@ def run_batch(
         off, size, st, rerun = entry
         if rerun is not None:
             _assert_runs_bitwise_equal(st, rerun, f"seeds[{off}:{off + size}]")
+        if st.clock.shape[0] != size:
+            st = tree_map(lambda x: x[:size], st)
         state = st
         violated_parts.append(st.violated.cpu().numpy())
         deadlocked_parts.append(st.deadlocked.cpu().numpy())
@@ -496,7 +523,8 @@ def run_batch(
     violated = np.concatenate(violated_parts)
     cov = LaneCoverage.concat(cov_parts) if coverage else None
     occupancy = occ_num / occ_den if occ_den else 1.0
-    _finish_totals(totals, weights, violated, cfg, occupancy, sweep_ms, cov)
+    _finish_totals(totals, weights, violated, cfg, occupancy, sweep_ms, cov,
+                   n_dev)
     result = BatchResult(
         seeds=seeds_arr,
         violated=violated,
@@ -571,18 +599,23 @@ def _post_sweep(
 
 def _run_batch_refill(
     seeds_arr: np.ndarray, workload: BatchWorkload, sim: BatchedSim,
-    lanes: int, chunk: int, pipeline: bool, coverage: bool,
-    check_determinism: bool, repro_on_host: bool, max_host_repros: int,
+    lanes: int, chunk: int, mesh: Optional[Mesh], pipeline: bool,
+    coverage: bool, check_determinism: bool, repro_on_host: bool,
+    max_host_repros: int,
     max_traces: int, shrink_on_violation: bool,
     shrink_kwargs: Optional[Dict[str, Any]],
     dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
 ) -> BatchResult:
     """run_batch's continuously batched sweep: each `chunk` of seeds is the
-    queue of one `run_refill` over `lanes` lanes, dispatched through the
-    same `pipelined` loop as the chunked path; rows are decoded in
+    queue of one `run_refill` over `lanes` lanes, or with a mesh of one
+    `run_refill_sharded` over `lanes` lanes per shard, dispatched through
+    the same `pipelined` loop as the chunked path; rows are decoded in
     admission (= seed) order."""
     if lanes < 1:
         raise ValueError(f"refill lane count must be >= 1, got {lanes}")
+    n_dev = 1 if mesh is None else mesh.size
+    dev_busy = [0] * n_dev
+    dev_total = [0] * n_dev
     res_parts: List[dict] = []
     totals: Dict[str, Any] = {}
     weights: Dict[str, int] = {}
@@ -590,7 +623,11 @@ def _run_batch_refill(
     state: Optional[SimState] = None
     t_sweep = time.perf_counter()
 
-    def run_part(part: np.ndarray) -> SimState:
+    def run_part(part: np.ndarray):
+        if mesh is not None:
+            return sim.run_refill_sharded(
+                part, lanes=lanes, mesh=mesh, max_steps=workload.max_steps,
+                dispatch_steps=dispatch_steps)
         return sim.run_refill(part, lanes=lanes, max_steps=workload.max_steps,
                               dispatch_steps=dispatch_steps)
 
@@ -614,7 +651,13 @@ def _run_batch_refill(
                 st, rerun, f"seeds[{off}:{off + size}] (refill)"
             )
         state = st
-        res = refill_results(st)
+        if mesh is not None:
+            res = refill_results_sharded(st, admissions=size)
+            for d, row in enumerate(res["per_device"]):
+                dev_busy[d] += row["busy_lane_steps"]
+                dev_total[d] += row["total_lane_steps"]
+        else:
+            res = refill_results(st)
         res_parts.append(res)
         occ_num += res["busy_lane_steps"]
         occ_den += res["total_lane_steps"]
@@ -634,8 +677,14 @@ def _run_batch_refill(
     ]) if coverage else None
     occupancy = occ_num / occ_den if occ_den else 1.0
     cfg = workload.config or SimConfig()
-    _finish_totals(totals, weights, violated, cfg, occupancy, sweep_ms, cov)
+    _finish_totals(totals, weights, violated, cfg, occupancy, sweep_ms, cov,
+                   n_dev)
     totals["refill_lanes"] = lanes
+    if mesh is not None:
+        totals["per_device_occupancy"] = [
+            round(dev_busy[d] / max(dev_total[d], 1), 4)
+            for d in range(n_dev)
+        ]
     result = BatchResult(
         seeds=seeds_arr,
         violated=violated,

@@ -67,6 +67,16 @@ eager step is ~2000 kernel launches. The graph is the same step ops on
 static buffers, so every leaf equals the eager loop's
 (tests/test_torch_cuda.py holds them equal on the card).
 
+A lane mesh (`tpu/mesh.py`) shards a sweep: `run(mesh=)` splits the lanes
+into one contiguous block per shard (`shard_state`), and
+`run_refill_sharded` splits the admission queue into one sub-queue per
+shard, each shard the one-device refill state of its sub-queue. Each
+shard runs the ordinary segment loop on its device's twin of the sim
+(`on`), with its own early exit; nothing crosses shards until the
+segment-end gather (`gather_state`, `refill_results_sharded`). No draw
+folds the lane index, so every row equals the unsharded run's
+(tests/test_torch_multichip.py).
+
 Every entry point runs on the CUDA card unless the caller passes
 `device="cpu"`; without a card it raises rather than fall back.
 """
@@ -74,13 +84,15 @@ Every entry point runs on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import collections
+import threading
 import time
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import bitpack, prng
+from .mesh import Mesh, canonical_device, device_context
 from ..nemesis import (
     COIN_DENOM,
     FIRE_INDEX,
@@ -860,16 +872,40 @@ class SimState(NamedTuple):
         return bitpack.unpack_bits(self.member_p, self.timer.shape[1])
 
 
+class ShardedState:
+    """A sharded sweep's state: `shards[d]` is a SimState on
+    `mesh.devices[d]`. One tensor cannot span devices, so this sequence is
+    the port's form of the JAX face's leading device axis. A plain sweep's
+    shard d holds lanes [d*Ld, (d+1)*Ld); a sharded refill sweep's shard d
+    is the one-device refill state of sub-queue d."""
+
+    def __init__(self, shards, mesh: Mesh) -> None:
+        self.shards: Tuple[SimState, ...] = tuple(shards)
+        self.mesh = mesh
+        if len(self.shards) != mesh.size:
+            raise ValueError(
+                f"{len(self.shards)} shards for a mesh of {mesh.size}"
+            )
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device (where a decode of it starts)."""
+        return self.shards[0].clock.device
+
+
+def _shared_field(name: str) -> property:
+    """A BatchedSim attribute kept in `_shared`, the dict a sim shares with
+    its twins on other devices (`BatchedSim.on`)."""
+    return property(lambda self: self._shared[name],
+                    lambda self, v: self._shared.__setitem__(name, v))
+
+
 def resolve_device(device) -> torch.device:
-    """The engine's device: CUDA unless the caller asks for the CPU. A CUDA
-    request without a card raises; it never falls back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "engine on the CPU"
-        )
-    return dev
+    """The engine's device: CUDA unless the caller asks for the CPU, with
+    the card's index made explicit ("cuda" is the current card). A CUDA
+    request without a card, or naming a card the host lacks, raises; it
+    never falls back to another device."""
+    return canonical_device(device)
 
 
 def scale_delay_ppm(d: torch.Tensor, ppm) -> torch.Tensor:
@@ -1197,21 +1233,51 @@ class BatchedSim:
         if self._B:
             self._sidx = torch.arange(self._B, device=dev)
         self._warange = torch.arange(COV_WORDS, device=dev)
-        # host seconds refill steps spent in their one device read (the
-        # wait for the step's queued device work included)
-        self.refill_read_s = 0.0
-        # sweep programs started: one per init of a run, a refill sweep or
-        # a traced run, one per segment of `run_state`, one per traced scan
-        # (the explorer reports it as `device_dispatches`; the JAX face
-        # counts its own XLA programs, so the two counts differ)
-        self.dispatch_count = 0
+        # what a sim and its twins on other devices (`on`) share:
+        #   dispatch_count: sweep programs started, one per init of a run,
+        #     a refill sweep or a traced run, one per segment of
+        #     `run_state`, one per traced scan, one per shard's init and one
+        #     for the put of a sharded sweep, one per segment of the slowest
+        #     shard (the explorer reports it as `device_dispatches`; the JAX
+        #     face counts its own XLA programs, so the two counts differ);
+        #   refill_read_s: host seconds refill steps spent in their one
+        #     device read (the wait for the step's queued device work
+        #     included);
+        #   _eager_run: `_run` runs the eager loop instead of its captured
+        #     blocks (for A/B comparisons)
+        self._shared = {"dispatch_count": 0, "refill_read_s": 0.0,
+                        "_eager_run": False}
+        # this sim's twins by device, itself included (`on`)
+        self._twins: Dict[torch.device, "BatchedSim"] = {self.device: self}
         self.step = self._step
         # `_run`'s captured block of DONE_CHECK_STEPS gated steps (CUDA
         # sims): (layout key, CUDAGraph, static state) for the newest state
-        # layout only, since a graph holds its memory pool while it lives.
-        # `_eager_run` runs the eager loop instead (for A/B comparisons)
+        # layout only, since a graph holds its memory pool while it lives
         self._graph = None
-        self._eager_run = False
+
+    dispatch_count = _shared_field("dispatch_count")
+    refill_read_s = _shared_field("refill_read_s")
+    _eager_run = _shared_field("_eager_run")
+
+    def on(self, device) -> "BatchedSim":
+        """This sim on `device`: itself for its own device, else its twin
+        there (the same spec, config and planes, built once and cached).
+        Twins share the dispatch count, the refill read seconds and the
+        eager-run switch. A sharded sweep runs each shard on
+        its device's twin; `serve` moves a campaign's sweeps to the card a
+        round placed it on."""
+        dev = resolve_device(device)
+        twin = self._twins.get(dev)
+        if twin is None:
+            twin = BatchedSim(
+                self.spec, self.config, triage=self.triage,
+                coverage=self.coverage, lineage=self.lineage,
+                devloop=self.devloop, device=dev,
+            )
+            twin._twins = self._twins
+            twin._shared = self._shared
+            self._twins[dev] = twin
+        return twin
 
     # ------------------------------------------------------------------ init
 
@@ -2995,6 +3061,130 @@ class BatchedSim:
             total_steps = int(state.refill.step_cap) * A * G
         return self.run_state(state, total_steps, dispatch_steps)
 
+    # ------------------------------------------------------------ sharding
+
+    def shard_state(self, state: SimState, mesh: Mesh,
+                    node_axis: Optional[str] = None) -> ShardedState:
+        """Split a plain sweep's lanes over `mesh`: shard d takes the
+        contiguous block d of L / mesh.size lanes, copied to
+        `mesh.devices[d]`. Lanes are independent, so nothing crosses shards
+        until the segment-end gather (`gather_state`). Node-axis sharding
+        (the JAX face's 2-D `node_axis` layout, a memory lever that loses
+        at every N measured there) is not ported."""
+        if node_axis is not None:
+            raise _not_ported(
+                "node-axis sharding (shard_state(node_axis=...))",
+                "item 14b",
+            )
+        if state.refill is not None or state.loop is not None:
+            raise ValueError(
+                "shard_state splits a plain sweep's lanes; a sharded refill "
+                "sweep starts from init_refill_sharded"
+            )
+        L, D = int(state.clock.shape[0]), mesh.size
+        if L % D:
+            raise ValueError(
+                f"lane count {L} not divisible by mesh size {D}; pad the "
+                "seed batch (run_batch does this automatically)"
+            )
+        Ld = L // D
+        return ShardedState((
+            tree_map(lambda x, d=d: x[d * Ld:(d + 1) * Ld].to(
+                mesh.devices[d], copy=True), state)
+            for d in range(D)
+        ), mesh)
+
+    def gather_state(self, state: ShardedState) -> SimState:
+        """The segment-end gather: every shard's leaves, concatenated in
+        shard (= lane) order on this sim's device."""
+        return tree_map(
+            lambda *xs: torch.cat([x.to(self.device) for x in xs]),
+            *state.shards,
+        )
+
+    def init_refill_sharded(
+        self, seeds, lanes: int, mesh: Mesh,
+        ctl: Optional[TriageCtl] = None, step_cap: int = 100_000,
+    ) -> ShardedState:
+        """A sharded refill state: the admission list split into
+        mesh.size contiguous sub-queues of equal length (the tail padded
+        with repeats of the first seed and its ctl row; the pad runs and
+        `refill_results_sharded` strips it), shard d the one-device
+        `init_refill` of sub-queue d over `lanes` lanes on
+        `mesh.devices[d]`. Concatenating the shards' rows in shard order
+        restores the global admission (= seed) order."""
+        if isinstance(seeds, torch.Tensor):
+            seeds = seeds.cpu().numpy()
+        seeds = np.asarray(
+            list(seeds) if isinstance(seeds, range) else seeds
+        ).astype(np.uint32)
+        if seeds.ndim != 1 or seeds.shape[0] == 0:
+            raise ValueError(
+                "init_refill_sharded needs a non-empty 1-D seed array"
+            )
+        D, A = mesh.size, int(seeds.shape[0])
+        Ad = -(-A // D)  # per-shard sub-queue length
+        pad = Ad * D - A
+        seeds = np.concatenate([seeds, np.repeat(seeds[:1], pad)])
+        if ctl is not None:
+            if int(ctl.off.shape[0]) != A:
+                raise ValueError(
+                    f"refill ctl has {int(ctl.off.shape[0])} rows for "
+                    f"{A} admissions — one genome per admission"
+                )
+            ctl = TriageCtl(*(
+                torch.cat([x, x[:1].repeat((pad,) + (1,) * (x.dim() - 1))])
+                for x in ctl
+            ))
+        shards = [
+            self.on(dev).init_refill(
+                seeds[d * Ad:(d + 1) * Ad], lanes,
+                None if ctl is None else TriageCtl(
+                    *(x[d * Ad:(d + 1) * Ad] for x in ctl)),
+                step_cap=step_cap,
+            )
+            for d, dev in enumerate(mesh.devices)
+        ]
+        self.dispatch_count += 1  # the put
+        return ShardedState(shards, mesh)
+
+    def run_state_sharded(
+        self, state: ShardedState, max_steps: int,
+        dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+    ) -> ShardedState:
+        """run_state's segment loop on every shard, one shard after
+        another, each on its device's twin (under that device's context)
+        with its own early exit: nothing crosses shards inside a segment.
+        The dispatch count grows by the slowest shard's segments, as the
+        JAX face counts one sharded program per segment."""
+        start, segments, shards = self.dispatch_count, [], []
+        for st, dev in zip(state.shards, state.mesh.devices):
+            with device_context(dev):
+                shards.append(
+                    self.on(dev).run_state(st, max_steps, dispatch_steps))
+            segments.append(self.dispatch_count - start)
+            self.dispatch_count = start
+        self.dispatch_count += max(segments)
+        return ShardedState(shards, state.mesh)
+
+    def run_refill_sharded(
+        self, seeds, lanes: int, mesh: Mesh, max_steps: int = 100_000,
+        dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
+        ctl: Optional[TriageCtl] = None, total_steps: Optional[int] = None,
+    ) -> ShardedState:
+        """All `seeds` as admissions of mesh.size independent refill sweeps
+        of `lanes` lanes each; decode with `refill_results_sharded(state,
+        admissions=len(seeds))`. `max_steps` is the per-admission budget;
+        `total_steps` bounds each shard's iterations (default max_steps *
+        the sub-queue length, which cannot bind). Every admission's row
+        equals run_refill's."""
+        state = self.init_refill_sharded(seeds, lanes, mesh, ctl,
+                                         step_cap=max_steps)
+        if total_steps is None:
+            total_steps = int(max_steps) * int(
+                state.shards[0].queue.seeds.shape[0])
+        return self.run_state_sharded(state, total_steps, dispatch_steps)
+
     # ------------------------------------------------------------------ run
 
     def _run(self, state: SimState, max_steps: int) -> SimState:
@@ -3040,14 +3230,24 @@ class BatchedSim:
         is captured once per layout (leaf shapes and dtypes, which planes
         are present) and deterministic-mode setting, after a warm-up on a
         side stream; a failed capture raises."""
-        import gc
-
         import torch.utils.deterministic as tdet
 
         key = (_layout(state), torch.are_deterministic_algorithms_enabled(),
                tdet.fill_uninitialized_memory)
         if self._graph is not None and self._graph[0] == key:
             return self._graph[1], self._graph[2]
+        with _CAPTURE_LOCK:
+            return self._capture(state, key)
+
+    def _capture(self, state: SimState, key):
+        """`_block_graph`'s capture, one at a time in the process (the
+        capture lock): on a stream of its own in the thread-local error
+        mode, so other threads' CUDA work (serve's slice lanes) may run
+        beside it, while the collector switch and
+        `torch.cuda.graph`'s device-wide synchronize never overlap another
+        capture."""
+        import gc
+
         self._graph = None  # release the previous layout's pool first
         static = tree_map(torch.clone, state)
         dev_stream = torch.cuda.current_stream(self.device)
@@ -3066,7 +3266,8 @@ class BatchedSim:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 out = static
                 for _ in range(DONE_CHECK_STEPS):
                     out = self._step(out, gate_key=True)
@@ -3096,17 +3297,27 @@ class BatchedSim:
     def run(
         self, seeds, max_steps: int = 100_000,
         dispatch_steps: int = DEFAULT_DISPATCH_STEPS,
-        ctl: Optional[TriageCtl] = None,
+        ctl: Optional[TriageCtl] = None, mesh: Optional[Mesh] = None,
     ) -> SimState:
         """Run lanes until every lane is done (or max_steps). `ctl` gives
-        a triage sim's lanes their shrink controls."""
+        a triage sim's lanes their shrink controls. With `mesh`, the lanes
+        split over its shards (`shard_state`; the lane count must divide
+        evenly), each shard runs the segment loop on its device, and the
+        result is gathered in lane order onto this sim's device: leaf for
+        leaf the unsharded run, since no draw folds the lane index."""
         if dispatch_steps <= 0:
             raise ValueError(
                 f"dispatch_steps must be positive, got {dispatch_steps}"
             )
         state = self.init(seeds, ctl)
         self.dispatch_count += 1
-        return self.run_state(state, max_steps, dispatch_steps)
+        if mesh is None:
+            return self.run_state(state, max_steps, dispatch_steps)
+        sharded = self.shard_state(state, mesh)
+        del state
+        self.dispatch_count += 1  # the put
+        return self.gather_state(
+            self.run_state_sharded(sharded, max_steps, dispatch_steps))
 
     def run_state(
         self, state: SimState, max_steps: int,
@@ -3196,6 +3407,10 @@ class BatchedSim:
         return state._replace(key=torch.as_tensor(
             np.asarray(keys, np.int64), device=self.device
         )), recs
+
+
+# one CUDA graph capture at a time in the process (`BatchedSim._capture`)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _layout(tree):
@@ -3338,6 +3553,11 @@ def refill_results(state: SimState) -> dict:
     path's truncation). Also the lane occupancy: busy lane-steps / lane-
     steps. The JAX face's keys and dtypes (u32 bitmaps and occurrence
     words)."""
+    if isinstance(state, ShardedState):
+        raise ValueError(
+            "state is sharded (run_refill_sharded) — decode it with "
+            "refill_results_sharded"
+        )
     rf = state.refill
     if rf is None:
         raise ValueError("refill_results needs a run_refill final state")
@@ -3362,6 +3582,64 @@ def refill_results(state: SimState) -> dict:
         admissions=int(out["violated"].shape[0]), lanes=L, iters=iters,
         busy_lane_steps=busy, total_lane_steps=iters * L,
         occupancy=busy / max(iters * L, 1), truncated=int(live.sum()),
+    )
+    return out
+
+
+def refill_results_sharded(state: ShardedState,
+                           admissions: Optional[int] = None) -> dict:
+    """Decode a finished sharded refill sweep (run_refill_sharded) into
+    `refill_results`'s per-admission rows, in global admission (= seed)
+    order: shard d's rows are sub-queue d's, concatenated in shard order
+    and stripped of the tail pad (`admissions` = the un-padded seed
+    count). This is the segment-end gather: each shard's rows are a
+    one-device refill of its sub-queue. `truncated` counts the stripped
+    rows that never retired; occupancy comes back aggregate and per shard
+    (`per_device`: busy lane-steps over the shard's own iterations), and
+    `lane_steps_per_iter` is the busy lane-steps over the slowest shard's
+    iterations (one shard caps at `lanes`, D shards at D * lanes)."""
+    if not isinstance(state, ShardedState):
+        if getattr(state, "refill", None) is None:
+            raise ValueError(
+                "refill_results_sharded needs a run_refill_sharded final "
+                "state"
+            )
+        raise ValueError(
+            "state has no leading device axis — use refill_results for "
+            "single-device refill sweeps"
+        )
+    if any(s.refill is None for s in state.shards):
+        raise ValueError(
+            "refill_results_sharded needs a run_refill_sharded final state"
+        )
+    per = [refill_results(s) for s in state.shards]
+    out: dict = {}
+    for f in ("retired",) + _HARVEST + ("occ_fired", "cov_bitmap",
+                                        "cov_hiwater", "cov_transitions"):
+        if per[0][f] is None:
+            out[f] = None
+            continue
+        rows = np.concatenate([p[f] for p in per])
+        out[f] = rows if admissions is None else rows[:admissions]
+    D = len(per)
+    iters = [p["iters"] for p in per]
+    busy = [p["busy_lane_steps"] for p in per]
+    total = [p["total_lane_steps"] for p in per]
+    out.update(
+        admissions=int(out["violated"].shape[0]), lanes=per[0]["lanes"],
+        devices=D, iters=max(iters), busy_lane_steps=sum(busy),
+        total_lane_steps=sum(total),
+        occupancy=sum(busy) / max(sum(total), 1),
+        # from the stripped rows: a truncated admission never retired, so
+        # its row is still -1 (the per-shard counts include the pad)
+        truncated=int((out["retired"] == -1).sum()),
+        per_device=[
+            {"iters": iters[d], "busy_lane_steps": busy[d],
+             "total_lane_steps": total[d],
+             "occupancy": busy[d] / max(total[d], 1)}
+            for d in range(D)
+        ],
+        lane_steps_per_iter=sum(busy) / max(max(iters), 1),
     )
     return out
 

@@ -403,9 +403,11 @@ class _Eval:
     """Evaluates shrink candidates as lanes of batched dispatches, every
     lane on the same seed: with `refill`, a generation is the queue of one
     refill sweep over `lane_width` lanes (padded to a `lane_width`
-    multiple, which fixes its rows); otherwise rows pad to `lane_width`
-    per chunked dispatch (pad lanes replay the first row; their results
-    are discarded)."""
+    multiple, which fixes its rows), or with a mesh one sharded refill
+    sweep (`lane_width` lanes per shard); otherwise rows pad to
+    `lane_width` per chunked dispatch (pad lanes replay the first row;
+    their results are discarded). The chunked path has no sharded form, so
+    it refuses a mesh rather than drop it."""
 
     def __init__(
         self, sim, seed: int, max_steps: int, lane_width: int,
@@ -413,12 +415,18 @@ class _Eval:
     ):
         from .tpu.batch import resolve_mesh
 
-        resolve_mesh(mesh, sim.device)
+        self.mesh = resolve_mesh(mesh, sim.device)
         self.sim = sim
         self.seed = int(seed)
         self.max_steps = int(max_steps)
         self.lane_width = max(2, int(lane_width))
         self.refill = bool(refill)
+        if self.mesh is not None and not self.refill:
+            raise ValueError(
+                "shrink mesh requires the refill evaluator (refill=True): "
+                "the chunked ddmin path has no sharded form — drop the "
+                "mesh or keep refill on"
+            )
         self.dispatches = 0
 
     @staticmethod
@@ -435,19 +443,27 @@ class _Eval:
     def _run_refill(
         self, rows: List[Tuple[int, List[int], List[float], int]]
     ) -> List[Dict[str, int]]:
-        """One generation as the admissions of one refill sweep."""
+        """One generation as the admissions of one refill sweep (sharded
+        over the mesh when there is one)."""
         from . import telemetry
-        from .tpu.engine import refill_results
+        from .tpu.engine import refill_results, refill_results_sharded
         from .tpu.spec import REBASE_US
 
         rows_p = rows + [rows[0]] * ((-len(rows)) % self.lane_width)
         seeds = np.full((len(rows_p),), self.seed, np.uint32)
         with telemetry.span("dispatch", site="shrink", candidates=len(rows)):
-            st = self.sim.run_refill(seeds, lanes=self.lane_width,
-                                     max_steps=self.max_steps,
-                                     ctl=_ctl_of_rows(rows_p))
-            self.dispatches += 1
-            res = refill_results(st)
+            if self.mesh is not None:
+                st = self.sim.run_refill_sharded(
+                    seeds, lanes=self.lane_width, mesh=self.mesh,
+                    max_steps=self.max_steps, ctl=_ctl_of_rows(rows_p))
+                self.dispatches += 1
+                res = refill_results_sharded(st, admissions=len(rows_p))
+            else:
+                st = self.sim.run_refill(seeds, lanes=self.lane_width,
+                                         max_steps=self.max_steps,
+                                         ctl=_ctl_of_rows(rows_p))
+                self.dispatches += 1
+                res = refill_results(st)
         t_us = (res["violation_epoch"].astype(np.int64) * REBASE_US
                 + res["violation_at"].astype(np.int64))
         return self._verdicts(len(rows), res["violated"],
@@ -606,9 +622,10 @@ def shrink_seed(
     lineage sim on the shrink sim's device, so the shrink's dispatches
     never carry the lineage plane. With telemetry enabled, the shrink's
     dispatches are spans and its result (and causal digest) is recorded
-    (`telemetry.record_shrink`, `record_causal`). `mesh="auto"`
-    resolves as `run_batch`'s does; a multi-device `mesh` is not ported
-    (ROADMAP item 14). `tuning` may set the evaluator's `lane_width` where
+    (`telemetry.record_shrink`, `record_causal`). `mesh` resolves as
+    `run_batch`'s does and runs each refill generation as one sharded
+    sweep, with the same bundle; `refill=False` refuses a mesh. `tuning`
+    may set the evaluator's `lane_width` where
     the caller left it None (the tuned `refill_lanes` at the 16-lane
     bucket); the bundle is the same at any width."""
     from .tpu.engine import BatchedSim

@@ -18,8 +18,8 @@ Two knob tiers, kept apart:
   on its batch position, the chunk phase or the retirement order, so a
   tuned run's per-seed rows equal the default run's exactly and the knobs
   may be applied anywhere, even mid-campaign. `devices` is offered only
-  when more than one card is visible; a multi-device mesh is not ported
-  (ROADMAP.md queue 1, item 14).
+  when more than one card is visible (d > 1 is a "seeds" mesh over the
+  first d cards).
 
   Tier B — trajectory-AFFECTING config knobs (`msg_capacity`,
   `msg_depth_msg`, `msg_depth_timer`, `msg_spare_slots`, and spec knobs
@@ -613,18 +613,26 @@ def _finish_entry(
 
 
 def _mesh_for(devices: int, cached: bool = False):
-    """0 = the production default mesh ("auto"); 1 = unsharded (None).
-    More devices is a multi-device mesh, which is not ported: a tuned
-    cache entry recorded on a bigger host (`cached=True`, the consumer
-    side) falls back to "auto" — a cache entry can only be a throughput
-    decision, never a crash — and the tuner's own search refuses."""
+    """0 = the production default mesh ("auto": every visible card); 1 =
+    unsharded (None); d > 1 = an explicit "seeds" mesh over the first d
+    cards. `cached=True` is the consumer side (a driver applying a tuned
+    cache entry, keyed by card kind, not count): an entry recorded on a
+    bigger host falls back to "auto", since a cache entry can only be a
+    throughput decision, never a crash; the tuner's own search raises on
+    a count the host cannot give."""
+    from .tpu.mesh import Mesh, visible_devices
+
     d = int(devices)
-    if d == 0 or (d > 1 and cached):
+    if d == 0:
         return "auto"
     if d == 1:
         return None
-    raise _not_ported(f"a {d}-device mesh (tune knob devices={d})",
-                      "item 14")
+    cards = visible_devices("cuda")
+    if d > len(cards):
+        if cached:
+            return "auto"
+        raise ValueError(f"devices={d} but only {len(cards)} visible")
+    return Mesh(cards[:d], "seeds")
 
 
 def tier_a_knobs(

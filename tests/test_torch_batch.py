@@ -97,15 +97,16 @@ def test_check_determinism_catches_an_impure_spec():
 def test_run_batch_refuses_out_of_slice_options():
     """Tuning applies Tier-A dispatch knobs only (a Tier-B config knob is
     refused at dispatch, as on the JAX face; tuning itself was once
-    refused, item 12); multi-device mesh sharding (item 14) stays refused
-    (mesh="auto" on the CPU runs unsharded, as the JAX face does on one
-    device); refill (once refused, item 11) refuses only a lane_check
+    refused, item 12); a mesh naming cards this host lacks is refused
+    when it is built, never run elsewhere (multi-device sharding itself,
+    once refused as item 14, is tests/test_torch_multichip.py's); refill
+    (once refused, item 11) refuses only a lane_check
     workload, as on the JAX face; a pre-built sim must match the workload
     and the coverage."""
     _, twl = _faces(False)
     with pytest.raises(ValueError, match="not Tier-A"):
         run_batch(SEEDS, twl, tuning={"msg_capacity": 8}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         run_batch(SEEDS, twl, mesh=("cuda:0", "cuda:1"), device="cpu")
     checked = dataclasses.replace(
         twl, lane_check=lambda st, lanes: {"violations": 0})

@@ -20,7 +20,8 @@ The same inputs go through both faces on the CPU:
     its sha, and `replay_device(explain=N)` raises on a tampered one;
   * F1 `BatchResult.chaos_fires`/`chaos_report()` equal the JAX face's and
     show a dead clause; F2 `mesh="auto"` runs unsharded on the CPU or one
-    card and equals `mesh=None`; F3 the re-exports and `--backend tpu`.
+    card and equals `mesh=None`, and is every card's mesh over several;
+    F3 the re-exports and `--backend tpu`.
 
 Tolerances: exact everywhere (integers, strings, JSON byte for byte).
 """
@@ -340,23 +341,27 @@ def test_chaos_fires_and_report_equal_the_jax_face_and_auto_mesh():
 
 def test_resolve_mesh_auto_on_one_card_and_refuses_several(monkeypatch):
     """F2: "auto" is None on the CPU and on a host with one card, as the
-    JAX face's resolve_mesh is with one device; a multi-device mesh,
-    explicit or "auto" over two cards, is refused with its ROADMAP item,
-    by run_batch and the shrinker alike."""
+    JAX face's resolve_mesh is with one device; over two cards it is a
+    "seeds" mesh of both, and an explicit device list is a mesh as it is
+    (the multi-device mesh once refused as item 14), by run_batch and the
+    shrinker alike; a list naming cards the host lacks is refused."""
     assert tbatch.resolve_mesh(None) is None
     assert tbatch.resolve_mesh("auto", "cpu") is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert tbatch.resolve_mesh("auto", "cuda") is None
     sim = BatchedSim(chip_smoke.triage_workload().spec, None, triage=True,
                      device="cpu")
     assert triage._Eval(sim, 0, 100, 4, mesh="auto").lane_width == 4
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tbatch.resolve_mesh("auto", "cuda:0")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="lacks"):
         tbatch.resolve_mesh(("cuda:0", "cuda:1"), "cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        triage._Eval(sim, 0, 100, 4, mesh=("cuda:0", "cuda:1"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    two = (torch.device("cuda", 0), torch.device("cuda", 1))
+    auto = tbatch.resolve_mesh("auto", "cuda:0")
+    assert auto.devices == two and auto.axis_name == "seeds"
+    assert tbatch.resolve_mesh(("cuda:0", "cuda:1"), "cpu") == auto
+    assert triage._Eval(sim, 0, 100, 4, mesh=("cuda:0", "cuda:1")).mesh \
+        == auto
 
 
 def test_tpu_package_reexports_the_schedule_twin():

@@ -317,3 +317,54 @@ def test_no_cyclic_collection_inside_a_capture(cuda_device):
     inside = [on for capturing, on in seen if capturing]
     assert len(inside) == 32 and not any(inside)
     assert all(on for capturing, on in seen if not capturing)
+
+
+@pytest.mark.cuda
+def test_two_threads_capture_and_replay_at_once(cuda_device):
+    """Captures take a process lock, a stream of their own and the
+    thread-local error mode, so two threads, each capturing its own sim's
+    graph and replaying it while the other captures or steps, give the
+    rows a sequential run gives (serve's slice lanes, shards on distinct
+    cards)."""
+    import threading
+
+    spec, cfg, seeds, _ = pinned_run("raft_bench")
+    blocks = [seeds[:32], seeds[32:]]
+    want = [state_to_numpy(BatchedSim(spec, cfg, device=cuda_device)
+                           .run(b, 200)) for b in blocks]
+    sims = [BatchedSim(spec, cfg, device=cuda_device) for _ in blocks]
+    got, errors = {}, []
+
+    def run(i):
+        try:
+            got[i] = state_to_numpy(sims[i].run(blocks[i], 200))
+        except BaseException as e:  # noqa: BLE001 - reraised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i in range(2):
+        assert sims[i]._graph is not None
+        for k in want[i]:
+            np.testing.assert_array_equal(got[i][k], want[i][k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_sharded_run_on_one_card_equals_the_unsharded_run(cuda_device):
+    """`run(mesh=)` over four shards of the one card (each shard's block
+    captured on the sim's graph slot, one after another) is leaf-equal to
+    the unsharded run, and its result lives on the sim's card."""
+    from madsim_tpu_torch.tpu.mesh import Mesh
+
+    spec, cfg, seeds, _ = pinned_run("raft_bench")
+    sim = BatchedSim(spec, cfg, device=cuda_device)
+    want = state_to_numpy(sim.run(seeds, 200))
+    out = sim.run(seeds, 200, mesh=Mesh((cuda_device,) * 4))
+    assert out.clock.device == sim.device
+    got = state_to_numpy(out)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

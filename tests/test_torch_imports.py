@@ -60,13 +60,15 @@ def test_no_port_module_imports_jax_or_the_jax_package():
         os.path.join("speclang", "device.py"),
         os.path.join("speclang", "specs", "backup.py"),
         os.path.join("speclang", "generated", "backup_device.py"),
+        os.path.join("tpu", "mesh.py"),
     )} <= seen
 
 
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys; import madsim_tpu_torch.tpu, madsim_tpu_torch.tpu.digest, "
-        "madsim_tpu_torch.tpu.convert, madsim_tpu_torch.telemetry, "
+        "madsim_tpu_torch.tpu.convert, madsim_tpu_torch.tpu.mesh, "
+        "madsim_tpu_torch.telemetry, "
         "madsim_tpu_torch.explore, madsim_tpu_torch.workloads, "
         "madsim_tpu_torch.speclang.emit; "
         "from madsim_tpu_torch import workloads; "

@@ -17,8 +17,9 @@ Both faces serve the same request directories on the CPU with
     read), served by the JAX face in one run and by the port through its
     CLI killed after round 1 and restarted: every streamed line carries
     the JAX face's fingerprint, and the tuned campaign's the untuned one's;
-  * refusals: the oracle tenant (item 16, naming --no-oracle) and more
-    than one card (item 14).
+  * the oracle tenant is refused (item 16, naming --no-oracle); serve
+    over two CPU devices (two slice lanes on two threads) drains three
+    real campaigns with the one-device serve's fingerprints.
 
 Tolerances: exact (JSON lines, fingerprints).
 """
@@ -88,10 +89,23 @@ def _write(d, sub, name, doc):
             json.dump(doc, f)
 
 
+def _by_campaign(events):
+    """Each campaign's own events, in the order they happened."""
+    out = {}
+    for e in events:
+        out.setdefault(e[1], []).append(e)
+    return out
+
+
 def _serve_both(tmp_path, setup, make_stub=None, **kw):
     """Serve the same request dir on each face with stub campaigns:
     {face: (result, lines, events, listing, dir)}; the faces' streams,
-    events and listings must be equal."""
+    events and listings must be equal. With more than one device, each
+    device's slice lane appends its stubs' events from its own thread, so
+    the global interleaving is the OS scheduler's on either face: there
+    each campaign's own event sequence must be equal (the streamed lines
+    are sorted by both faces before they print, and stay compared
+    whole)."""
     out = {}
     for face, (mod, ex_mod) in FACES.items():
         d = str(tmp_path / face)
@@ -107,7 +121,12 @@ def _serve_both(tmp_path, setup, make_stub=None, **kw):
                         factory=factory, sleep=lambda s: None, oracle=False,
                         **kw)
         out[face] = (res, lines, events, _listing(d), d)
+    threaded = len(kw.get("devices") or ()) > 1
     for i in range(4):
+        if i == 2 and threaded:
+            assert _by_campaign(out["port"][2]) == _by_campaign(
+                out["jax"][2])
+            continue
         assert out["port"][i] == out["jax"][i], i
     return out["port"]
 
@@ -299,22 +318,46 @@ def test_serve_request_auto_tuning_resolves_before_conflict_check(
             {"chunk": 0, "lanes": 16, "workload": "raft", "storm": None})
 
 
+SMALL = {"workload": "raft", "virtual_secs": 0.2, "lanes": 8, "chunk": 8,
+         "generations": 2, "shrink": False}
+
+
 def test_serve_refuses_the_oracle_tenant_and_several_cards(tmp_path):
+    """The oracle tenant is refused (item 16). Serve over several devices
+    (once refused as item 14) runs: two CPU devices, two slice lanes on
+    two threads, drain three real small campaigns with the fingerprints
+    the one-device serve streams, generation for generation."""
     d = str(tmp_path / "svc")
     with pytest.raises(NotImplementedError, match="item 16") as e:
         campaign.serve(d)
     assert "--no-oracle" in str(e.value) and not os.path.exists(d)
     with pytest.raises(NotImplementedError, match="item 16"):
         campaign.main(["serve", "--dir", d, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        campaign.serve(d, oracle=False, devices=[torch.device("cuda", 0),
-                                                 torch.device("cuda", 1)])
     for dev in (None, torch.device("cpu"), "d0", 3):
         assert isinstance(campaign._device_ctx(dev),
                           contextlib.nullcontext)
     with pytest.raises(SystemExit, match="out of range"):
         campaign.main(["serve", "--dir", d, "--device", "cpu", "--no-oracle",
                        "--devices", "2"])
+    streams = {}
+    for name, devices in (("one", None),
+                          ("two", [torch.device("cpu")] * 2)):
+        farm = str(tmp_path / name)
+        for i, cid in enumerate(("a", "b", "c")):
+            _write(farm, "queue", cid, dict(SMALL, meta_seed=i + 1))
+        lines = []
+        res = campaign.serve(
+            farm, out=lambda s: lines.append(json.loads(s)),
+            sleep=lambda s: None, oracle=False, idle_rounds=1,
+            devices=devices, device="cpu")
+        assert sorted(res["completed"]) == ["a", "b", "c"]
+        assert res["devices"] == (2 if devices else 1)
+        streams[name] = sorted((x["campaign"], x["generation"],
+                                x["fingerprint"])
+                               for x in lines if "fingerprint" in x)
+        if devices:
+            assert {x["device"] for x in lines if "report" in x} == {0, 1}
+    assert streams["two"] == streams["one"] and len(streams["one"]) == 6
 
 
 REQUEST = {"workload": "raft", "virtual_secs": 0.5, "meta_seed": 11,

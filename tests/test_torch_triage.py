@@ -14,9 +14,10 @@ The same inputs, made from seeds, go through both faces on the CPU:
     `digest.PINNED_BUNDLE`, and bundles replay across faces at the
     recorded step and time;
   * each argument that needs an unported plane raises NotImplementedError
-    (the refill evaluator, the causal digest and the Perfetto renderings
-    are ported; a sharded shrink, tuning and the host backends are not),
-    and the Perfetto renderings (`causal.slice_perfetto`,
+    (the refill evaluator, the causal digest, the Perfetto renderings and
+    the sharded shrink are ported; a Tier-B tune and the host backends
+    are not), a mesh naming cards the host lacks raises, and the Perfetto
+    renderings (`causal.slice_perfetto`,
     `replay_device(perfetto=...)`) write the JAX face's JSON.
 
 Tolerances: exact everywhere (integer leaves widened to int64, the ctl's
@@ -495,13 +496,15 @@ def test_shrink_rejects_a_non_violating_seed():
 
 # ------------------------------------------------------- refusals
 
-# an explicit multi-device mesh ("auto" runs unsharded on the CPU)
+# a mesh naming cards this host lacks: refused when it is built, never
+# run elsewhere (a multi-device mesh was refused as item 14 until it came;
+# tests/test_torch_multichip.py drives it)
 MESH = ("cuda:0", "cuda:1")
 REFUSED = [
     ("refill", lambda wl: run_batch(range(2), wl, refill=2, mesh=MESH,
-                                    device="cpu"), "item 14"),
+                                    device="cpu"), "no CUDA device"),
     ("mesh", lambda wl: triage.shrink_seed(wl, 0, mesh=MESH,
-                                           device="cpu"), "item 14"),
+                                           device="cpu"), "no CUDA device"),
     # (shrink_seed(tuning=) was refused until item 12; a Tier-B tune,
     # whose certifier is item 15, stays refused)
     ("tuning", lambda wl: tune.tune_workload(wl, "planted", tier="B",
@@ -516,7 +519,8 @@ REFUSED = [
 @pytest.mark.parametrize("what,call,item", REFUSED,
                          ids=[r[0] for r in REFUSED])
 def test_unported_arguments_are_refused(what, call, item):
-    with pytest.raises(NotImplementedError, match=item):
+    exc = RuntimeError if item == "no CUDA device" else NotImplementedError
+    with pytest.raises(exc, match=item):
         call(chip_smoke.triage_workload())
 
 
