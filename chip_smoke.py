@@ -11,8 +11,8 @@ workloads, the triage path (trace, shrink, replay), and continuous
 batching with the coverage plane, the causal-lineage plane, the telemetry
 plane, the coverage-guided explorer and its device-resident search loop,
 campaigns and the island federation, the speclang device face, measured
-tuning, the fuzz service and the lane mesh — and checks it, in eighteen
-phases. Every sweep without a refill queue runs
+tuning, the fuzz service, the lane mesh and the host runtime under the
+differential oracle — and checks it, in nineteen phases. Every sweep without a refill queue runs
 `BatchedSim._run`'s captured blocks (one CUDA graph replay per 32 gated
 steps), so the pins and digests of phases 2, 4 and 6-9 are the capture's
 correctness gate too:
@@ -186,10 +186,12 @@ correctness gate too:
    at least 5/64 of its lanes, every enabled fire kind fires, and seeds
    0..63 equal a 64-lane CPU run in every leaf but `key`; (e) the explorer
    over the buggy backup (64 lanes, one generation, one shrink) finds the
-   bug, and its shrunk bundle keeps Duplicate or Reorder. Phase 9's end
-   moves earlier by PHASE16_BUDGET_S to pay for it;
-17. measured tuning and the fuzz service (after phase 16, before phase
-   8): (a) `tune.tune_workload` over the registry's raft at 2 virtual s,
+   bug, and its shrunk bundle keeps Duplicate or Reorder ((e) runs last
+   in phase 18's child, at the host valve's horizon: its line appears
+   after phase 17's). Phase 9's end moves earlier by PHASE16_BUDGET_S to
+   pay for it;
+17. measured tuning and the fuzz service (in phase 18's child, after
+   phase 19: its lines appear after phase 19's): (a) `tune.tune_workload` over the registry's raft at 2 virtual s,
    4096 seeds, the quick Tier-A grid, into a fresh cache directory: its
    trials, winner, fallback, baseline and tuned seeds/s and cache key are
    printed; the entry's device kind is the card's sanitized name,
@@ -206,16 +208,15 @@ correctness gate too:
    `campaign.serve(oracle=False)` on the card over a watch dir with two
    requests at `EXPLORE_RUN`'s size for 2 generations, one slice each per
    round: the pinned explorer run ("planted", under "tuning": "auto" with
-   a card entry for its scale) and the registry's raft at 1 virtual s;
-   stopped after round 1 and restarted on the same dir: "planted" ends
-   at `PINNED_EXPLORE`, under its persisted tuning, and raft at the final
-   fingerprint of an uninterrupted CPU serve of the same request. Phase
-   9's end moves earlier by PHASE17_BUDGET_S to pay for it, and later by
-   PHASE9_SLACK_S, the slack the runs before phase 17 left below 1150 s;
-   its horizons are printed;
+   a card entry for its scale) and the registry's raft at 1 virtual s
+   (the host valve's horizon); stopped after round 1 and restarted on
+   the same dir: "planted" ends at `PINNED_EXPLORE`, under its persisted
+   tuning, and raft at the final fingerprint of an uninterrupted CPU
+   serve of the same request;
 18. the lane mesh (in a child process started after phase 9, beside
-   phases 10-17, joined before phase 8: its lines appear after phase
-   17's and count seconds from the child's start; the host shows one
+   phases 10-16(d), joined before phase 8; the child then runs phases
+   19, 17 and 16(e): its lines appear after phase 16(d)'s and count
+   seconds from the child's start; the host shows one
    card, so every mesh repeats it and a mesh's shards run one after
    another there): (a) the sharded refill of 32 admissions of
    tests/test_multichip.py's plan with a 10x horizon spread, 4 lanes a
@@ -236,9 +237,43 @@ correctness gate too:
    phase 11's spread mix (32768 admissions) as a sharded refill of 4096
    lanes a shard on 2 shards, rows equal to the unsharded refill of 4096
    lanes. Every check is asserted. Its walls and per-iteration times are
-   taken beside phases 10-17 (the two processes share the card and the
-   host). Phase 9's end moves earlier by PHASE18_BUDGET_S, the time the
-   child is expected to add to the phases beside it.
+   taken beside phases 10-16(d) (the two processes share the card and
+   the host). Phase 9's end moves earlier by CHILD_BUDGET_S, the time the
+   child is expected to add to the phases beside it, and later by
+   PHASE9_SLACK_S, the slack the runs before phase 17 left below 1150 s;
+   its horizons are printed. Before phase 10 and the child start, a
+   depth valve probes eager refill iterations at one shard (18(a)'s
+   config) and, on a host slower than the reference host (VALVE_REF_MS),
+   scales the depths of 16(e) (the buggy backup's horizon) and 17(d)
+   (the raft request's horizon) down in proportion, never below their
+   floors (printed; the child is given them as one JSON argument);
+19. the host runtime under the differential oracle (in phase 18's child,
+   after phase 18, under PYTHONHASHSEED=0; (e) in the parent right after
+   phase 10): (a) `madsim_tpu_torch.Runtime.run_batch` over 8192 seeds of
+   chain's blind-apply spec under heavy-tail stragglers at 8 virtual s
+   (tests/test_tpu_chain.py:40-63) violates on more than half the lanes,
+   the correct spec on none, the first 16 lanes equal a CPU run, and its
+   `host_repros` are a CPU call of the port's chain twin each; (b) a raft5
+   lane traced on the card under PLAN8 (tests/test_oracle.py) at 3 virtual
+   s: chaos events = schedule = the host NemesisDriver's applied stream,
+   skew equal; (c) `oracle.check_seed` on 16 lanes of a card sweep of the
+   raft bench config under PLAN8 at 10 virtual s, each MATCH, the pinned
+   lane at `digest.PINNED_ORACLE`; under the divergence plant it diverges
+   at a reorder_extra draw, the plant lane shrinks to [("reorder", None)]
+   and `python -m madsim_tpu_torch.repro <bundle> --backend both` exits 1
+   naming the first divergent event; (d) `serve` with its oracle tenant on
+   the card, two raft requests at 1 virtual s (one under all eight
+   clauses), stopped after round 1 and restarted: the tenant checked
+   lanes and compared coin draws with no error or divergence, its cursor
+   resumed,
+   and oracle.json and the status block equal an uninterrupted CPU
+   serve's; the tenant's host seconds are printed beside the slice walls;
+   (e) phase 10's card bundle replays with `backend="both"`.
+
+`python3 chip_smoke.py --contention-probe` runs none of the phases: it
+times the host valve's probe alone, over and over beside the child of
+phases 18, 19, 17 and 16(e) (at their full depths), and alone again, and
+prints the probe's slowdown in each of the child's phases.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
 to port), so the kernel list is empty; the reason is printed on the line
@@ -273,12 +308,20 @@ PROFILE_STEPS = 20
 PROFILE_FLAG = "--phase5-profile"
 # the argument that runs phase 6 (the golden runs) as a child process
 GOLDEN_FLAG = "--phase6-golden"
-# the argument that runs phase 18 (the lane mesh) as a child process
+# the argument that runs phases 18, 19, 17 and 16(e) as a child process,
+# with the valve's depths as one JSON object after it
 MESH_FLAG = "--phase18-mesh"
 # the argument that times phases 2, 3, 9's parity runs and phase 6 one
 # after the other, then overlapped (serial_probe), without the rest of the
 # script
 SERIAL_FLAG = "--serial-probe"
+# the argument that times the valve's probe alone, over and over beside
+# the child of MESH_FLAG, and alone again (contention_probe), without the
+# rest of the script
+CONTENTION_FLAG = "--contention-probe"
+# phase 19's CPU references run in a process of their own, beside its card
+# legs (a thread would share the GIL with the card's host-bound launches)
+ORACLE_CPU_FLAG = "--phase19-cpu"
 PHASE4_BUDGET_S = 300.0
 STORM_LANES = 32768
 # (45 s since phase 13 came: on one H100 the script ended at 1114 s with
@@ -337,15 +380,16 @@ PHASE15_BUDGET_S = 45.0
 # phase 16 (the speclang device face: full-width twopc-gen and backup, the
 # explorer on the buggy backup) buys its time from phase 9 the same way
 PHASE16_BUDGET_S = 120.0
-# phase 17 (measured tuning and the fuzz service) buys its time from phase
-# 9 the same way (its 4096-admission refill sweep steps eagerly, ~35 ms an
-# iteration)
-PHASE17_BUDGET_S = 110.0
-# phase 18 (the lane mesh on one card: 96-104 s alone on one H100, its
-# full-width legs included) runs in a child process beside phases 10-17,
-# whose eager steps leave the card idle most of the time; it buys from
-# phase 9 the time it is expected to add to them there
-PHASE18_BUDGET_S = 30.0
+# phases 18 (the lane mesh), 19 (the host oracle), 17 (measured tuning
+# and the fuzz service) and 16(e) (the explorer over the buggy backup) run
+# one after another in one child process beside phases 10-16(d), whose
+# eager steps leave the card idle most of the time; they buy from phase 9
+# the time the child is expected to add to the phases beside it: beside
+# its phases 18 / 19 / 17 / 16(e) an eager refill iteration here took
+# 1.11 / 1.23 / 1.13 / 1.20x its time alone (`--contention-probe` on one
+# H100, 700 W), so ~60-120 s over 10-16(d)'s ~520 s on the reference
+# host; 140 s keeps the anchor where phases 17 and 18 left it
+CHILD_BUDGET_S = 140.0
 # before phase 17, five runs on one H100 ended at 884.0-973.6 s with
 # phase 9 at its floors, ending ~90 s past the anchor below: those 90 s
 # and the 176 s the slowest run left below 1150 s go back to phase 9,
@@ -359,8 +403,8 @@ PHASE9_SLACK_S = 265.0
 PHASE6_OVERLAP_S = 120.0
 PHASE9_END_S = (984.0 + PHASE9_SLACK_S - PHASE10_BUDGET_S
                 - PHASE11_BUDGET_S - PHASE13_BUDGET_S - PHASE14_BUDGET_S
-                - PHASE15_BUDGET_S - PHASE16_BUDGET_S - PHASE17_BUDGET_S
-                - PHASE18_BUDGET_S - PHASE6_OVERLAP_S)
+                - PHASE15_BUDGET_S - PHASE16_BUDGET_S - CHILD_BUDGET_S
+                - PHASE6_OVERLAP_S)
 # the least share of its horizon a phase-9 cell may be cut to: the buggy
 # cells keep half (the JAX face's bug shares were measured there), the
 # correct cells' gates (no violation, every enabled kind fires) are
@@ -429,12 +473,17 @@ BACKUP_BUG_SHARE = 5 / 64
 # phase 16(e): the explorer's lanes over the buggy backup (the JAX deep
 # test's, tests/test_speclang.py:251-276)
 SPECLANG_EXPLORE_LANES = 64
+# 16(e)'s buggy backup horizon (the workload's default); the host valve may
+# cut it, never below VALVE_FLOORS' (16(d)'s floor for a buggy build)
+BACKUP_EXPLORE_SECS = 10.0
 # phase 17: the Tier-A tune's sweep (the registry's raft at TUNE_SECS
 # virtual seconds, TUNE_SEEDS seeds, the quick grid), the forced Tier-A
 # assignments run beside its cache hit, the Tier-B gate's seeds (the JAX
 # test's, tests/test_tune.py:426-440), and serve's requests: the pinned
 # explorer run (as "planted", on explore_workload) and the registry's raft
-# at SERVE_SECS, both at EXPLORE_RUN's size for SERVE_GENERATIONS
+# at SERVE_SECS (which the host valve may cut), both at EXPLORE_RUN's size
+# for SERVE_GENERATIONS; 19(d) serves its raft requests at that size, at
+# SERVE_SECS uncut
 TUNE_SEEDS = 4096
 TUNE_SECS = 2.0
 TUNE_FORCED = {"forced": {"chunk": 1024, "dispatch_steps": 5000,
@@ -472,6 +521,25 @@ MESH_THREAD_LANES = 64
 # REFILL_WIDE_LANES lanes a shard
 MESH_WIDE_SECS = 1.0
 MESH_REFILL_SHARDS = 2
+# phase 19 (the host runtime under the differential oracle) runs in the
+# child after phase 18 (83.5-97.8 s there on one H100 without traced
+# seeds in (a), PERF.md section 6); 19(a): chain's blind apply under heavy-tail stragglers at chain's bench
+# width (tests/test_tpu_chain.py:40-63 at 8192 lanes), and the host repros
+CHAIN_TAIL_SEEDS = 8192
+CHAIN_TAIL_SECS = 8.0
+CHAIN_HOST_REPROS = 4
+# 19(b): tests/test_oracle.py's PLAN8 horizon and seed
+PLAN8_H_US = 3_000_000
+PLAN8_SEED = 7
+# 19(c): the lanes of the card sweep the oracle replays at the bench horizon
+ORACLE_SEEDS = 16
+# the host valve: the reference host, on which the script's phases were
+# budgeted, took 29.4 ms per eager refill iteration at one shard (phase
+# 18(a)'s one-shard run, PERF.md section 6; H100 80GB HBM3, 700 W); a
+# slower host scales the depths of 16(e) and 17(d) down in proportion,
+# never below these floors (virtual s)
+VALVE_REF_MS = 29.4
+VALVE_FLOORS = {"backup_explore_secs": 5.0, "serve_secs": 0.5}
 # the whole script must end well inside the 1200 s the card run allows;
 # phase 8 (run last) splits what is left of this target across its runs
 TARGET_S = 1050.0
@@ -780,21 +848,35 @@ def serial_probe() -> dict:
 
 
 def spawn_child(*args: str):
-    """This script in a child process, with `args`; join_child reads it."""
-    return subprocess.Popen(
+    """This script in a child process, with `args`; join_child reads it.
+    Its output goes to unnamed files (a pipe read only at the join would
+    stall a child that fills it). The child's str hash seed is pinned
+    (PYTHONHASHSEED=0), as the host runtime asks for cross-process
+    repro."""
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(2)]
+    child = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), *args],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        stdout=logs[0], stderr=logs[1], text=True,
+        env=dict(os.environ, PYTHONHASHSEED="0"),
     )
+    child.logs = logs
+    return child
 
 
 def join_child(child, what: str, timeout_s: float) -> dict:
     """Wait for a child process of this script, print its phase lines and
     return its result (its last stdout line, JSON)."""
     try:
-        out, err = child.communicate(timeout=timeout_s)
+        child.wait(timeout=timeout_s)
     except subprocess.TimeoutExpired:
         child.kill()
-        out, err = child.communicate()
+        child.wait()
+    texts = []
+    for f in child.logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    out, err = texts
     check(child.returncode == 0, f"{what}'s process failed: {err[-3000:]}")
     lines = out.strip().splitlines()
     for line in lines[:-1]:
@@ -1014,13 +1096,19 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
     report["profile"] = prof_out
     report["storm"] = phase7_storm(cuda)
     report["membership"] = phase9_membership(cuda) | {"parity": parity}
-    # phase 18 runs in a child process beside phases 10-17: both sides
-    # are host-bound eager sweeps (the card idles most of each step), so
-    # its walls overlap theirs, as phase 6's do phases 2-3's
-    mesh_child = spawn_child(MESH_FLAG)
+    # the depth valve: a slow host scales the depths of 16(e) and 17(d)
+    # before they run
+    report["valve"] = host_valve(cuda)
+    # phases 18, 19, 17 and 16(e) run in a child process beside phases
+    # 10-16(d): both sides are host-bound eager sweeps (the card idles
+    # most of each step), so its walls overlap theirs, as phase 6's do
+    # phases 2-3's
+    child = spawn_child(MESH_FLAG, json.dumps(report["valve"]["depths"]))
     work = tempfile.mkdtemp(prefix="chip_smoke_campaigns-")
     try:
-        report["triage"] = phase10_triage(cuda, small["raft_bench"], card)
+        report["triage"], bundle10 = phase10_triage(
+            cuda, small["raft_bench"], card)
+        report["replay_both"] = phase19_replay_both(cuda, bundle10)
         report["refill"] = phase11_refill(cuda, card)
         report["lineage"] = phase12_lineage_cost(cuda, card)
         report["explore"], host13 = phase13_explore(cuda, card, work)
@@ -1028,16 +1116,29 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
             cuda, card, {**host13, "row": report["explore"]["wide"]})
         report["campaigns"] = phase15_campaigns(cuda, card, host13["dirs"])
         report["speclang"] = phase16_speclang(cuda, card, work)
-        report["tune_serve"] = phase17_tune_serve(cuda, card, work)
-        report["mesh"] = join_child(mesh_child, "phase 18", 900)
+        t0 = time.perf_counter()
+        res = join_child(child, "phases 16(e) and 17-19", 900)
+        wait_s = time.perf_counter() - t0
     finally:
-        if mesh_child.poll() is None:
-            mesh_child.kill()
-            mesh_child.wait()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
         shutil.rmtree(work, ignore_errors=True)
-    fed = report["mesh"]["federation"]["wall_s"]
-    phase(18, f"overlapped: the child ran phase 18 in "
-              f"{report['mesh']['wall_s']:.1f} s beside phases 10-17; its "
+    report["speclang"]["explore"] = res.pop("speclang_explore")
+    report["tune_serve"] = res.pop("tune_serve")
+    report["host_oracle"] = res.pop("host_oracle")
+    report["mesh"] = res
+    # the child's wall-clock marks on this script's clock
+    t_zero = time.time() - (time.perf_counter() - T_START)
+    at = {k: v - t_zero for k, v in res["marks"].items()}
+    fed = res["federation"]["wall_s"]
+    phase(18, f"overlapped: the child ran phases 18, 19, 17 and 16(e) in "
+              f"{res['wall_s']:.1f} s beside phases 10-16(d) (on this "
+              f"script's clock: started {at['start']:.0f} s, 19 at "
+              f"{at['19']:.0f} s, 17 at {at['17']:.0f} s, 16(e) at "
+              f"{at['16(e)']:.0f} s, ended {at['end']:.0f} s; joined after "
+              f"a {wait_s:.1f} s wait); phase 19 took "
+              f"{report['host_oracle']['phase_s']:.1f} s of it; its "
               f"sharded federation took {fed:.2f} s against phase 15's "
               f"{report['campaigns']['federation']['host_s']:.2f} s island "
               "by island")
@@ -1942,7 +2043,7 @@ def phase10_triage(cuda, bench64: dict, card: str) -> dict:
         "causal_sha": sha, "shrink_causal_s": shrink_causal_s,
         "replay_causal_s": replay_causal_s,
         "phase_s": time.perf_counter() - t_phase,
-    }
+    }, bundle
 
 
 def telemetry_checks(tel_dir: str, wl, seed: int, lineage_recs,
@@ -2843,6 +2944,55 @@ def phase16_golden(cuda) -> dict:
     return out
 
 
+def phase16e_explore(cuda, virtual_secs: float) -> dict:
+    """Phase 16(e), last in the child (an eager, host-bound leg; the
+    parent's phases run beside it): the explorer over the buggy backup
+    (the JAX deep test's: 64 lanes, one generation, one shrink) at
+    `virtual_secs` (the valve's depth) finds the bug, and its shrunk
+    bundle keeps Duplicate or Reorder."""
+    from madsim_tpu_torch import explore, triage
+    from madsim_tpu_torch.speclang.generated import backup_device
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_speclang-")
+    try:
+        t0 = time.perf_counter()
+        bundles = os.path.join(work, "speclang-bundles")
+        ex = explore.Explorer(
+            backup_device.make_workload(buggy=True,
+                                        virtual_secs=virtual_secs),
+            meta_seed=0, lanes=SPECLANG_EXPLORE_LANES,
+            shrink_violations=True, max_shrinks=1,
+            shrink_kwargs={"out_dir": bundles}, device=cuda,
+        )
+        rep = ex.run(1)
+        wall = time.perf_counter() - t0
+        check(bool(rep.violations),
+              f"speclang explorer: the planted stale-read bug not found in "
+              f"{SPECLANG_EXPLORE_LANES} lanes")
+        shrunk = [v for v in rep.violations if v.get("bundle_path")]
+        check(bool(shrunk), "speclang explorer: no violation was shrunk")
+        bundle = triage.ReproBundle.load(shrunk[0]["bundle_path"])
+        kept = sorted({type(c).__name__ for c in
+                       triage.plan_from_json(bundle.plan).clauses})
+        check(bundle.violation_step > 0
+              and bool(set(kept) & {"Duplicate", "Reorder"}),
+              f"speclang explorer: the shrunk plan {kept} lost the "
+              "message-clause axis the stale-read bug needs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase(16, f"(e) explorer over the buggy backup, "
+              f"{SPECLANG_EXPLORE_LANES} lanes x 1 generation at "
+              f"{virtual_secs} virtual s in {wall:.1f} s (in the child, "
+              f"after phase 17): {len(rep.violations)} violations, seed "
+              f"{shrunk[0]['seed']} shrunk to {kept} at step "
+              f"{bundle.violation_step}")
+    return {"lanes": SPECLANG_EXPLORE_LANES, "virtual_secs": virtual_secs,
+            "wall_s": wall, "violations": len(rep.violations),
+            "seed": shrunk[0]["seed"],
+            "violation_step": bundle.violation_step, "kept": kept,
+            "fingerprint": rep.fingerprint()}
+
+
 def phase16_speclang(cuda, card: str, work: str) -> dict:
     """Phase 16, the speclang device face at full width: (a) `emit --check`
     is clean; (c) twopc-gen and the hand twopc at 32768 lanes x 1 virtual s
@@ -2852,10 +3002,8 @@ def phase16_speclang(cuda, card: str, work: str) -> dict:
     BACKUP_FLOOR, printed): the correct build never violates, the buggy
     one on at least BACKUP_BUG_SHARE of its lanes, every enabled fire kind
     fires, and seeds 0..63 equal a 64-lane CPU run in every leaf but
-    `key`; (e) the explorer over the buggy backup (the JAX deep test's: 64
-    lanes, one generation, one shrink) finds the bug, and its shrunk
-    bundle keeps Duplicate or Reorder. (b) runs in phase 6's child."""
-    from madsim_tpu_torch import explore, triage
+    `key`. (b) runs in phase 6's child, (e) in phase 18's
+    (`phase16e_explore`)."""
     from madsim_tpu_torch.speclang.__main__ import main as speclang_main
     from madsim_tpu_torch.speclang.generated import (
         backup_device, twopc_device,
@@ -2961,39 +3109,8 @@ def phase16_speclang(cuda, card: str, work: str) -> dict:
                   + f"; {len(big)} leaves (all but key) of seeds "
                   f"0..{SEEDS_SMALL - 1} equal a {SEEDS_SMALL}-lane CPU run")
 
-    # -- (e) the explorer finds the planted bug and ddmin keeps its axis
-    t0 = time.perf_counter()
-    bundles = os.path.join(work, "speclang-bundles")
-    ex = explore.Explorer(
-        backup_device.make_workload(buggy=True), meta_seed=0,
-        lanes=SPECLANG_EXPLORE_LANES, shrink_violations=True, max_shrinks=1,
-        shrink_kwargs={"out_dir": bundles}, device=cuda,
-    )
-    rep = ex.run(1)
-    wall = time.perf_counter() - t0
-    check(bool(rep.violations), f"speclang explorer: the planted stale-read "
-                                f"bug not found in {SPECLANG_EXPLORE_LANES} "
-                                "lanes")
-    shrunk = [v for v in rep.violations if v.get("bundle_path")]
-    check(bool(shrunk), "speclang explorer: no violation was shrunk")
-    bundle = triage.ReproBundle.load(shrunk[0]["bundle_path"])
-    kept = sorted({type(c).__name__
-                   for c in triage.plan_from_json(bundle.plan).clauses})
-    check(bundle.violation_step > 0 and bool(set(kept) & {"Duplicate",
-                                                          "Reorder"}),
-          f"speclang explorer: the shrunk plan {kept} lost the "
-          "message-clause axis the stale-read bug needs")
-    out["explore"] = {"lanes": SPECLANG_EXPLORE_LANES, "wall_s": wall,
-                      "violations": len(rep.violations),
-                      "seed": shrunk[0]["seed"],
-                      "violation_step": bundle.violation_step,
-                      "kept": kept, "fingerprint": rep.fingerprint()}
     out["phase_s"] = time.perf_counter() - t_phase
-    phase(16, f"(e) explorer over the buggy backup, "
-              f"{SPECLANG_EXPLORE_LANES} lanes x 1 generation in "
-              f"{wall:.1f} s: {len(rep.violations)} violations, seed "
-              f"{shrunk[0]['seed']} shrunk to {kept} at step "
-              f"{bundle.violation_step} [{out['phase_s']:.0f} s in phase 16]")
+    phase(16, f"(a)-(d) took {out['phase_s']:.0f} s")
     return out
 
 
@@ -3019,12 +3136,13 @@ def count_captures(sim_cls, counter: list):
     return lambda: setattr(sim_cls, "_block_graph", inner)
 
 
-def phase17_tune_serve(cuda, card: str, work: str) -> dict:
-    """Phase 17, measured tuning and the fuzz service on the card: (a) the
-    Tier-A tune, every timed trial's graph captures counted; (b) the tuned
-    sweeps' rows against the default's and the CPU's; (c) the Tier-B
-    gate's legs 1-2 against the CPU's; (d) serve stopped and restarted,
-    against PINNED_EXPLORE and an uninterrupted CPU serve."""
+def phase17_tune_serve(cuda, card: str, work: str, serve_secs: float) -> dict:
+    """Phase 17, in the child after phase 19: measured tuning and the fuzz
+    service on the card: (a) the Tier-A tune, every timed trial's graph
+    captures counted; (b) the tuned sweeps' rows against the default's and
+    the CPU's; (c) the Tier-B gate's legs 1-2 against the CPU's; (d) serve
+    stopped and restarted, against PINNED_EXPLORE and an uninterrupted CPU
+    serve, its raft request at `serve_secs` (the valve's depth)."""
     import dataclasses
 
     from madsim_tpu_torch import campaign, tune
@@ -3166,7 +3284,7 @@ def phase17_tune_serve(cuda, card: str, work: str) -> dict:
         requests = {
             "planted": dict(size, workload="planted", tuning="auto",
                             generations=SERVE_GENERATIONS, shrink=False),
-            "raft": dict(size, workload="raft", virtual_secs=SERVE_SECS,
+            "raft": dict(size, workload="raft", virtual_secs=serve_secs,
                          generations=SERVE_GENERATIONS, shrink=False),
         }
 
@@ -3227,10 +3345,12 @@ def phase17_tune_serve(cuda, card: str, work: str) -> dict:
               f"serve: raft ended at {final.get('raft')}, an uninterrupted "
               f"CPU serve at {want}")
         out["serve"] = {"wall_s": serve_s, "cpu_s": cpu_s, "final": final,
-                        "slices": len(first) + len(second)}
+                        "slices": len(first) + len(second),
+                        "virtual_secs": serve_secs}
         out["phase_s"] = time.perf_counter() - t_phase
         phase(17, f"(d) serve on the card, {len(requests)} requests x "
-                  f"{SERVE_GENERATIONS} generations, stopped after round 1 "
+                  f"{SERVE_GENERATIONS} generations (raft at {serve_secs} "
+                  f"virtual s), stopped after round 1 "
                   f"and restarted, {serve_s:.1f} s: planted under "
                   f"{SERVE_TUNED} at PINNED_EXPLORE, raft "
                   f"{final['raft'][:16]} = the uninterrupted CPU serve's "
@@ -3639,6 +3759,548 @@ def phase18_mesh(cuda, card: str, work: str) -> dict:
     return out
 
 
+def chain_tail_workloads():
+    """(buggy, correct) chain workloads of 19(a): chain's bench config at
+    CHAIN_TAIL_SECS under a 5% heavy tail of depth 8
+    (tests/test_tpu_chain.py:40-63), the buggy one on the blind-apply
+    spec; each ships the chain twin as its host_repro."""
+    import dataclasses
+
+    from madsim_tpu_torch.tpu import chain_workload, make_chain_spec
+
+    base = chain_workload(virtual_secs=CHAIN_TAIL_SECS)
+    tails = dataclasses.replace(base.config, buggify_delay_rate=0.05,
+                                buggify_depth=8)
+    buggy = dataclasses.replace(
+        base, spec=make_chain_spec(5, buggy_blind_apply=True), config=tails,
+        max_steps=40_000)
+    return buggy, dataclasses.replace(base, config=tails, max_steps=40_000)
+
+
+def oracle_workload():
+    """19(d)'s "plan8" request's workload: the registry's raft at
+    SERVE_SECS with ORACLE_PLAN (all eight clauses, the message clauses
+    whose coins the tenant compares among them) compiled onto it."""
+    import dataclasses
+
+    from madsim_tpu_torch.tpu import compile_plan, raft_workload
+    from madsim_tpu_torch.tpu.digest import ORACLE_PLAN
+
+    wl = raft_workload(virtual_secs=SERVE_SECS)
+    return dataclasses.replace(wl, host_repro=None,
+                               config=compile_plan(ORACLE_PLAN, wl.config))
+
+
+def oracle_serve(device, d, **kw):
+    """`campaign.serve` with its oracle tenant over 19(d)'s two raft
+    requests at phase 17(d)'s size (queued unless their campaigns exist):
+    the registry's raft at SERVE_SECS, and "plan8", raft under
+    oracle_workload's eight clauses: (slice lines, status.json's oracle
+    block, oracle.json's text)."""
+    from madsim_tpu_torch import campaign
+    from madsim_tpu_torch.tpu.digest import EXPLORE_RUN
+
+    size = {k: EXPLORE_RUN[k] for k in ("meta_seed", "lanes", "chunk")}
+    requests = {
+        "raft": dict(size, workload="raft", virtual_secs=SERVE_SECS,
+                     generations=SERVE_GENERATIONS, shrink=False),
+        "plan8": dict(size, workload="plan8", meta_seed=3,
+                      generations=SERVE_GENERATIONS, shrink=False),
+    }
+    pwl = oracle_workload()
+
+    def factory(request, campaign_dir, regression_dir, log):
+        if request["workload"] != "plan8":
+            return campaign._default_factory(
+                request, campaign_dir, regression_dir, log, device=device)
+        if os.path.exists(os.path.join(campaign_dir, campaign.MANIFEST)):
+            return campaign.Campaign.resume(
+                campaign_dir, workload=pwl, device=device,
+                regression_dir=regression_dir, log=log)
+        return campaign.Campaign(
+            pwl, campaign_dir, campaign_id=request["id"], shrink=False,
+            regression_dir=regression_dir, log=log, device=device,
+            **dict(size, meta_seed=request["meta_seed"]))
+
+    for name, req in requests.items():
+        os.makedirs(os.path.join(d, "queue"), exist_ok=True)
+        if not os.path.exists(os.path.join(d, "campaigns", name)):
+            with open(os.path.join(d, "queue", f"{name}.json"), "w") as f:
+                json.dump(req, f)
+    lines: list = []
+    campaign.serve(d, out=lambda x: lines.append(json.loads(x)),
+                   factory=factory, sleep=lambda x: None, device=device,
+                   oracle_sample_rate=0.5, **kw)
+    with open(os.path.join(d, "status.json")) as f:
+        status = json.load(f)
+    with open(os.path.join(d, "oracle.json")) as f:
+        doc = f.read()
+    return [x for x in lines if "fingerprint" in x], status["oracle"], doc
+
+
+def phase19_cpu_references() -> dict:
+    """Phase 19's CPU references, in a process of their own: the first 16
+    lanes of 19(a)'s buggy sweep (rows) with the chain twin's dict for
+    its first CHAIN_HOST_REPROS violating seeds, and 19(d)'s
+    uninterrupted serve (oracle.json's text and the status block)."""
+    from madsim_tpu_torch.tpu import run_batch
+
+    buggy, _ = chain_tail_workloads()
+    t0 = time.perf_counter()
+    cpu = run_batch(range(16), buggy, device="cpu", max_traces=0,
+                    max_host_repros=CHAIN_HOST_REPROS)
+    rows_s = time.perf_counter() - t0
+    out = {"rows": {k: np.asarray(getattr(cpu, k)).astype(np.int64).tolist()
+                    for k in ("violated", "deadlocked", "violation_step",
+                              "retired_step")},
+           "host_repros": {str(k): v for k, v in cpu.host_repros.items()},
+           "rows_s": rows_s}
+    work = tempfile.mkdtemp(prefix="chip_smoke_oracle_cpu-")
+    try:
+        t0 = time.perf_counter()
+        _, status, doc = oracle_serve("cpu", work, idle_rounds=1)
+        out["serve"] = {"doc": doc, "oracle": status,
+                        "wall_s": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase19_host_oracle(cuda, card: str, work: str) -> dict:
+    """Phase 19, the host runtime under the differential oracle, in phase
+    18's child after phase 18 (the child runs under PYTHONHASHSEED=0); its
+    CPU references run meanwhile in a process of their own
+    (`phase19_cpu_references`). (a) `madsim_tpu_torch.Runtime.run_batch`
+    over CHAIN_TAIL_SEEDS seeds of chain's blind-apply spec under
+    heavy-tail stragglers (tests/test_tpu_chain.py:40-63) on the card:
+    violations on more than half the lanes, the correct spec clean under
+    the same tails, the first 16 lanes' rows equal to a CPU run, and
+    `host_repros` holding `max_host_repros` seeds, each the dict a CPU call
+    of the port's chain twin returns. (b) A raft5 lane traced on the card
+    under ORACLE_PLAN at PLAN8_H_US: its chaos events = the pure schedule
+    = the port's NemesisDriver's applied stream, and the per-node skew
+    equal. (c) The oracle at the bench horizon: `check_seed` on
+    ORACLE_SEEDS lanes of a card sweep of `digest.oracle_config()` (the
+    raft bench config with ORACLE_PLAN on it), each MATCH, the pinned lane
+    at PINNED_ORACLE; under the plant the pinned lane diverges at a
+    reorder_extra draw, the plant lane shrinks to [("reorder", None)], and
+    `python -m madsim_tpu_torch.repro <bundle> --backend both` exits 1
+    naming the same first divergent event. (d) `serve` with its oracle
+    tenant on the card: two raft requests at phase 17(d)'s size, stopped
+    after round 1 and restarted; the tenant checked lanes with no error
+    and no divergence, its cursor resumed, and oracle.json and the status
+    block equal an uninterrupted CPU serve's. Every check is asserted."""
+    import madsim_tpu_torch as ms
+    from madsim_tpu_torch import oracle, triage
+    from madsim_tpu_torch import nemesis as nm
+    from madsim_tpu_torch.tpu import (
+        BatchedSim, SimConfig, compile_plan, make_raft_spec,
+    )
+    from madsim_tpu_torch.tpu import nemesis as ttn
+    from madsim_tpu_torch.tpu.digest import (
+        ORACLE_PLAN, ORACLE_SEED, PINNED_ORACLE, oracle_config,
+    )
+    from madsim_tpu_torch.workloads import raft_host
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    rows = ("violated", "deadlocked", "violation_step", "retired_step")
+    cpu_child = spawn_child(ORACLE_CPU_FLAG)
+
+    # -- (a) Runtime.run_batch at full width, host repros on the CPU
+    t0 = time.perf_counter()
+    buggy, correct = chain_tail_workloads()
+    seeds = range(CHAIN_TAIL_SEEDS)
+    # (no traced seeds: the traced step is phase 10's leg, and two traced
+    # chain lanes would add ~50 s of eager card work beside the parent's)
+    r = ms.Runtime.run_batch(seeds, buggy, device=cuda, max_traces=0,
+                             max_host_repros=CHAIN_HOST_REPROS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    check(r.violations > CHAIN_TAIL_SEEDS // 2,
+          f"run_batch: blind apply under tails violated on {r.violations} "
+          f"of {CHAIN_TAIL_SEEDS} lanes, not more than half")
+    rc = ms.Runtime.run_batch(seeds, correct, device=cuda, max_traces=0,
+                              repro_on_host=False)
+    check(rc.violations == 0,
+          f"run_batch: the correct chain violated on {rc.violations} lanes "
+          "under the same tails")
+    check(sorted(r.host_repros) == r.violating_seeds[:CHAIN_HOST_REPROS]
+          and len(r.host_repros) == CHAIN_HOST_REPROS,
+          f"run_batch: host repros for {sorted(r.host_repros)}, not the "
+          f"first {CHAIN_HOST_REPROS} violating seeds")
+    out["run_batch"] = {
+        "seeds": CHAIN_TAIL_SEEDS, "violations": int(r.violations),
+        "correct_violations": int(rc.violations),
+        "host_repros": sorted(r.host_repros), "wall_s": card_s,
+        "sweep_s": r.device_ms / 1e3, "correct_sweep_s": rc.device_ms / 1e3,
+    }
+    phase(19, f"(a) Runtime.run_batch, chain blind apply under tails, "
+              f"{CHAIN_TAIL_SEEDS} seeds x {CHAIN_TAIL_SECS} virtual s: "
+              f"{r.violations} violating (> half), the correct spec 0; "
+              f"sweeps {r.device_ms / 1e3:.2f} / {rc.device_ms / 1e3:.2f} s, "
+              f"{card_s:.1f} s with {CHAIN_HOST_REPROS} host repros "
+              f"[{time.perf_counter() - t_phase:.0f} s in phase 19]")
+
+    # -- (b) three faces: the traced card lane, the schedule, the driver
+    t0 = time.perf_counter()
+    n = 5
+    sim = BatchedSim(make_raft_spec(n),
+                     compile_plan(ORACLE_PLAN,
+                                  SimConfig(horizon_us=PLAN8_H_US)),
+                     device=cuda)
+    n_dev = ttn.assert_device_matches_schedule(sim, ORACLE_PLAN, PLAN8_SEED,
+                                               PLAN8_H_US)
+    art = raft_host.fuzz_one_seed(
+        PLAN8_SEED, n_nodes=n, virtual_secs=PLAN8_H_US / 1e6, chaos=False,
+        plan=ORACLE_PLAN, lineage=True)["nemesis"]
+    sched = [e for e in ORACLE_PLAN.schedule(PLAN8_SEED, PLAN8_H_US, n)
+             if e.kind != "skew"]
+    check(list(art["applied"]) == sched,
+          "three faces: the host driver's applied stream differs from the "
+          "schedule")
+    check(ttn.schedule_tuples(art["applied"], PLAN8_H_US)
+          == ttn.schedule_tuples(sched, PLAN8_H_US),
+          "three faces: the driver's stream differs from the schedule's "
+          "tuples")
+    dev_ppm = sim.init([PLAN8_SEED]).nem.skew_ppm[0].tolist()
+    want_ppm = ORACLE_PLAN.skew_ppm(PLAN8_SEED, n)
+    check(dev_ppm == want_ppm and art["node_skew"] == {
+        art["node_ids"][i]: p for i, p in enumerate(want_ppm) if p},
+        f"three faces: skew card {dev_ppm}, host {art['node_skew']}, "
+        f"schedule {want_ppm}")
+    out["three_faces"] = {"events": n_dev, "wall_s":
+                          time.perf_counter() - t0}
+    phase(19, f"(b) raft5 seed {PLAN8_SEED} under all eight clauses, "
+              f"{PLAN8_H_US / 1e6} virtual s: the card's traced chaos "
+              f"stream ({n_dev} events) = the schedule = the host driver's "
+              f"applied stream; skew {want_ppm} ppm on all three; "
+              f"{out['three_faces']['wall_s']:.1f} s")
+
+    # -- (c) the oracle at the bench horizon, then the plant
+    t0 = time.perf_counter()
+    cfg = oracle_config()
+    st = BatchedSim(make_raft_spec(n), cfg, device=cuda).run(
+        range(ORACLE_SEEDS))
+    torch.cuda.synchronize()
+    check(bool(st.done.all()), "oracle: the card sweep did not reach its "
+                               "horizon")
+    sweep_s = time.perf_counter() - t0
+    plan = triage.plan_from_config(cfg)
+    t1 = time.perf_counter()
+    reps = [oracle.check_seed("raft5", plan, s, int(cfg.horizon_us),
+                              n_nodes=n, loss_rate=float(cfg.loss_rate),
+                              repeats=2)
+            for s in range(ORACLE_SEEDS)]
+    check_s = time.perf_counter() - t1
+    bad = [r.render() for r in reps if r.diverged]
+    check(not bad, f"oracle: divergences on a clean tree: {bad[:2]}")
+    check(reps[ORACLE_SEED].digest == PINNED_ORACLE,
+          f"oracle: seed {ORACLE_SEED}'s digest {reps[ORACLE_SEED].digest} "
+          f"!= PINNED_ORACLE {PINNED_ORACLE}")
+    draws = sum(r.draws for r in reps)
+    prev = os.environ.get(nm.PLANT_ENV)
+    os.environ[nm.PLANT_ENV] = nm.PLANT_REORDER_OFF_BY_ONE
+    try:
+        planted = oracle.check_seed("raft5", plan, ORACLE_SEED,
+                                    int(cfg.horizon_us), n_nodes=n,
+                                    loss_rate=float(cfg.loss_rate),
+                                    repeats=1)
+        check(planted.diverged and planted.first.site == "reorder_extra",
+              f"oracle: the plant did not diverge at a reorder_extra draw: "
+              f"{planted.render()[:300]}")
+        plant_plan = nm.FaultPlan(name="oracle-plant", clauses=(
+            nm.Crash(interval_lo_us=400_000, interval_hi_us=1_500_000,
+                     down_lo_us=200_000, down_hi_us=800_000),
+            nm.MsgLoss(rate=0.05),
+            nm.Reorder(rate=0.2, window_us=40_000),
+        ))
+        t2 = time.perf_counter()
+        sr = oracle.shrink_divergence("raft5", plant_plan, 3, 2_000_000,
+                                      n_nodes=n,
+                                      out_dir=os.path.join(work, "oracle"))
+        shrink_s = time.perf_counter() - t2
+        check(sr.kept_atoms == [("reorder", None)],
+              f"oracle: the planted divergence shrank to {sr.kept_atoms}")
+        head = next(ln for ln in sr.bundle.trace_tail
+                    if ln.startswith("first divergent event"))
+        t2 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "madsim_tpu_torch.repro", sr.bundle_path,
+             "--backend", "both"], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        cli_s = time.perf_counter() - t2
+        check(cli.returncode == 1 and head in cli.stdout.splitlines(),
+              f"oracle: repro --backend both exited {cli.returncode}, "
+              f"without {head!r}: {cli.stdout[-500:]} {cli.stderr[-500:]}")
+    finally:
+        if prev is None:
+            os.environ.pop(nm.PLANT_ENV, None)
+        else:
+            os.environ[nm.PLANT_ENV] = prev
+    out["oracle"] = {"seeds": ORACLE_SEEDS, "horizon_us": int(cfg.horizon_us),
+                     "sweep_s": sweep_s, "check_s": check_s, "draws": draws,
+                     "shrink_s": shrink_s, "shrink_replays": sr.dispatches,
+                     "repro_cli_s": cli_s}
+    phase(19, f"(c) card sweep of {ORACLE_SEEDS} lanes of the raft bench "
+              f"config under all eight clauses ({sweep_s:.1f} s), "
+              f"check_seed x2 on each: MATCH ({draws} coin draws, "
+              f"{check_s:.1f} s), seed {ORACLE_SEED} at PINNED_ORACLE; "
+              f"planted: diverges at reorder_extra, shrinks to "
+              f"[('reorder', None)] in {sr.dispatches} replays "
+              f"({shrink_s:.1f} s), repro --backend both exits 1 naming "
+              f"it ({cli_s:.1f} s) [{time.perf_counter() - t_phase:.0f} s "
+              "in phase 19]")
+
+    # -- (d) serve with its oracle tenant, stopped and restarted
+    tenant_calls: list = []
+    observe = oracle.OracleTenant.observe
+    timed_calls_of(oracle.OracleTenant, "observe", tenant_calls,
+                   keep=lambda o: o["checked"])
+    try:
+        svc = os.path.join(work, "serve-oracle")
+        t0 = time.perf_counter()
+        first, _, doc1 = oracle_serve(cuda, svc, max_rounds=1)
+        round1 = json.loads(doc1)
+        check(round1["cursor"] == {"raft": 1, "plan8": 1},
+              f"serve: round 1's cursor {round1['cursor']}")
+        second, block, doc = oracle_serve(cuda, svc, idle_rounds=1)
+        serve_s = time.perf_counter() - t0
+    finally:
+        oracle.OracleTenant.observe = observe
+    check(block["seeds_checked"] > 0 and block["draws_checked"] > 0
+          and block["errors"] == 0 and block["divergences"] == 0,
+          f"serve: the tenant's status block {block}")
+    final = json.loads(doc)
+    check(final["cursor"] == {"raft": 2, "plan8": 2},
+          f"serve: the cursor did not resume ({round1} -> {final})")
+
+    # the CPU references, joined: 19(a)'s rows and host repros, 19(d)'s
+    # uninterrupted serve
+    t0 = time.perf_counter()
+    ref = join_child(cpu_child, "phase 19's CPU references", 600)
+    wait_s = time.perf_counter() - t0
+    for k in rows:
+        check(np.array_equal(np.asarray(getattr(r, k))[:16],
+                             np.asarray(ref["rows"][k])),
+              f"run_batch: the card's first 16 lanes' {k} differ from the "
+              "CPU's")
+    got = json.loads(json.dumps({str(k): v for k, v in
+                                 r.host_repros.items()}))
+    check(got == ref["host_repros"],
+          f"run_batch: the card run's host repros {sorted(got)} differ from "
+          f"a CPU call of the chain twin for {sorted(ref['host_repros'])}")
+    cpu = ref["serve"]
+    check(doc == cpu["doc"] and block == cpu["oracle"],
+          f"serve: oracle.json {final} != the CPU serve's "
+          f"{json.loads(cpu['doc'])}")
+    tenant_s = [s for _, s in tenant_calls]
+    slice_s = [x["report"]["wall_s"] for x in first + second]
+    out["serve"] = {"wall_s": serve_s, "cpu_s": cpu["wall_s"],
+                    "tenant_s": tenant_s, "slice_s": slice_s,
+                    "oracle": block, "slices": len(first + second)}
+    out["cpu_child"] = {"wall_s": ref["wall_s"], "rows_s": ref["rows_s"],
+                        "wait_s": wait_s}
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(19, f"(d) serve with its oracle tenant on the card, 2 raft "
+              f"requests (one under all eight clauses) x "
+              f"{SERVE_GENERATIONS} generations at {SERVE_SECS} "
+              f"virtual s, stopped after round 1 and restarted, "
+              f"{serve_s:.1f} s: tenant host s per slice "
+              f"{[round(s, 3) for s in tenant_s]} beside slice walls "
+              f"{[round(s, 3) for s in slice_s]}; {block['seeds_checked']} "
+              f"lanes checked ({block['draws_checked']} draws), 0 errors, "
+              f"0 divergences; the cursor resumed")
+    phase(19, f"(a, d) the CPU references' process ({ref['wall_s']:.1f} s, "
+              f"joined after a {wait_s:.1f} s wait): 19(a)'s first 16 lanes "
+              f"= the card's ({ref['rows_s']:.1f} s) and its "
+              f"{CHAIN_HOST_REPROS} host repros = the card run's; 19(d)'s "
+              f"uninterrupted serve ({cpu['wall_s']:.1f} s) wrote the card "
+              f"serve's oracle.json and status block "
+              f"[{out['phase_s']:.0f} s in phase 19]")
+    phase(19, f"on {card}: phase 19 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase19_replay_both(cuda, bundle) -> dict:
+    """Phase 19(e), in the parent right after phase 10: phase 10's card
+    bundle replayed with `backend="both"`: the device half reproduces the
+    violation on the card at the bundle's step and time, and the host
+    schedule twin applies the shrunk plan's events exactly."""
+    from madsim_tpu_torch import repro
+
+    t0 = time.perf_counter()
+    lines: list = []
+    rep = repro.replay(bundle, backend="both", repeats=1, device=cuda,
+                       out=lines.append)
+    wall = time.perf_counter() - t0
+    check(rep["violated"] and (rep["step"], rep["t_us"]) ==
+          (bundle.violation_step, bundle.violation_t_us),
+          f"replay both: the device half gave {rep}")
+    check(any(ln.startswith("host schedule twin OK") for ln in lines)
+          and rep["events"] >= 0,
+          f"replay both: no host schedule twin line in {lines}")
+    phase(19, f"(e) phase 10's card bundle, repro backend both: the card "
+              f"replays the violation at step {rep['step']}, t="
+              f"{rep['t_us']} us, and the host schedule twin applies the "
+              f"shrunk plan's {rep['events']} events exactly; {wall:.2f} s")
+    return {"wall_s": wall, "events": rep["events"], "step": rep["step"]}
+
+
+def valve_probe(cuda):
+    """The host valve's probe: a function that times eager refill
+    iterations at one shard (phase 18(a)'s config, 4 admissions on
+    MESH_LANES lanes, after a one-lane warm-up here) and returns (ms per
+    iteration, iterations)."""
+    from madsim_tpu_torch.tpu import (
+        BatchedSim, SimConfig, TriageCtl, compile_plan, make_raft_spec,
+    )
+    from madsim_tpu_torch.tpu.spec import REBASE_US
+
+    cfg = compile_plan(multichip_plan(), SimConfig(horizon_us=MESH_H_US))
+    A = 4
+    h = np.full((A,), MESH_H_US, dtype=np.int64)
+    ctl = TriageCtl(
+        off=torch.zeros((A,), dtype=torch.int32),
+        occ=torch.zeros((A, 4), dtype=torch.int32),
+        rate_scale=torch.ones((A, 3), dtype=torch.float32),
+        h_epoch=torch.as_tensor((h // REBASE_US).astype(np.int32)),
+        h_off=torch.as_tensor((h % REBASE_US).astype(np.int32)),
+    )
+    sim = BatchedSim(make_raft_spec(), cfg, triage=True, coverage=True,
+                     device=cuda)
+    seeds = np.arange(A, dtype=np.uint32)
+    sim.run_refill(seeds[:1], lanes=1, max_steps=30_000,
+                   ctl=TriageCtl(*(x[:1] for x in ctl)))  # warm-up
+
+    def run() -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sim.run_refill(seeds, lanes=MESH_LANES, max_steps=30_000,
+                            ctl=ctl)
+        iters = int(st.refill.iters)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / max(iters, 1) * 1e3, iters
+
+    return run
+
+
+def host_valve(cuda) -> dict:
+    """The depth valve for a slow host, before phase 10 and the child
+    start: when valve_probe's iteration is slower than VALVE_REF_MS, the
+    depths of 16(e) (the buggy backup's horizon, BACKUP_EXPLORE_SECS; its
+    64 lanes x 1 generation are the JAX deep test's) and 17(d) (the raft
+    request's horizon, SERVE_SECS) are scaled down in proportion, never
+    below VALVE_FLOORS. 13(b) keeps its width (EXPLORE_LANES) and its
+    depth, two generations, which is its floor (one boundary and the final
+    fold, which phase 14 runs again); every pinned leg keeps its depth and
+    no gate is dropped. Returns the probe and the depths, which the child
+    (phases 18, 19, 17 and 16(e)) is given."""
+    ms_iter, iters = valve_probe(cuda)()
+    scale = min(1.0, VALVE_REF_MS / ms_iter)
+    full = {"backup_explore_secs": BACKUP_EXPLORE_SECS,
+            "serve_secs": SERVE_SECS}
+    # whole tenths of a virtual second for 16(e), whole twentieths for 17(d)
+    grain = {"backup_explore_secs": 10, "serve_secs": 20}
+    depths = {k: max(VALVE_FLOORS[k], round(v * scale * grain[k]) / grain[k])
+              for k, v in full.items()}
+    phase(9, f"host valve: an eager refill iteration at one shard took "
+             f"{ms_iter:.1f} ms ({iters} iterations) against "
+             f"{VALVE_REF_MS} ms on the reference host: scale "
+             f"{scale:.2f}; 16(e) backup horizon {full['backup_explore_secs']}"
+             f" -> {depths['backup_explore_secs']} virtual s, 17(d) raft "
+             f"horizon {full['serve_secs']} -> {depths['serve_secs']} "
+             f"virtual s; 13(b)/14 at {EXPLORE_LANES} lanes")
+    return {"ms_per_iteration": ms_iter, "iterations": iters,
+            "scale": scale, "depths": depths}
+
+
+def contention_probe() -> dict:
+    """How much the child (phases 18, 19, 17 and 16(e)) slows this
+    process's eager work beside it: valve_probe alone, then again and
+    again until the child ends, each probe placed in the child's phase by
+    the wall-clock marks the child returns, then alone again."""
+    import torch.utils.deterministic as tdet
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    torch.use_deterministic_algorithms(True)
+    tdet.fill_uninitialized_memory = False  # as where the valve probes
+    cuda = torch.device(CARD)
+    card = card_line()
+    print(card, flush=True)
+    run = valve_probe(cuda)
+    before = [run()[0] for _ in range(3)]
+    depths = {"backup_explore_secs": BACKUP_EXPLORE_SECS,
+              "serve_secs": SERVE_SECS}
+    child = spawn_child(MESH_FLAG, json.dumps(depths))
+    series = []
+    try:
+        while child.poll() is None:
+            t = time.time()
+            series.append((t, run()[0]))
+        res = join_child(child, "the child", 60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    after = [run()[0] for _ in range(3)]
+    marks = res["marks"]
+    order = sorted(marks, key=marks.get)
+    alone = statistics.median(before + after)
+    by_phase = {}
+    for name, start in zip(order, order[1:]):
+        ms = [m for t, m in series if marks[name] <= t < marks[start]]
+        if ms:
+            by_phase[name] = {"probes": len(ms),
+                              "median_ms": statistics.median(ms),
+                              "slowdown": statistics.median(ms) / alone}
+    print(f"contention on {card}: an eager refill iteration alone "
+          f"{[round(m, 2) for m in before]} before, "
+          f"{[round(m, 2) for m in after]} after the child (median "
+          f"{alone:.2f} ms); beside the child's "
+          + "; ".join(f"{k}: {v['probes']} probes, median "
+                      f"{v['median_ms']:.2f} ms (x{v['slowdown']:.2f})"
+                      for k, v in by_phase.items())
+          + f"; the child {res['wall_s']:.1f} s", flush=True)
+    return {"card": card, "before_ms": before, "after_ms": after,
+            "by_phase": by_phase, "series": series, "marks": marks,
+            "child_s": res["wall_s"]}
+
+
+def child_phases(depths: dict) -> dict:
+    """The child process beside phases 10-16(d): phases 18, 19, 17 and
+    16(e), one after another, fills off as in phases 7-16, two CPU threads
+    for its CPU references (the parent's phases run beside it), 17(d) and
+    16(e) at the valve's `depths`. Returns phase 18's report with the
+    others' under "host_oracle", "tune_serve" and "speclang_explore", and
+    the wall-clock time each phase started ("marks")."""
+    import torch.utils.deterministic as tdet
+
+    torch.use_deterministic_algorithms(True)
+    tdet.fill_uninitialized_memory = False
+    torch.set_num_threads(2)
+    cuda, card = torch.device(CARD), card_line()
+    marks = {"start": time.time() - (time.perf_counter() - T_START)}
+    work = tempfile.mkdtemp(prefix="chip_smoke_child-")
+    try:
+        marks["18"] = time.time()
+        out = phase18_mesh(cuda, card, work)
+        marks["19"] = time.time()
+        out["host_oracle"] = phase19_host_oracle(cuda, card, work)
+        marks["17"] = time.time()
+        out["tune_serve"] = phase17_tune_serve(cuda, card, work,
+                                               depths["serve_secs"])
+        marks["16(e)"] = time.time()
+        out["speclang_explore"] = phase16e_explore(
+            cuda, depths["backup_explore_secs"])
+        marks["end"] = time.time()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out | {"marks": marks, "depths": depths,
+                  "wall_s": time.perf_counter() - T_START}
+
+
 def timed_calls_of(obj, name: str, calls: list, keep=None) -> None:
     """Wrap obj.<name> (a sim's method or a module's function) to record
     (result, synchronized wall seconds) of each call; `keep(result)`, when
@@ -3676,26 +4338,25 @@ if __name__ == "__main__":
                           "wall_s": time.perf_counter() - T_START}),
               flush=True)
         sys.exit(0)
+    if sys.argv[1:2] == [ORACLE_CPU_FLAG]:
+        # phase 19's CPU references, in their own process beside the card
+        # legs, on one CPU thread: its result is its last stdout line
+        torch.use_deterministic_algorithms(True)
+        torch.set_num_threads(1)
+        print(json.dumps(phase19_cpu_references()
+                         | {"wall_s": time.perf_counter() - T_START}),
+              flush=True)
+        sys.exit(0)
     if sys.argv[1:2] == [SERIAL_FLAG]:
         print(json.dumps(serial_probe()), flush=True)
         sys.exit(0)
+    if sys.argv[1:2] == [CONTENTION_FLAG]:
+        print(json.dumps(contention_probe()), flush=True)
+        sys.exit(0)
     if sys.argv[1:2] == [MESH_FLAG]:
-        # phase 18's child process, fills off as in phases 7-17, two CPU
-        # threads for its CPU references (the parent's phases run beside
-        # it): its phase lines count seconds from its own start; its
-        # result is its last stdout line
-        import torch.utils.deterministic as tdet
-
-        torch.use_deterministic_algorithms(True)
-        tdet.fill_uninitialized_memory = False
-        torch.set_num_threads(2)
-        mesh_work = tempfile.mkdtemp(prefix="chip_smoke_mesh-")
-        try:
-            mesh = phase18_mesh(torch.device(CARD), card_line(), mesh_work)
-        finally:
-            shutil.rmtree(mesh_work, ignore_errors=True)
-        print(json.dumps(mesh | {"wall_s": time.perf_counter() - T_START}),
-              flush=True)
+        # the child of phases 18, 19, 17 and 16(e): its phase lines count
+        # seconds from its own start; its result is its last stdout line
+        print(json.dumps(child_phases(json.loads(sys.argv[2]))), flush=True)
         sys.exit(0)
     report = main()
     print("report: " + json.dumps(report), flush=True)

@@ -1,7 +1,7 @@
 """Campaigns: persistent corpus, bug dedup, merge + minimize, regression,
 and the watch-dir fuzz service.
 
-The port of `madsim_tpu/campaign.py` (serve's oracle tenant aside). The explorer
+The port of `madsim_tpu/campaign.py`. The explorer
 (`explore.py`) lives one process at a time: the corpus, the coverage union
 and every violation it found end with it. A campaign persists them:
 
@@ -48,16 +48,16 @@ a JAX checkpoint's "madsim_tpu.campaign:spec_for" is read as it.
 The fuzz service (`serve`) watches `<dir>/queue/` for request files,
 time-slices the campaigns round-robin, streams one JSON line per slice and
 checkpoints after every slice, as on the JAX face. Its differential-oracle
-tenant replays lanes on the host twins, which are not ported
-(ROADMAP.md queue 1, item 16): `serve(oracle=True)` refuses, so run it
-with `oracle=False` (`--no-oracle`).
+tenant (`oracle.OracleTenant`, on by default; `--no-oracle` turns it off)
+replays a sample of each slice's lanes on the host twins between slices,
+on this thread, and keeps its cursors in `<dir>/oracle.json`.
 
 CLI:
 
     python -m madsim_tpu_torch.campaign run --workload raft --storm --generations 8 --dir D
     python -m madsim_tpu_torch.campaign merge --out MERGED D1 D2 ...
     python -m madsim_tpu_torch.campaign regress [--dir D]
-    python -m madsim_tpu_torch.campaign serve --no-oracle --dir D
+    python -m madsim_tpu_torch.campaign serve --dir D
 
 (each with `--device cpu` to run on the CPU; the card is the default).
 """
@@ -88,7 +88,6 @@ from .explore import (
     ctl_for,
     popcount_rows,
 )
-from .tpu.engine import _not_ported
 
 CAMPAIGN_FORMAT = "madsim-tpu-campaign/1"
 
@@ -1409,21 +1408,22 @@ def serve(
     Prometheus textfile are replaced after every round.
 
     `max_rounds` / `idle_rounds` bound the loop for tests and cron-style
-    runs; the default (None/None) serves forever. The differential-oracle
-    tenant (`oracle=True`, with `oracle_sample_rate` and
-    `oracle_per_round`) replays lanes on the host twins, which are not
-    ported (item 16): pass `oracle=False`.
+    runs; the default (None/None) serves forever.
+
+    The differential oracle runs as a background tenant unless
+    `oracle=False`: after each slice it replays a sampled subset of the new
+    generations' lanes schedule-matched on the host twin
+    (`oracle_sample_rate` thins, `oracle_per_round` caps — saturation
+    degrades into a counted skip) and folds any divergence into the owning
+    campaign's BugRecords with `violation_kind="divergence"`. It runs on
+    this thread between slices, never inside a slice lane. Its cursors
+    persist in `<dir>/oracle.json`, so kill/restart resumes without
+    re-checking; `status.json` carries its counters under "oracle".
     """
     if int(slice_generations) < 1:
         raise ValueError(
             f"slice_generations must be >= 1 (got {slice_generations}): a "
             "zero-generation slice never finishes any request"
-        )
-    if oracle:
-        raise _not_ported(
-            "serve's differential-oracle tenant (it replays lanes on the "
-            "host twins); run serve with oracle=False (--no-oracle)",
-            "item 16",
         )
     # an empty device sequence is exactly "no pinning" — same as None
     devs: List[Any] = list(devices) if devices else [None]
@@ -1436,6 +1436,15 @@ def serve(
     for d in (queue_dir, active_dir, done_dir, campaigns_dir):
         os.makedirs(d, exist_ok=True)
     build = factory or functools.partial(_default_factory, device=device)
+
+    tenant = None
+    if oracle:
+        from . import oracle as _oracle
+
+        tenant = _oracle.OracleTenant(
+            sample_rate=oracle_sample_rate, per_round=oracle_per_round,
+            state_path=os.path.join(dir, "oracle.json"), log=log,
+        )
 
     # crash recovery: requests in flight when a previous service died are
     # requeued — their campaigns resume from checkpoint, and `generations`
@@ -1636,6 +1645,8 @@ def serve(
                 for d in range(len(devs))
             ],
         }
+        if tenant is not None:
+            status["oracle"] = tenant.status()
         telemetry.write_status(os.path.join(dir, STATUS), status)
         telemetry.write_farm_textfile(
             os.path.join(dir, METRICS_TEXTFILE), status
@@ -1709,6 +1720,18 @@ def serve(
                 ) as f:
                     f.write(json.dumps(line) + "\n")
                 progressed = True
+                if tenant is not None:
+                    # the idle-CPU oracle lane: replay a sampled subset
+                    # of this slice's lanes schedule-matched on the host
+                    # twin. observe() never raises; a divergence lands a
+                    # BugRecord on the campaign, so re-checkpoint to make
+                    # it durable at this slice boundary.
+                    obs = tenant.observe(cid, campaign)
+                    if obs.get("diverged"):
+                        try:
+                            campaign.checkpoint()
+                        except Exception:  # noqa: BLE001 - next slice's
+                            pass  # checkpoint persists the record anyway
                 if job["remaining"] <= 0:
                     os.replace(
                         job["active_path"],
@@ -1935,8 +1958,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     s.add_argument(
         "--no-oracle", action="store_true",
-        help="disable the differential-oracle tenant (required: the "
-        "tenant's host twins are not ported)",
+        help="disable the background differential-oracle tenant",
     )
     s.add_argument(
         "--oracle-sample-rate", type=float, default=0.25,

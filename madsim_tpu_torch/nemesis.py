@@ -22,14 +22,19 @@ executes and `filter_schedule` shrinks. The triage vocabulary
 (`TRIAGE_CLAUSES`, `RATE_CLAUSES`, `CLAUSE_OF_EVENT`) names the atoms the
 shrinker (madsim_tpu_torch/triage.py) switches off per lane.
 
-`to_net_config` belongs to the host runtime, which is not part of the
-port: it raises NotImplementedError.
+The host face: `FaultPlan.to_net_config` sets the host network's
+message-level knobs, `ScheduleCoins` draws the host's loss/dup/reorder coins
+from the same chain at the same sites, and `NemesisDriver` replays a plan's
+schedule on the host runtime (`madsim_tpu_torch.core`), consuming
+`plan_schedule` / `filter_schedule` above. The differential oracle
+(`madsim_tpu_torch/oracle.py`) holds the applied stream and every logged
+draw against the pure recomputation.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 # --------------------------------------------------------------------------
 # murmur3 hash-chain mirror (tpu/prng.py, in plain Python ints)
@@ -434,10 +439,51 @@ class FaultPlan:
         ]
 
     def to_net_config(self, base=None):
-        raise NotImplementedError(
-            "FaultPlan.to_net_config configures the host runtime's network, "
-            "and the host runtime is not part of madsim_tpu_torch"
-        )
+        """The host NetConfig with this plan's message-level knobs applied."""
+        from .core.config import NetConfig
+
+        net = dataclasses.replace(base) if base is not None else NetConfig()
+        loss = self.get(MsgLoss)
+        dup = self.get(Duplicate)
+        ro = self.get(Reorder)
+        if loss is not None:
+            net.packet_extra_loss_rate = loss.rate
+        if dup is not None:
+            net.packet_duplicate_rate = dup.rate
+        if ro is not None:
+            net.packet_reorder_rate = ro.rate
+            net.packet_reorder_window = ro.window_us / 1e6
+        return net
+
+
+# message-level clauses: per-message coins. Streams are per-backend but
+# every host draw VALUE is schedule-matched (pure in (seed, site, index)
+# via ScheduleCoins). Keys are RATE_CLAUSES rows / `nem_<name>_rate`.
+MESSAGE_CLAUSES: Dict[str, type] = {
+    "loss": MsgLoss, "dup": Duplicate, "reorder": Reorder,
+}
+# message clause -> the ScheduleCoins methods the host net layer calls
+# for it (the fourth face's input contract: the oracle comparator
+# iterates THIS table to verify every logged draw).
+HOST_COIN_METHODS: Dict[str, Tuple[str, ...]] = {
+    "loss": ("loss",),
+    "dup": ("dup",),
+    "reorder": ("reorder", "reorder_extra"),
+    # schedule clause with a HOST-consumed draw: the torn-tail byte
+    # extent FsSim applies at a torn disk_crash (the device abstracts
+    # the extent behind the schedule's torn coin, so this is the one
+    # draw only the host stream contains — still seed-pure, still
+    # oracle-verified)
+    "disk": ("disk_torn_extent",),
+}
+# ScheduleCoins method -> murmur3 draw site (shared with tpu/engine.py)
+COIN_SITE: Dict[str, int] = {
+    "loss": NET_SITE_NEM_LOSS,
+    "dup": NET_SITE_DUP,
+    "reorder": NET_SITE_REORDER,
+    "reorder_extra": NET_SITE_REORDER_EXTRA,
+    "disk_torn_extent": NET_SITE_DISK_EXTENT,
+}
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -622,3 +668,421 @@ def filter_schedule(
             continue
         out.append(ev)
     return out
+
+
+# --------------------------------------------------------------------------
+# schedule-matched message coins (the host half of the fourth face)
+# --------------------------------------------------------------------------
+
+# bound on the retained draw log: a long soak must not grow host memory
+# without bound; overflow is counted, never silent (the oracle verifies
+# the retained prefix and reports the drop count)
+MAX_COIN_DRAWS = 200_000
+
+# test-only divergence plant (the oracle's never-vacuously-green lever):
+# set MADSIM_TPU_ORACLE_PLANT=reorder_window_off_by_one to skew the
+# host's reorder-window draw span by one — a deliberate host/device
+# semantic divergence the differential oracle must catch.
+PLANT_ENV = "MADSIM_TPU_ORACLE_PLANT"
+PLANT_REORDER_OFF_BY_ONE = "reorder_window_off_by_one"
+
+
+class ScheduleCoins:
+    """Host message-level draws as pure functions of (seed, site, index).
+
+    The device engine rolls loss/dup/reorder per candidate message from
+    its hash chain; the host historically rolled them from the ambient
+    `GlobalRng`, which made the two backends comparable only in *rate*.
+    This provider replaces the host's ambient rolls with the same murmur3
+    chain (`coin32`/`randint32` on `key_from_seed(seed)`) at the shared
+    `NET_SITE_*` sites, one monotone draw index per site — so every draw
+    the host applies is recomputable from the seed alone, and the
+    differential oracle (`madsim_tpu_torch/oracle.py`) verifies the applied
+    stream draw-for-draw. WHICH indices get consumed still depends on
+    traffic (streams are per-backend by design); what each draw is worth
+    does not.
+
+    Installed by `NemesisDriver.install()` onto the live `NetConfig`
+    (`cfg.coins`); `NetSim.send` / `Network.test_link` consult it and
+    fall back to the GlobalRng when absent (plans without a driver).
+    Each draw is logged as `(site, index, value, t_ns, eid_hint)` —
+    virtual time and the most recent host-lineage event id at draw time
+    — which is what lets a divergence report anchor the first divergent
+    draw to a delivery in the lineage DAG."""
+
+    def __init__(self, seed: int, plant: Optional[str] = None) -> None:
+        import os
+
+        self.seed = seed
+        self.key = key_from_seed(seed)
+        self.plant = (
+            os.environ.get(PLANT_ENV, "") if plant is None else plant
+        )
+        self._index: Dict[int, int] = {}
+        self.draws: List[Tuple[int, int, int, int, int]] = []
+        # (site, index) -> draw modulus, for draws whose span is HOST
+        # state rather than clause config (disk_torn_extent's unsynced
+        # tail length): the oracle needs the span to recompute the value
+        self.spans: Dict[Tuple[int, int], int] = {}
+        self.dropped = 0
+        self._time = None
+        self._lineage = None
+
+    def bind(self, time=None, lineage=None) -> "ScheduleCoins":
+        """Attach clock + lineage so draws carry (t_ns, eid) anchors."""
+        self._time = time
+        self._lineage = lineage
+        return self
+
+    def _next_index(self, site: int) -> int:
+        idx = self._index.get(site, 0)
+        self._index[site] = idx + 1
+        return idx
+
+    def _log(self, site: int, index: int, value: int) -> None:
+        if len(self.draws) >= MAX_COIN_DRAWS:
+            self.dropped += 1
+            return
+        t_ns = self._time.now_ns() if self._time is not None else -1
+        eid = (
+            self._lineage.next_eid - 1
+            if self._lineage is not None and self._lineage.enabled
+            else -1
+        )
+        self.draws.append((site, index, value, t_ns, eid))
+
+    def _coin(self, site: int, rate: float) -> bool:
+        idx = self._next_index(site)
+        hit = coin32(self.key, site, rate, index=idx)
+        self._log(site, idx, int(hit))
+        return hit
+
+    # -- clause-named draw methods (HOST_COIN_METHODS is the contract) --
+
+    def loss(self, rate: float) -> bool:
+        """MsgLoss extra-loss coin (NET_SITE_NEM_LOSS)."""
+        return self._coin(NET_SITE_NEM_LOSS, rate)
+
+    def dup(self, rate: float) -> bool:
+        """Duplicate coin (NET_SITE_DUP)."""
+        return self._coin(NET_SITE_DUP, rate)
+
+    def reorder(self, rate: float) -> bool:
+        """Reorder coin (NET_SITE_REORDER)."""
+        return self._coin(NET_SITE_REORDER, rate)
+
+    def reorder_extra(self, span_ns: int) -> int:
+        """Extra reorder delay in [0, span_ns) ns (NET_SITE_REORDER_EXTRA)."""
+        idx = self._next_index(NET_SITE_REORDER_EXTRA)
+        span = max(int(span_ns), 1)
+        if self.plant == PLANT_REORDER_OFF_BY_ONE:
+            # deliberate off-by-one in the host's reorder window: the
+            # draw modulus shifts by one, so the applied value diverges
+            # from the pure recomputation at the true span — the planted
+            # semantic skew the oracle self-test must catch
+            span += 1
+        v = randint32(self.key, NET_SITE_REORDER_EXTRA, 0, span, index=idx)
+        self._log(NET_SITE_REORDER_EXTRA, idx, v)
+        return v
+
+    def disk_torn_extent(self, unsynced_len: int) -> int:
+        """Torn-tail retained bytes in [0, unsynced_len) (NET_SITE_DISK_EXTENT).
+
+        Consumed by `FsSim.power_fail_node` at a torn `disk_crash`: the
+        crash keeps this many bytes of the victim's last unsynced write
+        on top of the synced snapshot — a PROPER prefix, because a torn
+        write that survived whole would have been a completed one."""
+        idx = self._next_index(NET_SITE_DISK_EXTENT)
+        span = max(int(unsynced_len), 1)
+        v = randint32(self.key, NET_SITE_DISK_EXTENT, 0, span, index=idx)
+        self.spans[(NET_SITE_DISK_EXTENT, idx)] = span
+        self._log(NET_SITE_DISK_EXTENT, idx, v)
+        return v
+
+
+# --------------------------------------------------------------------------
+# host driver
+# --------------------------------------------------------------------------
+
+
+class NemesisDriver:
+    """Replays a plan's schedule on the host runtime (the Jepsen nemesis).
+
+    Schedule-level clauses apply through `Handle` (kill/restart) and
+    `NetSim` (partition / clog_link / latency-spike windows); message-level
+    clauses are pushed into `NetConfig` together with a `ScheduleCoins`
+    provider so `NetSim.send` / `Network.test_link` draw them from the
+    same murmur3 chain as the device — every applied coin is a pure
+    function of (seed, site, index), logged on `self.coins.draws` for
+    the differential oracle. Applied events are recorded in
+    `self.applied` (the host half of a twin comparison) and counted in
+    `self.fired` per FIRE_KINDS.
+
+        rt = ms.Runtime(seed=7)
+        ...create nodes...
+        driver = nemesis.NemesisDriver(
+            plan, handle, node_ids=[n.id for n in nodes],
+            horizon_us=10_000_000,
+        )
+        driver.install()          # spawns the driver task
+        rt.block_on(workload())
+        driver.fired              # {"crash": 3, "partition": 2, ...}
+
+    `on_wipe(protocol_node_index)` runs before a wiped node's restart so
+    the workload can discard that node's durable state (the host runtime
+    keeps durability at the application level)."""
+
+    def __init__(
+        self,
+        plan: FaultPlan,
+        handle,
+        node_ids: Sequence[int],
+        horizon_us: int,
+        seed: Optional[int] = None,
+        on_wipe: Optional[Callable[[int], None]] = None,
+        occ_off: Optional[Dict[str, int]] = None,
+        on_crash: Optional[Callable[[int], None]] = None,
+    ) -> None:
+        self.plan = plan
+        self.handle = handle
+        self.node_ids = list(node_ids)
+        self.on_wipe = on_wipe
+        # on_crash(protocol_node_index) runs before the kill, letting a
+        # workload mark the victim dead for its invariant monitors (the
+        # restart side needs no hook: nodes built with `.init(...)`
+        # respawn through their init closure)
+        self.on_crash = on_crash
+        self.seed = handle.seed if seed is None else seed
+        self.occ_off = dict(occ_off or {})
+        # occ_off replays a SHRUNK plan (triage.py repro bundles): masked
+        # occurrences are skipped while the survivors keep their original
+        # times — the schedule stays a pure function of the seed
+        self.schedule = filter_schedule(
+            plan.schedule(self.seed, horizon_us, len(self.node_ids)),
+            self.occ_off,
+        )
+        self.applied: List[NemesisEvent] = []
+        # schedule-matched message coins (installed onto the net config
+        # when the plan has message clauses; always present so twin
+        # tests can assert an empty draw log on schedule-only plans)
+        self.coins = ScheduleCoins(self.seed)
+        self.fired: Dict[str, int] = {}
+        # clause -> occurrence bitmask: bit k set when the OPEN half of
+        # window k applied (the host face of the engine's per-lane
+        # `occ_fired`; `NemesisEvent.k` is the shared occurrence index, and
+        # k >= 31 folds into bit 31 exactly like the device tensor)
+        self.occ_fired: Dict[str, int] = {}
+        self._installed = False
+        # open-window tracking: NetSim's Network keeps ONE clogged_link
+        # set, so an overlapping partition heal would silently lift an
+        # active nemesis clog (and an unclog would punch a hole in an open
+        # partition). The engine keeps the two independent ([L,N,N]
+        # link_ok vs its own clog state); the driver restores the same
+        # semantics by re-asserting whichever window is still open.
+        self._open_clog: Optional[Tuple[int, int]] = None
+        self._open_split_mask: Optional[int] = None
+        # the handle exposes the driver so RuntimeMetrics can report fires
+        handle.nemesis = self
+
+    def _count(self, kind: str, n: int = 1) -> None:
+        self.fired[kind] = self.fired.get(kind, 0) + n
+
+    def _netsim(self):
+        from .net.netsim import NetSim
+
+        return self.handle.simulators.get(NetSim)
+
+    def _fssim(self):
+        from .fs import FsSim
+
+        return self.handle.simulators.get(FsSim)
+
+    def install(self) -> None:
+        """Apply message-level knobs + clock skew, spawn the schedule task."""
+        if self._installed:
+            raise RuntimeError("NemesisDriver.install() called twice")
+        self._installed = True
+        net = self._netsim()
+        if net is not None and (
+            self.plan.get(MsgLoss) or self.plan.get(Duplicate)
+            or self.plan.get(Reorder)
+        ):
+            net.update_config(self.plan.to_net_config(net.network.config))
+            # schedule-matched coins: the net layer draws loss/dup/
+            # reorder from the per-seed murmur3 chain instead of the
+            # ambient GlobalRng (the fourth-face contract the oracle
+            # verifies draw-for-draw)
+            net.network.config.coins = self.coins.bind(
+                time=self.handle.time, lineage=net.lineage
+            )
+        skew = self.plan.skew_ppm(self.seed, len(self.node_ids))
+        if any(skew):
+            # integer ppm straight through (r8): vtime.skew_delay_ns
+            # applies the exact-int truncation rule shared with the
+            # device engine's scale_delay_ppm
+            self.handle.time.node_skew = {
+                nid: ppm
+                for nid, ppm in zip(self.node_ids, skew)
+                if ppm != 0
+            }
+            self._count("skew", sum(1 for p in skew if p != 0))
+        from .core.task import Spawner  # noqa: F401  (doc pointer)
+        from . import spawn
+
+        spawn(self._run(), name=f"nemesis:{self.plan.name}")
+
+    async def _run(self) -> None:
+        from .core.vtime import Sleep
+
+        time = self.handle.time
+        for ev in self.schedule:
+            if ev.kind == "skew":
+                continue  # applied at install time
+            deadline_ns = ev.t_us * 1_000
+            if deadline_ns > time.now_ns():
+                await Sleep(deadline_ns, time)
+            self._apply(ev)
+
+    def _apply(self, ev: NemesisEvent) -> None:
+        net = self._netsim()
+        if ev.kind in (
+            "crash", "split", "clog", "spike_on", "remove", "disk_slow"
+        ) and ev.k >= 0:
+            clause = CLAUSE_OF_EVENT[ev.kind]
+            self.occ_fired[clause] = self.occ_fired.get(clause, 0) | (
+                1 << min(ev.k, 31)
+            )
+        if ev.kind == "crash":
+            if self.on_crash is not None:
+                self.on_crash(ev.node)
+            self.handle.kill(self.node_ids[ev.node])
+            self._count("crash")
+            if ev.wipe:
+                self._count("wipe")
+        elif ev.kind == "restart":
+            if ev.wipe and self.on_wipe is not None:
+                self.on_wipe(ev.node)
+            self.handle.restart(self.node_ids[ev.node])
+            self._count("restart")
+        elif ev.kind == "split":
+            a, b = self._sides(ev.side_mask)
+            self._open_split_mask = ev.side_mask
+            if net is not None:
+                net.partition(a, b)
+            self._count("partition")
+        elif ev.kind == "heal":
+            a, b = self._sides(ev.side_mask)
+            self._open_split_mask = None
+            if net is not None:
+                net.heal_partition(a, b)
+                if self._open_clog is not None:
+                    # heal_partition unclogs every cross-group pair; an
+                    # active clog window must survive it (idempotent re-add)
+                    net.clog_link(*self._open_clog)
+            self._count("heal")
+        elif ev.kind == "clog":
+            self._open_clog = (self.node_ids[ev.node], self.node_ids[ev.dst])
+            if net is not None:
+                net.clog_link(*self._open_clog)
+            self._count("clog")
+        elif ev.kind == "unclog":
+            pair = (self.node_ids[ev.node], self.node_ids[ev.dst])
+            self._open_clog = None
+            if net is not None and not self._crosses_open_split(ev.node, ev.dst):
+                # if the pair crosses an open partition, the clogged_link
+                # entry is doing the partition's work too — leave it for
+                # the heal to remove
+                net.unclog_link(*pair)
+        elif ev.kind == "spike_on":
+            if net is not None:
+                net.network.config.spike_extra_latency = ev.extra_us / 1e6
+            self._count("spike")
+        elif ev.kind == "spike_off":
+            if net is not None:
+                net.network.config.spike_extra_latency = 0.0
+        elif ev.kind == "remove":
+            # membership removal: the node leaves the cluster. The host
+            # runtime has no separate membership plane — a removed node is
+            # killed (its tasks drop, its inbound traffic dies with it),
+            # which matches the engine clearing BOTH member and alive bits.
+            if self.on_crash is not None:
+                self.on_crash(ev.node)
+            self.handle.kill(self.node_ids[ev.node])
+            self._count("remove")
+        elif ev.kind == "join":
+            # the node re-enters as a BRAND-NEW replica: blank disk (the
+            # power_fail never-synced rule extended to joins — nothing
+            # survives a membership change, see FsSim.wipe_node), durable
+            # app state discarded via the same on_wipe hook wiped restarts
+            # use, then the init closure rebuilds it from scratch — the
+            # host face of the engine's join-through-`_init` rebuild.
+            from .fs import FsSim
+
+            fs = self.handle.simulators.get(FsSim)
+            if fs is not None:
+                fs.wipe_node(self.node_ids[ev.node])
+            if self.on_wipe is not None:
+                self.on_wipe(ev.node)
+            self.handle.restart(self.node_ids[ev.node])
+            self._count("join")
+        elif ev.kind == "disk_slow":
+            # the victim's disk degrades: every write pays extra latency
+            # and fsync raises EIO until the disk dies at disk_crash —
+            # the FsSim fault hooks the device face mirrors as a pure
+            # fire/trace marker (no device state effect: the loss
+            # semantics land at the crash)
+            fs = self._fssim()
+            if fs is not None:
+                fs.set_disk_fault(
+                    self.node_ids[ev.node], extra_ns=ev.extra_us * 1_000
+                )
+            self._count("disk_slow")
+        elif ev.kind == "disk_crash":
+            # the disk dies: the node goes down and every unsynced byte
+            # is dropped back to the synced snapshot (FsSim.power_fail
+            # semantics) — except a TORN crash, which keeps a
+            # schedule-drawn PREFIX of the last unsynced write
+            # (coins.disk_torn_extent: the one host-only draw of the
+            # clause, verified by the differential oracle)
+            if self.on_crash is not None:
+                self.on_crash(ev.node)
+            self.handle.kill(self.node_ids[ev.node])
+            fs = self._fssim()
+            if fs is not None:
+                fs.clear_disk_fault(self.node_ids[ev.node])
+                fs.power_fail_node(
+                    self.node_ids[ev.node],
+                    torn_extent=(
+                        self.coins.disk_torn_extent if ev.torn else None
+                    ),
+                )
+            self._count("disk_crash")
+        elif ev.kind == "disk_recover":
+            # recovery from the durable watermark: the host node's init
+            # closure re-reads whatever FsSim retained (synced prefix,
+            # plus the torn tail if any) — on_wipe is NOT called, synced
+            # durability survives a disk death by definition
+            self.handle.restart(self.node_ids[ev.node])
+            self._count("disk_recover")
+        self.applied.append(ev)
+
+    def _crosses_open_split(self, a_idx: int, b_idx: int) -> bool:
+        mask = self._open_split_mask
+        if mask is None:
+            return False
+        return bool(mask >> a_idx & 1) != bool(mask >> b_idx & 1)
+
+    def _sides(self, mask: int) -> Tuple[List[int], List[int]]:
+        a = [nid for i, nid in enumerate(self.node_ids) if mask >> i & 1]
+        b = [nid for i, nid in enumerate(self.node_ids) if not mask >> i & 1]
+        return a, b
+
+    def fire_counts(self) -> Dict[str, int]:
+        """Host-side chaos fire counts: schedule events + NetSim message
+        coins (loss/dup/reorder ride the network config's counters)."""
+        out = dict(self.fired)
+        net = self._netsim()
+        if net is not None:
+            for kind, n in net.network.config.nemesis_fires.items():
+                out[kind] = out.get(kind, 0) + n
+        return out

@@ -18,8 +18,22 @@ carries a causal digest has its sha cross-checked. The device backend is
 `device`, or `tpu` as the JAX face names it. `--perfetto PATH` writes the
 replayed trajectory as a Chrome-trace/Perfetto timeline.
 
-Not ported: the host-runtime schedule twin (`--backend host|both`; the
-host runtime is not part of the port). It raises NotImplementedError.
+    python -m madsim_tpu_torch.repro bundle.json --backend host  # schedule twin
+    python -m madsim_tpu_torch.repro bundle.json --backend both  # device + host
+
+Host replay (`--backend host`) drives the bundle's SHRUNK FaultPlan through a
+fresh host runtime's NemesisDriver (idle nodes; the schedule needs no
+traffic) and asserts the applied fault stream equals the occurrence-filtered
+pure schedule. `both` replays the device half first, on `--device`.
+
+Divergence bundles (`violation_kind == "divergence"`, written by
+madsim_tpu_torch/oracle.py or the JAX face's oracle) are differential by
+construction, so every backend routes to the oracle replay: the shrunk plan
+re-runs schedule-matched on the host twin `--repeats` times, each run must
+reproduce the same first divergent event bit-identically, and the bundle's
+`causal` digest is cross-checked against the replayed host slice. A
+reproduced divergence prints the first-divergent-event report and the CLI
+exits 1: the backends still disagree, which is a live bug.
 """
 
 from __future__ import annotations
@@ -190,26 +204,156 @@ def replay_device(
     return rep
 
 
+def replay_host(bundle: ReproBundle, out=print) -> Dict[str, Any]:
+    """Host schedule twin: a fresh runtime's NemesisDriver applies exactly
+    the shrunk plan's occurrence-filtered pure schedule."""
+    import madsim_tpu_torch as ms
+    from .nemesis import NemesisDriver, filter_schedule
+
+    plan = bundle.shrunk_plan()
+    horizon_us = int(bundle.horizon_us)
+    n = int(bundle.n_nodes)
+
+    async def body():
+        handle = ms.Handle.current()
+
+        async def idle():
+            while True:
+                await ms.time.sleep(3600.0)
+
+        nodes = [
+            handle.create_node().name(f"r{i}").ip(f"10.9.9.{i + 1}")
+            .init(idle).build()
+            for i in range(n)
+        ]
+        driver = NemesisDriver(
+            plan, handle, [nd.id for nd in nodes], horizon_us=horizon_us,
+            seed=bundle.seed, occ_off=bundle.occ_off,
+        )
+        driver.install()
+        t = ms.time.current()
+        end = t.elapsed() + horizon_us / 1e6 + 0.001
+        while t.elapsed() < end:
+            await ms.time.sleep(0.05)
+        return driver
+
+    rt = ms.Runtime(seed=bundle.seed)
+    driver = rt.block_on(body())
+    want = [
+        e for e in filter_schedule(
+            plan.schedule(bundle.seed, horizon_us, n), bundle.occ_off
+        )
+        if e.kind != "skew"  # applied at install time, not replayed
+    ]
+    got = list(driver.applied)
+    if got != want:
+        raise ReplayError(
+            "host driver stream diverged from the shrunk pure schedule:\n"
+            f"  want ({len(want)}): {[str(e) for e in want]}\n"
+            f"  got  ({len(got)}): {[str(e) for e in got]}"
+        )
+    out(
+        f"host schedule twin OK: {len(want)} shrunk fault events applied "
+        "exactly as scheduled"
+    )
+    return {"events": len(want)}
+
+
+def replay_divergence(
+    bundle: ReproBundle, repeats: int = 2, out=print,
+) -> Dict[str, Any]:
+    """Replay a host/device divergence bundle (madsim_tpu_torch/oracle.py):
+    re-run the shrunk plan schedule-matched on the host twin `repeats`
+    times and assert the SAME first divergent event reproduces
+    bit-identically every time. Raises ReplayError when the lane no
+    longer diverges (stale bundle / fixed tree) or when repeats disagree
+    (the replay itself is nondeterministic — a worse bug). Returns a
+    report with `diverged=True`; callers treat that as a failing exit,
+    because a reproduced divergence means the backends still disagree."""
+    from . import oracle
+
+    plan = bundle.shrunk_plan()
+    horizon_us = int(bundle.horizon_us)
+    n = int(bundle.n_nodes)
+    loss_rate = 0.1
+    if bundle.config_toml:
+        loss_rate = float(getattr(bundle.config(), "loss_rate", 0.1))
+    repeats = max(1, repeats)
+    reps = [
+        oracle.check_seed(
+            bundle.spec_name, plan, bundle.seed, horizon_us, n_nodes=n,
+            loss_rate=loss_rate, occ_off=bundle.occ_off, repeats=1,
+        )
+        for _ in range(repeats)
+    ]
+    for i, rep in enumerate(reps, start=1):
+        if not rep.diverged:
+            raise ReplayError(
+                f"replay {i}: seed {bundle.seed} did NOT diverge under the "
+                "bundle's shrunk plan — stale bundle, or the host/device "
+                "skew it recorded has been fixed"
+            )
+
+    def ident(r):
+        d = r.first
+        return (d.kind, d.site, d.index, d.applied, d.expected, d.eid,
+                r.digest, len(r.divergences))
+
+    first = reps[0]
+    for i, rep in enumerate(reps[1:], start=2):
+        if ident(rep) != ident(first):
+            raise ReplayError(
+                "divergence replay is not bit-deterministic: replay "
+                f"{i} reproduced {ident(rep)} but replay 1 gave "
+                f"{ident(first)}"
+            )
+    d = first.first
+    if bundle.causal is not None and d.slice_digest is not None and (
+        bundle.causal.get("sha") != d.slice_digest.get("sha")
+    ):
+        raise ReplayError(
+            "host causal slice diverged from the bundle's recorded digest "
+            f"({d.slice_digest.get('sha')} != {bundle.causal.get('sha')}) — "
+            "the lineage plane or the slice semantics drifted"
+        )
+    out(first.render())
+    out(
+        f"divergence reproduced bit-identically across {repeats} "
+        "schedule-matched host replays — the backends still disagree"
+    )
+    return {
+        "diverged": True,
+        "repeats": repeats,
+        "first": d.to_dict(),
+        "digest": first.digest,
+    }
+
+
 def replay(
     bundle: ReproBundle, backend: str = "device", spec=None,
     repeats: int = 2, trace: int = 0, perfetto: Optional[str] = None,
     explain: int = 0, out=print, device="cuda",
 ) -> Dict[str, Any]:
     """Replay a bundle on `backend`: "device" (or "tpu", the JAX face's
-    name for it) replays on the batched engine; "host" and "both" need the
-    host runtime, which the port does not carry."""
-    if bundle.violation_kind == "divergence" or backend in ("host", "both"):
-        raise NotImplementedError(
-            "host replay (the schedule twin and divergence bundles) runs on "
-            "the host runtime, which is not part of madsim_tpu_torch: "
-            "replay such bundles with the JAX package's repro"
-        )
-    if backend not in DEVICE_BACKENDS:
+    name for it) replays on the batched engine on `device`, "host" runs the
+    shrunk plan's schedule twin on the host runtime, "both" does the two.
+    A divergence bundle routes to `replay_divergence` whatever the
+    backend."""
+    if bundle.violation_kind == "divergence":
+        # differential by construction: there is no single-backend replay
+        # of a host-vs-device divergence, so every backend routes here
+        return replay_divergence(bundle, repeats=repeats, out=out)
+    if backend == "host":
+        return replay_host(bundle, out=out)
+    if backend not in DEVICE_BACKENDS + ("both",):
         raise ValueError(
             f"unknown backend {backend!r} (device|tpu|host|both)")
-    return replay_device(bundle, spec=spec, repeats=repeats, trace=trace,
-                         perfetto=perfetto, explain=explain, out=out,
-                         device=device)
+    rep = replay_device(bundle, spec=spec, repeats=repeats, trace=trace,
+                        perfetto=perfetto, explain=explain, out=out,
+                        device=device)
+    if backend == "both":
+        rep.update(replay_host(bundle, out=out))
+    return rep
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -223,8 +367,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         "--backend", choices=DEVICE_BACKENDS + ("host", "both"),
         default="device",
         help="device (or tpu, the JAX face's name): replay the violation on "
-        "the batched engine (host and both need the host runtime, which "
-        "the port does not carry)",
+        "the batched engine; host: assert the shrunk plan's schedule twin "
+        "on the host runtime; both: the two",
     )
     p.add_argument("--device", default="cuda",
                    help="torch device of the replay (default cuda)")
@@ -252,11 +396,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.spec_ref:
         bundle.spec_ref = args.spec_ref
     try:
-        replay(bundle, backend=args.backend, repeats=args.repeats,
-               trace=args.trace, perfetto=args.perfetto,
-               explain=args.explain, device=args.device)
+        rep = replay(bundle, backend=args.backend, repeats=args.repeats,
+                     trace=args.trace, perfetto=args.perfetto,
+                     explain=args.explain, device=args.device)
     except (ReplayError, ValueError) as e:
         print(f"REPLAY FAILED: {e}", file=sys.stderr)
+        return 1
+    if rep.get("diverged"):
+        # the divergence reproduced: a live host-vs-device bug, so the CLI
+        # fails even though the replay itself succeeded
         return 1
     return 0
 

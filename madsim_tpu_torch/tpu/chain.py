@@ -337,10 +337,24 @@ def make_chain_spec(
 def chain_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
                    loss_rate: float = 0.1):
     """Chain replication under loss + crash/restart chaos (the JAX face's
-    config). The host-runtime reproducer is not ported (`host_repro=None`)."""
+    config). A violating seed gets both microscopes: the device trace and
+    the host twin (workloads/chain_host.py) through `host_repro`."""
     from .batch import BatchWorkload
 
     spec = make_chain_spec(n_nodes)
+
+    def host_repro(seed: int):
+        from ..workloads import chain_host
+
+        try:
+            out = chain_host.fuzz_one_seed(
+                seed, n_nodes=n_nodes, virtual_secs=virtual_secs,
+                loss_rate=loss_rate,
+            )
+            out["violations"] = 0
+            return out
+        except chain_host.InvariantViolation as e:
+            return {"violations": 1, "violation": str(e)}
     cfg = SimConfig(
         horizon_us=int(virtual_secs * 1e6),
         **pool_kw_for(
@@ -354,4 +368,4 @@ def chain_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
         restart_delay_lo_us=200_000,
         restart_delay_hi_us=1_000_000,
     )
-    return BatchWorkload(spec=spec, config=cfg, host_repro=None)
+    return BatchWorkload(spec=spec, config=cfg, host_repro=host_repro)

@@ -334,3 +334,35 @@ FEDERATION_GENERATIONS = 3
 PINNED_FEDERATION = (
     "bd7390680f45bf3d3f172e926f02e6e8c5daeae7ef71eb775108b205efc9429f"
 )
+
+
+# The differential oracle's pinned lane: `oracle.check_seed("raft5",
+# triage.plan_from_config(oracle_config()), ORACLE_SEED, ORACLE_H_US)` — the
+# raft twin replayed schedule-matched under all eight clauses (the JAX
+# suite's PLAN8, tests/test_oracle.py) compiled onto the raft bench config at
+# its 10-virtual-second horizon. The value is the JAX face's
+# `OracleReport.digest` for the same lane (tests/test_torch_oracle.py holds
+# both faces to it).
+ORACLE_PLAN = nemesis.FaultPlan(name="oracle-all8", clauses=(
+    nemesis.Crash(interval_lo_us=400_000, interval_hi_us=1_500_000,
+                  down_lo_us=200_000, down_hi_us=800_000),
+    nemesis.Partition(interval_lo_us=500_000, interval_hi_us=1_800_000,
+                      heal_lo_us=300_000, heal_hi_us=1_000_000),
+    nemesis.LinkClog(interval_lo_us=600_000, interval_hi_us=2_000_000,
+                     heal_lo_us=300_000, heal_hi_us=1_000_000),
+    nemesis.LatencySpike(interval_lo_us=500_000, interval_hi_us=2_000_000,
+                         duration_lo_us=200_000, duration_hi_us=800_000,
+                         extra_us=80_000),
+    nemesis.MsgLoss(rate=0.05),
+    nemesis.Duplicate(rate=0.05),
+    nemesis.Reorder(rate=0.15, window_us=40_000),
+    nemesis.ClockSkew(max_ppm=30_000),
+))
+ORACLE_H_US = 10_000_000
+ORACLE_SEED = 7
+PINNED_ORACLE = "534dd9df0d602eb6"
+
+
+def oracle_config() -> SimConfig:
+    """The raft bench config with `ORACLE_PLAN` compiled onto it."""
+    return compile_plan(ORACLE_PLAN, raft_bench_config(ORACLE_H_US / 1e6))

@@ -635,9 +635,20 @@ def raft_workload(
     chaos: bool = True,
     spec: "ProtocolSpec | None" = None,
 ):
-    """The Raft fuzz as a BatchWorkload (same config as the JAX face's).
-    The host-runtime reproducer is not ported yet (`host_repro=None`)."""
+    """The Raft fuzz as a BatchWorkload: the batched spec + the host-runtime
+    reproducer (same config as the JAX face's). Violating lanes hand their
+    seed to `host_repro`, which re-runs it on the host twin
+    (workloads/raft_host.py). Pass `spec` to fuzz a modified (e.g.
+    deliberately buggy) spec under the same chaos config."""
     from .batch import BatchWorkload
+
+    def host_repro(seed: int):
+        from ..workloads.raft_host import fuzz_one_seed
+
+        return fuzz_one_seed(
+            seed, n_nodes=n_nodes, virtual_secs=virtual_secs,
+            loss_rate=loss_rate, chaos=chaos,
+        )
 
     cfg = SimConfig(
         horizon_us=int(virtual_secs * 1e6),
@@ -650,5 +661,5 @@ def raft_workload(
     return BatchWorkload(
         spec=spec if spec is not None else make_raft_spec(n_nodes=n_nodes),
         config=cfg,
-        host_repro=None,
+        host_repro=host_repro,
     )

@@ -10,9 +10,12 @@ The port has the JAX registry's rows, field for field: the eight
 hand-written workloads, pointing at `madsim_tpu_torch.tpu.<x>`, and the
 three speclang-generated ones (`twopc-gen`, `lease-gen`, `backup`),
 pointing at the device modules that `python -m madsim_tpu_torch.speclang
-emit` writes into `madsim_tpu_torch/speclang/generated/`. None ships a
-host face (`host_module=None`): the host runtime is not part of the port
-(ROADMAP.md queue 1, item 16). wal stays unexplorable, as there.
+emit` writes into `madsim_tpu_torch/speclang/generated/`. raft and chain,
+the differential oracle's two standing twins, ship their host face
+(`madsim_tpu_torch.workloads.raft_host` / `chain_host`), so `host_fuzz`
+and `oracle_twins` answer for them; the other rows keep `host_module=None`
+until their host twins are ported (ROADMAP.md item 16). wal stays
+unexplorable, as there.
 
 Entries hold dotted module paths and attribute names, resolved on first
 use, so importing this package imports no workload module.
@@ -35,7 +38,7 @@ class WorkloadEntry:
     module: str
     spec_attr: str
     workload_attr: str
-    # host face: module exposing `fuzz_one_seed` (None on the port)
+    # host face: module exposing `fuzz_one_seed` (+ `InvariantViolation`)
     host_module: Optional[str] = None
     # schedule-matched plan-mode twin for the differential oracle
     oracle_twin: bool = False
@@ -53,11 +56,13 @@ class WorkloadEntry:
 
 
 _TPU = "madsim_tpu_torch.tpu"
+_HOST = "madsim_tpu_torch.workloads"
 _GEN = "madsim_tpu_torch.speclang.generated"
 _SRC = "madsim_tpu_torch.speclang.specs"
 
 ENTRIES: Tuple[WorkloadEntry, ...] = (
     WorkloadEntry("raft", f"{_TPU}.raft", "make_raft_spec", "raft_workload",
+                  host_module=f"{_HOST}.raft_host",
                   oracle_twin=True, tunable=True),
     WorkloadEntry("kv", f"{_TPU}.kv", "make_kv_spec", "kv_workload",
                   tunable=True),
@@ -66,7 +71,8 @@ ENTRIES: Tuple[WorkloadEntry, ...] = (
     WorkloadEntry("paxos", f"{_TPU}.paxos", "make_paxos_spec",
                   "paxos_workload", tunable=True),
     WorkloadEntry("chain", f"{_TPU}.chain", "make_chain_spec",
-                  "chain_workload", oracle_twin=True, tunable=True),
+                  "chain_workload", host_module=f"{_HOST}.chain_host",
+                  oracle_twin=True, tunable=True),
     WorkloadEntry("isr", f"{_TPU}.isr", "make_isr_spec", "isr_workload"),
     WorkloadEntry("lease", f"{_TPU}.lease", "make_lease_spec",
                   "lease_workload"),
@@ -147,11 +153,34 @@ def spec_factories(**filters) -> Dict[str, Callable]:
 
 def host_fuzz(name: str) -> Callable:
     """The host twin's fuzz_one_seed for one entry (KeyError if the entry
-    ships no host face, as every port entry does)."""
+    ships no host face)."""
     e = get(name)
     if e.host_module is None:
         raise KeyError(f"workload {name!r} has no host twin module")
     return _resolve(e.host_module, "fuzz_one_seed")
+
+
+def _plan_twin(host_module: str) -> Callable[..., dict]:
+    def run(seed, plan, occ_off, n_nodes, virtual_secs, loss_rate):
+        fuzz = _resolve(host_module, "fuzz_one_seed")
+        return fuzz(
+            seed, n_nodes=n_nodes, virtual_secs=virtual_secs,
+            loss_rate=loss_rate, chaos=False, plan=plan, occ_off=occ_off,
+            lineage=True,
+        )
+
+    return run
+
+
+def oracle_twins() -> Dict[str, Callable[..., dict]]:
+    """{spec-name prefix -> plan-mode twin runner} for oracle.HOST_TWINS:
+    every entry flagged oracle_twin, run with NemesisDriver plan mode and
+    lineage on (the artifact surface the comparator consumes)."""
+    return {
+        e.name: _plan_twin(e.host_module)
+        for e in ENTRIES
+        if e.oracle_twin and e.host_module is not None
+    }
 
 
 def spec_knobs(name: str, virtual_secs: float) -> tuple:

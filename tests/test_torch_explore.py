@@ -19,14 +19,14 @@ The same inputs go through both faces on the CPU:
     uninterrupted fingerprint and corpus;
   * one explorer violation with a swarm candidate's `base_ctl` writes the
     JAX face's bundle JSON;
-  * a Tier-B tune (the explorer's and a campaign's) and the campaign
-    CLI's `serve` with its oracle tenant are refused with their ROADMAP
-    items, a federation mesh naming cards the host lacks raises, and the
-    CLI's `--mesh` is refused for `--islands` (the device loop is
+  * a Tier-B tune (the explorer's and a campaign's) is refused with its
+    ROADMAP item, a federation mesh naming cards the host lacks raises, and
+    the CLI's `--mesh` is refused for `--islands` (the device loop is
     tests/test_torch_devloop.py's, the federation and the CLI's
-    `--islands` and `--out` tests/test_torch_campaign.py's); the
-    registry's rows are the JAX registry's, the speclang-generated ones
-    included, each without a host face.
+    `--islands` and `--out` tests/test_torch_campaign.py's); the campaign
+    CLI's `serve` runs with its oracle tenant; the registry's rows are the
+    JAX registry's, the speclang-generated ones included, with the host
+    face on raft and chain only.
 
 Tolerances: exact everywhere (integers, float32 bit patterns, bitmaps and
 JSON byte for byte).
@@ -34,6 +34,7 @@ JSON byte for byte).
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -298,8 +299,8 @@ def test_explorer_violation_bundle_equals_the_jax_face(tmp_path):
 # ------------------------------------------------------- refusals, registry
 
 # (tuning=, Campaign(tuning=) and serve were refused until item 12 came;
-# what stays refused of them is Tier B's certifier, item 15, and serve's
-# oracle tenant, item 16)
+# what stays refused of them is Tier B's certifier, item 15; serve's
+# oracle tenant came with item 16, test_campaign_serve_cli_runs_its_oracle)
 REFUSED = [
     ("tuning", lambda: tune.tune_workload(
         chip_smoke.explore_workload(), "planted", tier="AB", device="cpu"),
@@ -307,8 +308,6 @@ REFUSED = [
     ("campaign-tuning", lambda: tune.tier_b_gate(
         chip_smoke.explore_workload(), chip_smoke.explore_workload().config,
         device="cpu"), "item 15"),
-    ("campaign-serve", lambda: campaign.main(["serve", "--dir", "x"]),
-     "item 16"),
     # (a multi-device mesh was refused as item 14 until it came: a mesh
     # naming cards this host lacks is refused and never runs elsewhere,
     # and the CLI's --mesh, which the JAX CLI lacks (a single explorer
@@ -329,10 +328,26 @@ def test_unported_explorer_options_are_refused(call, item):
         call()
 
 
+def test_campaign_serve_cli_runs_its_oracle(tmp_path):
+    """`campaign serve` with no --no-oracle (refused until item 16 came):
+    a bounded serve over an empty queue writes the tenant's "oracle" block
+    of status.json (tests/test_torch_oracle.py serves real requests)."""
+    d = str(tmp_path / "svc")
+    assert campaign.main(["serve", "--dir", d, "--device", "cpu",
+                          "--max-rounds", "1", "--idle-rounds", "1"]) in (
+        0, None)
+    with open(os.path.join(d, "status.json")) as f:
+        status = json.load(f)
+    assert status["oracle"] == {
+        "seeds_checked": 0, "divergences": 0, "shrinks_done": 0,
+        "skipped_no_twin": 0, "skipped_saturated": 0, "errors": 0,
+        "draws_checked": 0, "sample_rate": 0.25, "per_round": 2}
+
+
 def test_registry_rows_equal_the_jax_registry(capsys):
     """Every row of the JAX registry, the speclang-generated ones
-    included, field for field, with the port's module paths and no host
-    face."""
+    included, field for field, with the port's module paths; raft and
+    chain carry their host face, the others none yet."""
     assert reg.names() == jreg.names()
     for flags in (dict(explorable=True), dict(tunable=True),
                   dict(oracle_twin=True), dict(analysis=True),
@@ -345,13 +360,19 @@ def test_registry_rows_equal_the_jax_registry(capsys):
 
     for name in jreg.names():
         e, je = reg.get(name), jreg.get(name)
+        hosted = name in ("raft", "chain")
         assert dataclasses.asdict(e) == dataclasses.asdict(je) | {
-            "module": port(je.module), "host_module": None,
+            "module": port(je.module),
+            "host_module": port(je.host_module) if hosted else None,
             "source_module": port(je.source_module),
         }, name
         assert reg.spec_factory(name).__module__ == e.module
-        with pytest.raises(KeyError, match="host twin"):
-            reg.host_fuzz(name)
+        if hosted:
+            assert reg.host_fuzz(name).__module__ == e.host_module
+        else:
+            with pytest.raises(KeyError, match="host twin"):
+                reg.host_fuzz(name)
+    assert sorted(reg.oracle_twins()) == sorted(jreg.oracle_twins())
     with pytest.raises(KeyError, match="unknown workload"):
         reg.get("nonesuch")
     # the CLI's named workload: the JAX face's config, storm plan included

@@ -61,6 +61,12 @@ def test_no_port_module_imports_jax_or_the_jax_package():
         os.path.join("speclang", "specs", "backup.py"),
         os.path.join("speclang", "generated", "backup_device.py"),
         os.path.join("tpu", "mesh.py"),
+        "oracle.py", "fs.py", "repro.py",
+        os.path.join("core", "runtime.py"),
+        os.path.join("core", "interpose.py"),
+        os.path.join("net", "netsim.py"),
+        os.path.join("workloads", "raft_host.py"),
+        os.path.join("workloads", "chain_host.py"),
     )} <= seen
 
 
@@ -70,7 +76,10 @@ def test_importing_the_port_loads_no_jax():
         "madsim_tpu_torch.tpu.convert, madsim_tpu_torch.tpu.mesh, "
         "madsim_tpu_torch.telemetry, "
         "madsim_tpu_torch.explore, madsim_tpu_torch.workloads, "
-        "madsim_tpu_torch.speclang.emit; "
+        "madsim_tpu_torch.speclang.emit, madsim_tpu_torch.core, "
+        "madsim_tpu_torch.oracle, madsim_tpu_torch.repro, "
+        "madsim_tpu_torch.workloads.raft_host, "
+        "madsim_tpu_torch.workloads.chain_host; "
         "from madsim_tpu_torch import workloads; "
         "[workloads.workload_factory(n) for n in workloads.names()]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -136,8 +136,8 @@ def test_plan_validation_raises_the_same(name, clauses):
 
 def test_host_faces_refused_with_item():
     """The pure schedule faces are ported (item 9): `schedule` and
-    `skew_ppm` equal the JAX package's for the storm plan; the host
-    runtime's network face stays refused."""
+    `skew_ppm` equal the JAX package's for the storm plan; so does the host
+    runtime's network face, `to_net_config` (refused until item 16 came)."""
     plan, jplan = storm(tn), storm(jn)
     for seed in (1, 7):
         assert plan.skew_ppm(seed, 5) == jplan.skew_ppm(seed, 5)
@@ -145,8 +145,16 @@ def test_host_faces_refused_with_item():
         want = [dataclasses.asdict(e)
                 for e in jplan.schedule(seed, 5_000_000, 5)]
         assert got == want and len(got) > 10
-    with pytest.raises(NotImplementedError, match="host runtime"):
-        plan.to_net_config()
+    msg = tn.FaultPlan(name="msg", clauses=(
+        tn.MsgLoss(rate=0.05), tn.Duplicate(rate=0.1),
+        tn.Reorder(rate=0.2, window_us=40_000)))
+    jmsg = jn.FaultPlan(name="msg", clauses=(
+        jn.MsgLoss(rate=0.05), jn.Duplicate(rate=0.1),
+        jn.Reorder(rate=0.2, window_us=40_000)))
+    for p, jp in ((plan, jplan), (msg, jmsg)):
+        assert dataclasses.asdict(p.to_net_config()) == \
+            dataclasses.asdict(jp.to_net_config())
+    assert msg.to_net_config().packet_reorder_window == 0.04
 
 
 # ------------------------------------------------------- integer + coins

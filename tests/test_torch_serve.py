@@ -1,5 +1,5 @@
-"""The port's fuzz service against the JAX package: `campaign.serve` without
-its oracle tenant, `_explicit_request_params`, `_default_factory`,
+"""The port's fuzz service against the JAX package: `campaign.serve`,
+`_explicit_request_params`, `_default_factory`,
 `_device_ctx` and `python -m madsim_tpu_torch.campaign serve`.
 
 Both faces serve the same request directories on the CPU with
@@ -17,7 +17,8 @@ Both faces serve the same request directories on the CPU with
     read), served by the JAX face in one run and by the port through its
     CLI killed after round 1 and restarted: every streamed line carries
     the JAX face's fingerprint, and the tuned campaign's the untuned one's;
-  * the oracle tenant is refused (item 16, naming --no-oracle); serve
+  * serve with its oracle tenant (the default; refused until item 16
+    came) writes oracle.json and the status block; serve
     over two CPU devices (two slice lanes on two threads) drains three
     real campaigns with the one-device serve's fingerprints.
 
@@ -323,16 +324,29 @@ SMALL = {"workload": "raft", "virtual_secs": 0.2, "lanes": 8, "chunk": 8,
 
 
 def test_serve_refuses_the_oracle_tenant_and_several_cards(tmp_path):
-    """The oracle tenant is refused (item 16). Serve over several devices
-    (once refused as item 14) runs: two CPU devices, two slice lanes on
-    two threads, drain three real small campaigns with the fingerprints
-    the one-device serve streams, generation for generation."""
+    """The oracle tenant runs (it was refused until item 16 came): a
+    serve with the default `oracle=True` and the CLI without --no-oracle
+    both write oracle.json and the status block. Serve over several
+    devices (once refused as item 14) runs: two CPU devices, two slice
+    lanes on two threads, drain three real small campaigns with the
+    fingerprints the one-device serve streams, generation for
+    generation."""
     d = str(tmp_path / "svc")
-    with pytest.raises(NotImplementedError, match="item 16") as e:
-        campaign.serve(d)
-    assert "--no-oracle" in str(e.value) and not os.path.exists(d)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        campaign.main(["serve", "--dir", d, "--device", "cpu"])
+    _write(d, "queue", "o", dict(SMALL, meta_seed=9, generations=1))
+    res = campaign.serve(d, out=lambda s: None, sleep=lambda s: None,
+                         idle_rounds=1, oracle_sample_rate=1.0,
+                         device="cpu")
+    assert res["completed"] == ["o"]
+    with open(os.path.join(d, "status.json")) as f:
+        block = json.load(f)["oracle"]
+    assert block["seeds_checked"] == 2 and block["errors"] == 0
+    assert block["skipped_saturated"] > 0 and block["divergences"] == 0
+    with open(os.path.join(d, "oracle.json")) as f:
+        assert json.load(f)["cursor"] == {"o": 1}
+    campaign.main(["serve", "--dir", d, "--device", "cpu",
+                   "--max-rounds", "1", "--idle-rounds", "1"])
+    with open(os.path.join(d, "oracle.json")) as f:
+        assert json.load(f)["seeds_checked"] == 2  # the cursor resumed
     for dev in (None, torch.device("cpu"), "d0", 3):
         assert isinstance(campaign._device_ctx(dev),
                           contextlib.nullcontext)

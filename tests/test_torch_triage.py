@@ -509,11 +509,9 @@ REFUSED = [
     # whose certifier is item 15, stays refused)
     ("tuning", lambda wl: tune.tune_workload(wl, "planted", tier="B",
                                              device="cpu"), "item 15"),
-    ("host backend", lambda wl: repro.replay(
-        triage.ReproBundle(**_bundle()), backend="host"), "host runtime"),
-    ("both backends", lambda wl: repro.replay(
-        triage.ReproBundle(**_bundle()), backend="both"), "host runtime"),
 ]
+# (repro's host and both backends were refused until item 16 came: they
+# are PORTED below)
 
 
 @pytest.mark.parametrize("what,call,item", REFUSED,
@@ -587,8 +585,38 @@ def _check_replay_perfetto(tmp_path, capsys):
     assert events[-1].kind == "violation"
 
 
+def _check_host_backend(tmp_path, capsys):
+    """replay(backend="host"): the shrunk every-clause plan's schedule twin
+    on the host runtime (occurrence masks and dropped clauses applied)
+    prints and returns what the JAX face's does."""
+    lines, jlines = [], []
+    rep = repro.replay(triage.ReproBundle(**_bundle(horizon_us=3_000_000)),
+                       backend="host", out=lines.append)
+    jrep = jrepro.replay(jtri.ReproBundle(**_bundle(horizon_us=3_000_000)),
+                         backend="host", out=jlines.append)
+    assert rep == jrep and lines == jlines and rep["events"] > 4
+    assert "host schedule twin OK" in lines[-1]
+
+
+def _check_both_backends(tmp_path, capsys):
+    """replay(backend="both"): the device half on the CPU, then the host
+    schedule twin, whose lines are the JAX face's host replay's."""
+    spec, bundle = _early_violation()
+    lines, jlines = [], []
+    rep = repro.replay(bundle, backend="both", spec=spec, repeats=1,
+                       device="cpu", out=lines.append)
+    jrep = jrepro.replay_host(jtri.ReproBundle.from_json(bundle.to_json()),
+                              out=jlines.append)
+    assert rep["violated"] and rep["step"] == bundle.violation_step
+    assert rep["t_us"] == bundle.violation_t_us
+    assert rep["events"] == jrep["events"]
+    assert lines[0].startswith("device replay OK") and lines[1:] == jlines
+
+
 PORTED = [("slice_perfetto", _check_slice_perfetto),
-          ("perfetto", _check_replay_perfetto)]
+          ("perfetto", _check_replay_perfetto),
+          ("host backend", _check_host_backend),
+          ("both backends", _check_both_backends)]
 
 
 @pytest.mark.parametrize("check", [p[1] for p in PORTED],
