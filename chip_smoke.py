@@ -11,8 +11,9 @@ workloads, the triage path (trace, shrink, replay), and continuous
 batching with the coverage plane, the causal-lineage plane, the telemetry
 plane, the coverage-guided explorer and its device-resident search loop,
 campaigns and the island federation, the speclang device face, measured
-tuning, the fuzz service, the lane mesh and the host runtime under the
-differential oracle — and checks it, in nineteen phases. Every sweep without a refill queue runs
+tuning, the fuzz service, the lane mesh, the host runtime under the
+differential oracle and every workload's host face — and checks it, in
+twenty phases. Every sweep without a refill queue runs
 `BatchedSim._run`'s captured blocks (one CUDA graph replay per 32 gated
 steps), so the pins and digests of phases 2, 4 and 6-9 are the capture's
 correctness gate too:
@@ -215,7 +216,7 @@ correctness gate too:
    serve of the same request;
 18. the lane mesh (in a child process started after phase 9, beside
    phases 10-16(d), joined before phase 8; the child then runs phases
-   19, 17 and 16(e): its lines appear after phase 16(d)'s and count
+   19, 17, 16(e) and 20: its lines appear after phase 16(d)'s and count
    seconds from the child's start; the host shows one
    card, so every mesh repeats it and a mesh's shards run one after
    another there): (a) the sharded refill of 32 admissions of
@@ -268,11 +269,31 @@ correctness gate too:
    resumed,
    and oracle.json and the status block equal an uninterrupted CPU
    serve's; the tenant's host seconds are printed beside the slice walls;
-   (e) phase 10's card bundle replays with `backend="both"`.
+   (e) phase 10's card bundle replays with `backend="both"`;
+20. the rest of the host faces (in phase 18's child, after 16(e); its
+   CPU references in a process of their own; budget PHASE20_BUDGET_S,
+   printed beside its wall): (a) `Runtime.run_batch` over 8192 seeds of
+   buggy paxos (`buggy_ignore_discovered`, paxos's bench width) at 8
+   virtual s violates, and its two host repros (the paxos factory's twin,
+   which runs the correct protocol as on the JAX face) are dicts that
+   report 0 violations and that a second call returns again; (b) the same
+   for the generated buggy backup at its 10 virtual s, its host repros
+   the generic twin with the planted bug and the handlers on the card,
+   each reporting 1 violation; (c) `kv_workload(2 virtual s,
+   device=card).host_repro` on two seeds: the one-lane card run's exact
+   linearizability verdict and the kv twin's dict equal the CPU
+   process's; (d) the generated twins' `digest.HOSTRT_RUNS` with the
+   handlers on the card equal the CPU process's dicts and reach
+   `digest.PINNED_HOSTRT`, the buggy backup under `HOSTRT_PLAN` raises the
+   CPU's message, and the wall per handler call (the invariant checks
+   and the runtime included) is printed beside the CPU's;
+   (e) in the parent inside phase 9, the first two violating seeds of the
+   buggy isr, lease and wal sweeps go through their factories'
+   `host_repro` (host time), each verdict printed.
 
 `python3 chip_smoke.py --contention-probe` runs none of the phases: it
 times the host valve's probe alone, over and over beside the child of
-phases 18, 19, 17 and 16(e) (at their full depths), and alone again, and
+phases 18, 19, 17, 16(e) and 20 (at their full depths), and alone again, and
 prints the probe's slowdown in each of the child's phases.
 
 The port has no hand-written kernel (the JAX package has no Pallas kernel
@@ -308,7 +329,7 @@ PROFILE_STEPS = 20
 PROFILE_FLAG = "--phase5-profile"
 # the argument that runs phase 6 (the golden runs) as a child process
 GOLDEN_FLAG = "--phase6-golden"
-# the argument that runs phases 18, 19, 17 and 16(e) as a child process,
+# the argument that runs phases 18, 19, 17, 16(e) and 20 as a child process,
 # with the valve's depths as one JSON object after it
 MESH_FLAG = "--phase18-mesh"
 # the argument that times phases 2, 3, 9's parity runs and phase 6 one
@@ -533,6 +554,26 @@ PLAN8_H_US = 3_000_000
 PLAN8_SEED = 7
 # 19(c): the lanes of the card sweep the oracle replays at the bench horizon
 ORACLE_SEEDS = 16
+# phase 20 (the host faces of item 16's rest, in the child after 16(e)):
+# its budget (printed beside its wall); (a) buggy paxos through
+# Runtime.run_batch at paxos's bench width and PAXOS_REPRO_SECS (the
+# factory's twin runs the correct protocol: its repros report 0
+# violations), (b) the generated buggy backup at the same width and its
+# default horizon (its twin carries the bug: 1 violation a repro), each
+# with HOST_FACE_REPROS host repros run twice, at fixed horizons; (c)
+# kv's two-part host_repro on KV_REPRO_SEEDS at KV_REPRO_SECS; (d) the
+# generated twins' digest.HOSTRT_RUNS on the card; (e) in the parent's
+# phase 9, the first HOST_FACE_REPROS violating seeds of the buggy isr,
+# lease and wal sweeps through their factories' host_repro
+PHASE20_BUDGET_S = 90.0
+HOST_FACE_LANES = 8192
+PAXOS_REPRO_SECS = 8.0
+BACKUP_REPRO_SECS = 10.0
+HOST_FACE_REPROS = 2
+KV_REPRO_SECS = 2.0
+KV_REPRO_SEEDS = (1, 2)
+# phase 20's CPU references run in a process of their own, as phase 19's
+HOSTFACE_CPU_FLAG = "--phase20-cpu"
 # the host valve: the reference host, on which the script's phases were
 # budgeted, took 29.4 ms per eager refill iteration at one shard (phase
 # 18(a)'s one-shard run, PERF.md section 6; H100 80GB HBM3, 700 W); a
@@ -540,6 +581,11 @@ ORACLE_SEEDS = 16
 # never below these floors (virtual s)
 VALVE_REF_MS = 29.4
 VALVE_FLOORS = {"backup_explore_secs": 5.0, "serve_secs": 0.5}
+# those depths uncut, and the valve's grain for each (whole tenths of a
+# virtual second for 16(e), whole twentieths for 17(d))
+FULL_DEPTHS = {"backup_explore_secs": BACKUP_EXPLORE_SECS,
+               "serve_secs": SERVE_SECS}
+DEPTH_GRAIN = {"backup_explore_secs": 10, "serve_secs": 20}
 # the whole script must end well inside the 1200 s the card run allows;
 # phase 8 (run last) splits what is left of this target across its runs
 TARGET_S = 1050.0
@@ -1099,7 +1145,7 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
     # the depth valve: a slow host scales the depths of 16(e) and 17(d)
     # before they run
     report["valve"] = host_valve(cuda)
-    # phases 18, 19, 17 and 16(e) run in a child process beside phases
+    # phases 18, 19, 17, 16(e) and 20 run in a child process beside phases
     # 10-16(d): both sides are host-bound eager sweeps (the card idles
     # most of each step), so its walls overlap theirs, as phase 6's do
     # phases 2-3's
@@ -1117,7 +1163,7 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
         report["campaigns"] = phase15_campaigns(cuda, card, host13["dirs"])
         report["speclang"] = phase16_speclang(cuda, card, work)
         t0 = time.perf_counter()
-        res = join_child(child, "phases 16(e) and 17-19", 900)
+        res = join_child(child, "phases 16(e) and 17-20", 900)
         wait_s = time.perf_counter() - t0
     finally:
         if child.poll() is None:
@@ -1127,18 +1173,21 @@ def phase_4_5_on(cuda, report: dict, small: dict, card: str,
     report["speclang"]["explore"] = res.pop("speclang_explore")
     report["tune_serve"] = res.pop("tune_serve")
     report["host_oracle"] = res.pop("host_oracle")
+    report["host_faces"] = res.pop("host_faces")
     report["mesh"] = res
     # the child's wall-clock marks on this script's clock
     t_zero = time.time() - (time.perf_counter() - T_START)
     at = {k: v - t_zero for k, v in res["marks"].items()}
     fed = res["federation"]["wall_s"]
-    phase(18, f"overlapped: the child ran phases 18, 19, 17 and 16(e) in "
-              f"{res['wall_s']:.1f} s beside phases 10-16(d) (on this "
+    phase(18, f"overlapped: the child ran phases 18, 19, 17, 16(e) and 20 "
+              f"in {res['wall_s']:.1f} s beside phases 10-16(d) (on this "
               f"script's clock: started {at['start']:.0f} s, 19 at "
               f"{at['19']:.0f} s, 17 at {at['17']:.0f} s, 16(e) at "
-              f"{at['16(e)']:.0f} s, ended {at['end']:.0f} s; joined after "
-              f"a {wait_s:.1f} s wait); phase 19 took "
-              f"{report['host_oracle']['phase_s']:.1f} s of it; its "
+              f"{at['16(e)']:.0f} s, 20 at {at['20']:.0f} s, ended "
+              f"{at['end']:.0f} s; joined after a {wait_s:.1f} s wait); "
+              f"phases 19 and 20 took "
+              f"{report['host_oracle']['phase_s']:.1f} and "
+              f"{report['host_faces']['phase_s']:.1f} s of it; its "
               f"sharded federation took {fed:.2f} s against phase 15's "
               f"{report['campaigns']['federation']['host_s']:.2f} s island "
               "by island")
@@ -1680,6 +1729,16 @@ def phase9_membership(cuda) -> dict:
                 check(bool((loss[violated] > 0).all()),
                       f"{tag}: violating lanes without unsynced loss")
                 extra += "; every violating lane lost unsynced state"
+            if name in ("isr", "lease", "wal"):
+                # 20(e): the first violating seeds on the host twin
+                row["host_repros"] = reps = phase9_host_repros(
+                    name, virtual_secs, violated)
+                extra += "; 20(e) host_repro " + ", ".join(
+                    f"seed {sd}: {v['violations']} violation"
+                    f"{'' if v['violations'] == 1 else 's'} "
+                    f"({v['wall_s']:.2f} s)"
+                    + (f" {v['violation'][:60]!r}" if v["violation"]
+                       else "") for sd, v in reps.items())
         if buggy and name == PHASE9_INDEPENDENCE:
             big = state_to_numpy(first_lanes(st, SEEDS_SMALL))
             small = state_to_numpy(
@@ -4147,6 +4206,236 @@ def phase19_replay_both(cuda, bundle) -> dict:
     return {"wall_s": wall, "events": rep["events"], "step": rep["step"]}
 
 
+def jsonable(x):
+    """A host repro's result as JSON values (an exception as its repr), so
+    a card process's and the CPU process's compare."""
+    return json.loads(json.dumps(x, default=repr))
+
+
+def twin_runs(device) -> dict:
+    """Phase 20(d)'s generated-twin runs on `device`: the HOSTRT_RUNS
+    dicts (JSON part), their digest, the buggy backup's message under
+    HOSTRT_PLAN, the handler calls and the wall of the four runs."""
+    from madsim_tpu_torch.speclang import hostrt
+    from madsim_tpu_torch.speclang.generated import backup_host
+    from madsim_tpu_torch.speclang.specs import PROTOCOLS
+    from madsim_tpu_torch.tpu import digest
+
+    # build (and warm) the runs' kits first, so the wall counts handler
+    # calls only
+    kits = [hostrt.kit_for(p, device=device) for p in PROTOCOLS.values()]
+    calls0 = sum(k.calls for k in kits)
+    t0 = time.perf_counter()
+    res = digest.hostrt_runs(device)
+    wall = time.perf_counter() - t0
+    calls = sum(k.calls for k in kits) - calls0
+    t0 = time.perf_counter()
+    try:
+        backup_host.fuzz_one_seed(0, virtual_secs=8.0, chaos=False,
+                                  buggy=True, plan=digest.HOSTRT_PLAN,
+                                  device=device)
+        buggy = None
+    except backup_host.InvariantViolation as e:
+        buggy = str(e)
+    return {"results": [digest.hostrt_result(r) for r in res],
+            "digest": digest.hostrt_digest(res), "buggy": buggy,
+            "calls": calls, "wall_s": wall,
+            "ms_per_call": wall / max(calls, 1) * 1e3,
+            "buggy_s": time.perf_counter() - t0}
+
+
+def kv_repros(device, virtual_secs: float) -> dict:
+    """Phase 20(c): kv_workload's two-part host_repro (one engine lane on
+    `device` under the exact checker, then the host twin) on
+    KV_REPRO_SEEDS: {seed: JSON result}, and the wall."""
+    from madsim_tpu_torch.tpu import kv_workload
+
+    wl = kv_workload(virtual_secs=virtual_secs, device=device)
+    t0 = time.perf_counter()
+    out = {str(s): jsonable(wl.host_repro(s)) for s in KV_REPRO_SEEDS}
+    return {"repros": out, "wall_s": time.perf_counter() - t0}
+
+
+def phase20_cpu_references() -> dict:
+    """Phase 20's CPU references, in a process of their own: 20(c)'s kv
+    host repros and 20(d)'s generated-twin runs with the handlers on the
+    CPU."""
+    return {"kv": kv_repros("cpu", KV_REPRO_SECS),
+            "twins": twin_runs("cpu")}
+
+
+def host_face_sweep(cuda, wl, tag: str, repro_violations: int) -> dict:
+    """Phase 20(a)/(b): `Runtime.run_batch` of `wl` over HOST_FACE_LANES
+    seeds on the card with HOST_FACE_REPROS host repros; the planted bug
+    violates, and each repro is a dict (no exception) that reports
+    `repro_violations` violations and that a second call returns again."""
+    import madsim_tpu_torch as ms
+
+    t0 = time.perf_counter()
+    r = ms.Runtime.run_batch(range(HOST_FACE_LANES), wl, device=cuda,
+                             max_traces=0, max_host_repros=HOST_FACE_REPROS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(r.violations > 0, f"{tag}: the planted bug never violated in "
+                            f"{HOST_FACE_LANES} lanes")
+    want = r.violating_seeds[:HOST_FACE_REPROS]
+    check(sorted(r.host_repros) == sorted(want)
+          and len(want) == HOST_FACE_REPROS,
+          f"{tag}: host repros for {sorted(r.host_repros)}, not the first "
+          f"{HOST_FACE_REPROS} violating seeds")
+    bad = {s: repr(v) for s, v in r.host_repros.items()
+           if not isinstance(v, dict)}
+    check(not bad, f"{tag}: host repros raised: {bad}")
+    got = {s: v["violations"] for s, v in r.host_repros.items()}
+    check(all(v == repro_violations for v in got.values()),
+          f"{tag}: host repros report {got} violations, not "
+          f"{repro_violations} each")
+    t1 = time.perf_counter()
+    again = {s: wl.host_repro(s) for s in want}
+    repro_s = time.perf_counter() - t1
+    check(jsonable(again) == jsonable(r.host_repros),
+          f"{tag}: a second host repro differs: {jsonable(again)} != "
+          f"{jsonable(r.host_repros)}")
+    return {"lanes": HOST_FACE_LANES, "violations": int(r.violations),
+            "sweep_s": r.device_ms / 1e3, "wall_s": wall,
+            "repro_twice_s": repro_s,
+            "repros": {str(s): {k: v for k, v in jsonable(x).items()
+                                if k in ("violations", "violation",
+                                         "events", "checks")}
+                       for s, x in r.host_repros.items()}}
+
+
+def phase20_host_faces(cuda, card: str) -> dict:
+    """Phase 20, the rest of item 16's host faces, in phase 18's child
+    after 16(e); its CPU references run meanwhile in a process of their
+    own (`phase20_cpu_references`). (a) `Runtime.run_batch` on the card
+    over buggy paxos (`buggy_ignore_discovered`) at paxos's bench width,
+    HOST_FACE_REPROS host repros through the paxos twin, which runs the
+    correct protocol (the factory's twin, as on the JAX face: the spec is
+    swapped, the twin is not), so each repro reports 0 violations; (b)
+    the same for the generated buggy backup, whose host_repro runs the
+    generic twin's handlers on the card with the planted bug, so each
+    repro reports the violation; (c) kv_workload's two-part host_repro with its
+    engine lane on the card: the device verdict and the twin's dict equal
+    the CPU process's; (d) the generated twins' HOSTRT_RUNS with the
+    handlers on the card: equal to the CPU process's and at
+    PINNED_HOSTRT, the buggy backup raises the CPU's message, the wall
+    per handler call (the invariant checks and the runtime included)
+    printed beside the CPU's. Every check is asserted."""
+    import dataclasses
+
+    from madsim_tpu_torch.speclang.generated import backup_device
+    from madsim_tpu_torch.tpu import make_paxos_spec, paxos_workload
+    from madsim_tpu_torch.tpu.digest import PINNED_HOSTRT
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    cpu_child = spawn_child(HOSTFACE_CPU_FLAG)
+
+    # -- (a) buggy paxos, the (correct) paxos twin as host_repro
+    wl = paxos_workload(virtual_secs=PAXOS_REPRO_SECS)
+    wl = dataclasses.replace(
+        wl, spec=make_paxos_spec(5, buggy_ignore_discovered=True))
+    out["paxos"] = row = host_face_sweep(cuda, wl, "paxos", 0)
+    phase(20, f"(a) Runtime.run_batch, buggy paxos, {HOST_FACE_LANES} "
+              f"lanes x {PAXOS_REPRO_SECS} virtual s: {row['violations']} "
+              f"violating (sweep {row['sweep_s']:.2f} s, "
+              f"{row['wall_s']:.1f} s with {HOST_FACE_REPROS} host "
+              f"repros); the factory's twin runs the correct protocol, so "
+              f"its repros {row['repros']} report 0 violations, equal when "
+              f"run again ({row['repro_twice_s']:.2f} s)")
+
+    # -- (b) the generated buggy backup, the generic twin on the card
+    wl = backup_device.make_workload(
+        buggy=True, virtual_secs=BACKUP_REPRO_SECS, device=cuda)
+    out["backup"] = row = host_face_sweep(cuda, wl, "backup", 1)
+    phase(20, f"(b) Runtime.run_batch, generated buggy backup, "
+              f"{HOST_FACE_LANES} lanes x {BACKUP_REPRO_SECS} virtual s: "
+              f"{row['violations']} violating (sweep {row['sweep_s']:.2f} "
+              f"s, {row['wall_s']:.1f} s with {HOST_FACE_REPROS} host "
+              f"repros on the card); the buggy twin reproduces: repros "
+              f"{row['repros']} report 1 violation each, equal when run "
+              f"again ({row['repro_twice_s']:.2f} s)")
+
+    # -- (c) kv's two-part host_repro, its engine lane on the card
+    out["kv"] = kv = kv_repros(cuda, KV_REPRO_SECS)
+    # -- (d) the generated twins, the handlers on the card
+    out["twins"] = tw = twin_runs(cuda)
+    check(tw["digest"] == PINNED_HOSTRT,
+          f"generated twins: digest {tw['digest']} != PINNED_HOSTRT "
+          f"{PINNED_HOSTRT}")
+    check(tw["buggy"] is not None,
+          "generated twins: the buggy backup survived the plan on the card")
+
+    # the CPU references, joined
+    t0 = time.perf_counter()
+    ref = join_child(cpu_child, "phase 20's CPU references", 600)
+    wait_s = time.perf_counter() - t0
+    check(kv["repros"] == ref["kv"]["repros"],
+          f"kv host_repro: the card's {kv['repros']} != the CPU's "
+          f"{ref['kv']['repros']}")
+    for s, x in kv["repros"].items():
+        check(x["device"]["ops_checked"] > 0
+              and isinstance(x["host_twin"], dict),
+              f"kv host_repro seed {s}: {x}")
+    cpu_tw = ref["twins"]
+    check(tw["results"] == cpu_tw["results"]
+          and cpu_tw["digest"] == PINNED_HOSTRT,
+          "generated twins: the card's dicts differ from the CPU's")
+    check(tw["buggy"] == cpu_tw["buggy"],
+          f"generated twins: buggy backup {tw['buggy']!r} on the card, "
+          f"{cpu_tw['buggy']!r} on the CPU")
+    verdicts = {s: (x["device"]["violations"], x["host_twin"]["acked_ops"])
+                for s, x in kv["repros"].items()}
+    phase(20, f"(c) kv_workload({KV_REPRO_SECS} virtual s).host_repro on "
+              f"seeds {list(KV_REPRO_SEEDS)}, the engine lane on the card: "
+              f"(device violations, twin acked ops) {verdicts}, equal to "
+              f"the CPU process's; {kv['wall_s']:.1f} s (CPU "
+              f"{ref['kv']['wall_s']:.1f} s)")
+    phase(20, f"(d) the generated twins' {len(tw['results'])} runs with "
+              f"the handlers on the card: = the CPU process's, at "
+              f"PINNED_HOSTRT; {tw['calls']} handler calls in "
+              f"{tw['wall_s']:.2f} s, {tw['ms_per_call']:.3f} ms of wall "
+              f"per handler call, the invariant checks and the runtime "
+              f"included (CPU {cpu_tw['ms_per_call']:.3f} ms, "
+              f"{cpu_tw['calls']} calls in {cpu_tw['wall_s']:.2f} s); the "
+              f"buggy backup "
+              f"raises the CPU's message ({tw['buggy_s']:.2f} s)")
+    out["cpu_child"] = {"wall_s": ref["wall_s"], "wait_s": wait_s,
+                        "kv_s": ref["kv"]["wall_s"],
+                        "twins_s": cpu_tw["wall_s"],
+                        "ms_per_call": cpu_tw["ms_per_call"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase(20, f"on {card}: phase 20 took {out['phase_s']:.1f} s (budget "
+              f"{PHASE20_BUDGET_S:.0f} s); its CPU process "
+              f"{ref['wall_s']:.1f} s, joined after a {wait_s:.1f} s wait")
+    return out
+
+
+def phase9_host_repros(name: str, virtual_secs: float, violated) -> dict:
+    """Phase 20(e), in the parent inside phase 9: the first
+    HOST_FACE_REPROS violating seeds of a buggy isr, lease or wal sweep
+    through its factory's host_repro (the host twin, host time only).
+    Returns {seed: verdict}; a repro that raises fails the run."""
+    from madsim_tpu_torch.tpu import isr_workload, lease_workload, wal_workload
+
+    factory = {"isr": isr_workload, "lease": lease_workload,
+               "wal": wal_workload}[name]
+    wl = factory(virtual_secs=virtual_secs, buggy=True)
+    seeds = [int(s) for s in np.nonzero(violated)[0][:HOST_FACE_REPROS]]
+    out = {}
+    for s in seeds:
+        t0 = time.perf_counter()
+        r = wl.host_repro(s)
+        check(isinstance(r, dict) and "violations" in r,
+              f"{name} host_repro seed {s}: {r!r}")
+        out[s] = {"violations": r["violations"],
+                  "violation": r.get("violation"),
+                  "events": r.get("events"),
+                  "wall_s": time.perf_counter() - t0}
+    return out
+
+
 def valve_probe(cuda):
     """The host valve's probe: a function that times eager refill
     iterations at one shard (phase 18(a)'s config, 4 admissions on
@@ -4189,19 +4478,16 @@ def host_valve(cuda) -> dict:
     """The depth valve for a slow host, before phase 10 and the child
     start: when valve_probe's iteration is slower than VALVE_REF_MS, the
     depths of 16(e) (the buggy backup's horizon, BACKUP_EXPLORE_SECS; its
-    64 lanes x 1 generation are the JAX deep test's) and 17(d) (the raft
+    64 lanes x 1 generation are the JAX deep test's), 17(d) (the raft
     request's horizon, SERVE_SECS) are scaled down in proportion, never
     below VALVE_FLOORS. 13(b) keeps its width (EXPLORE_LANES) and its
     depth, two generations, which is its floor (one boundary and the final
     fold, which phase 14 runs again); every pinned leg keeps its depth and
     no gate is dropped. Returns the probe and the depths, which the child
-    (phases 18, 19, 17 and 16(e)) is given."""
+    (phases 18, 19, 17, 16(e) and 20) is given."""
     ms_iter, iters = valve_probe(cuda)()
     scale = min(1.0, VALVE_REF_MS / ms_iter)
-    full = {"backup_explore_secs": BACKUP_EXPLORE_SECS,
-            "serve_secs": SERVE_SECS}
-    # whole tenths of a virtual second for 16(e), whole twentieths for 17(d)
-    grain = {"backup_explore_secs": 10, "serve_secs": 20}
+    full, grain = FULL_DEPTHS, DEPTH_GRAIN
     depths = {k: max(VALVE_FLOORS[k], round(v * scale * grain[k]) / grain[k])
               for k, v in full.items()}
     phase(9, f"host valve: an eager refill iteration at one shard took "
@@ -4216,7 +4502,7 @@ def host_valve(cuda) -> dict:
 
 
 def contention_probe() -> dict:
-    """How much the child (phases 18, 19, 17 and 16(e)) slows this
+    """How much the child (phases 18, 19, 17, 16(e) and 20) slows this
     process's eager work beside it: valve_probe alone, then again and
     again until the child ends, each probe placed in the child's phase by
     the wall-clock marks the child returns, then alone again."""
@@ -4231,9 +4517,7 @@ def contention_probe() -> dict:
     print(card, flush=True)
     run = valve_probe(cuda)
     before = [run()[0] for _ in range(3)]
-    depths = {"backup_explore_secs": BACKUP_EXPLORE_SECS,
-              "serve_secs": SERVE_SECS}
-    child = spawn_child(MESH_FLAG, json.dumps(depths))
+    child = spawn_child(MESH_FLAG, json.dumps(FULL_DEPTHS))
     series = []
     try:
         while child.poll() is None:
@@ -4269,12 +4553,13 @@ def contention_probe() -> dict:
 
 
 def child_phases(depths: dict) -> dict:
-    """The child process beside phases 10-16(d): phases 18, 19, 17 and
-    16(e), one after another, fills off as in phases 7-16, two CPU threads
-    for its CPU references (the parent's phases run beside it), 17(d) and
-    16(e) at the valve's `depths`. Returns phase 18's report with the
-    others' under "host_oracle", "tune_serve" and "speclang_explore", and
-    the wall-clock time each phase started ("marks")."""
+    """The child process beside phases 10-16(d): phases 18, 19, 17, 16(e)
+    and 20, one after another, fills off as in phases 7-16, two CPU
+    threads for its CPU references (the parent's phases run beside it),
+    17(d) and 16(e) at the valve's `depths`. Returns phase 18's report
+    with the others' under "host_oracle", "tune_serve", "speclang_explore"
+    and "host_faces", and the wall-clock time each phase started
+    ("marks")."""
     import torch.utils.deterministic as tdet
 
     torch.use_deterministic_algorithms(True)
@@ -4294,6 +4579,8 @@ def child_phases(depths: dict) -> dict:
         marks["16(e)"] = time.time()
         out["speclang_explore"] = phase16e_explore(
             cuda, depths["backup_explore_secs"])
+        marks["20"] = time.time()
+        out["host_faces"] = phase20_host_faces(cuda, card)
         marks["end"] = time.time()
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4347,6 +4634,15 @@ if __name__ == "__main__":
                          | {"wall_s": time.perf_counter() - T_START}),
               flush=True)
         sys.exit(0)
+    if sys.argv[1:2] == [HOSTFACE_CPU_FLAG]:
+        # phase 20's CPU references, in their own process beside the card
+        # legs, on one CPU thread: its result is its last stdout line
+        torch.use_deterministic_algorithms(True)
+        torch.set_num_threads(1)
+        print(json.dumps(phase20_cpu_references()
+                         | {"wall_s": time.perf_counter() - T_START}),
+              flush=True)
+        sys.exit(0)
     if sys.argv[1:2] == [SERIAL_FLAG]:
         print(json.dumps(serial_probe()), flush=True)
         sys.exit(0)
@@ -4354,7 +4650,7 @@ if __name__ == "__main__":
         print(json.dumps(contention_probe()), flush=True)
         sys.exit(0)
     if sys.argv[1:2] == [MESH_FLAG]:
-        # the child of phases 18, 19, 17 and 16(e): its phase lines count
+        # the child of phases 18, 19, 17, 16(e) and 20: its phase lines count
         # seconds from its own start; its result is its last stdout line
         print(json.dumps(child_phases(json.loads(sys.argv[2]))), flush=True)
         sys.exit(0)

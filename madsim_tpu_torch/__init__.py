@@ -5,8 +5,8 @@
 namesakes; the JAX package stays the reference each part is held against.
 
 The host runtime (`core/`, `net/`, `fs`) is the single-lane deterministic
-simulator the host twins (`workloads/raft_host.py`, `chain_host.py`) run on,
-exported here as the JAX package exports it:
+simulator the host twins (`workloads/<x>_host.py` and speclang's generated
+`<x>_host.py`) run on, exported here as the JAX package exports it:
 
     import madsim_tpu_torch as ms
 

@@ -35,6 +35,7 @@ lease-gen to the hand lease, leaf for leaf).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import namedtuple
 from typing import Any, Dict, Optional, Tuple
 
@@ -201,12 +202,15 @@ def build_workload(
     virtual_secs: float = 10.0,
     loss_rate: float = 0.1,
     buggy: bool = False,
+    device="cuda",
     **spec_overrides,
 ):
     """The BatchWorkload: generated spec + SimConfig from the spec
-    source's `workload` section. The host twin is not ported
-    (`host_repro=None`, as on every port workload)."""
-    from ..tpu.batch import BatchWorkload
+    source's `workload` section + the generic host twin as host_repro
+    (the debugging-microscope contract every hand workload ships), its
+    handlers on `device` (the card unless the caller asks for the CPU)."""
+    from ..tpu.batch import BatchWorkload, twin_repro
+    from . import hostrt
 
     if proto.workload is None:
         raise ValueError(f"{proto.name}: spec source declares no workload")
@@ -222,7 +226,14 @@ def build_workload(
     spec = build(proto, **overrides)
     p = proto.resolve(**overrides)
     cfg = proto.workload(spec, p, virtual_secs, loss_rate)
-    return BatchWorkload(spec=spec, config=cfg, host_repro=None)
+
+    host_repro = twin_repro(
+        functools.partial(hostrt.fuzz_one_seed, proto),
+        hostrt.InvariantViolation, n_nodes=p.n_nodes,
+        virtual_secs=virtual_secs, loss_rate=loss_rate, buggy=buggy,
+        device=device,
+    )
+    return BatchWorkload(spec=spec, config=cfg, host_repro=host_repro)
 
 
 def knob_rows(proto: Protocol, virtual_secs: float = 10.0) -> tuple:

@@ -1,15 +1,15 @@
-"""The speclang generated-module emitter (device face).
+"""The speclang generated-module emitter.
 
 The port of `madsim_tpu/speclang/emit.py`. `python -m
 madsim_tpu_torch.speclang emit` renders, for every spec source in
-`specs/`, the thin checked-in device face under `generated/`:
+`specs/`, the two thin checked-in faces under `generated/`:
 
   <x>_device.py  SPECLANG_DIGEST (sha256 of the spec source file) +
                  the DERIVED tables as reviewable literals + the
                  `make_spec` / `make_workload` (/ `spec_knobs`)
                  factories the workload registry rows point at
-
-There is no `<x>_host.py`: the generic host twin is not ported.
+  <x>_host.py    SPECLANG_DIGEST + `fuzz_one_seed`, the generic host
+                 twin (`hostrt.py`) with this protocol bound
 
 The rendered text is a pure function of the spec source: tables come
 from `device.derive_tables` (the same code `build` uses; the literals in
@@ -98,7 +98,7 @@ def render_device(src_name: str, proto: Protocol) -> str:
 
 def spec_knobs(virtual_secs: float = 10.0) -> tuple:
     """The tune SpecKnob rows of the spec source's KnobDecl declarations
-    (the registry's `knobs_attr` hook; refused until tune is ported)."""
+    (the registry's `knobs_attr` hook)."""
     return _device.knob_rows(_src.PROTOCOL, virtual_secs)
 '''
     return f'''{head}
@@ -116,24 +116,45 @@ def make_spec(**overrides):
 
 
 def make_workload(n_nodes=None, virtual_secs=10.0, loss_rate=0.1,
-                  buggy=False, **overrides):
+                  buggy=False, device="cuda", **overrides):
     """The BatchWorkload: generated spec + the spec source's chaos
-    recipe (no host twin: host_repro is None)."""
+    recipe + the generic host twin as host_repro (on `device`)."""
     return _device.build_workload(
         _src.PROTOCOL, n_nodes=n_nodes, virtual_secs=virtual_secs,
-        loss_rate=loss_rate, buggy=buggy, **overrides,
+        loss_rate=loss_rate, buggy=buggy, device=device, **overrides,
     )
 {knobs}'''
+
+
+def render_host(src_name: str, proto: Protocol) -> str:
+    head = _HEADER.format(src=src_name, proto=proto.name)
+    return f'''{head}
+from .. import hostrt as _hostrt
+from ..specs import {src_name} as _src
+
+SPECLANG_DIGEST = "{source_digest(src_name)}"
+
+InvariantViolation = _hostrt.InvariantViolation
+
+
+def fuzz_one_seed(seed, **kw):
+    """One fuzzed host-twin execution of {proto.name!r} (the generic
+    speclang twin with this protocol bound; `device=` picks where the
+    handlers run, the card unless "cpu" is asked for); raises
+    InvariantViolation on an oracle failure."""
+    return _hostrt.fuzz_one_seed(_src.PROTOCOL, seed, **kw)
+'''
 
 
 def render_all() -> Dict[str, str]:
     """{filename -> content} for every generated module."""
     from .specs import PROTOCOLS
 
-    return {
-        f"{src_name}_device.py": render_device(src_name, proto)
-        for src_name, proto in PROTOCOLS.items()
-    }
+    out = {}
+    for src_name, proto in PROTOCOLS.items():
+        out[f"{src_name}_device.py"] = render_device(src_name, proto)
+        out[f"{src_name}_host.py"] = render_host(src_name, proto)
+    return out
 
 
 def emit(check: bool = False) -> Tuple[list, list]:

@@ -33,16 +33,16 @@ def make_spec(**overrides):
 
 
 def make_workload(n_nodes=None, virtual_secs=10.0, loss_rate=0.1,
-                  buggy=False, **overrides):
+                  buggy=False, device="cuda", **overrides):
     """The BatchWorkload: generated spec + the spec source's chaos
-    recipe (no host twin: host_repro is None)."""
+    recipe + the generic host twin as host_repro (on `device`)."""
     return _device.build_workload(
         _src.PROTOCOL, n_nodes=n_nodes, virtual_secs=virtual_secs,
-        loss_rate=loss_rate, buggy=buggy, **overrides,
+        loss_rate=loss_rate, buggy=buggy, device=device, **overrides,
     )
 
 
 def spec_knobs(virtual_secs: float = 10.0) -> tuple:
     """The tune SpecKnob rows of the spec source's KnobDecl declarations
-    (the registry's `knobs_attr` hook; refused until tune is ported)."""
+    (the registry's `knobs_attr` hook)."""
     return _device.knob_rows(_src.PROTOCOL, virtual_secs)

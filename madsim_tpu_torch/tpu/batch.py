@@ -68,6 +68,23 @@ class BatchWorkload:
     lane_check_sample: int = 8
 
 
+def twin_repro(fuzz: Callable[..., dict], violation: type,
+               **kw) -> Callable[[int], dict]:
+    """A workload's `host_repro` through a host twin: `fuzz(seed, **kw)`'s
+    result dict with "violations" 0, or {"violations": 1, "violation":
+    message} when it raises `violation` (the twin's InvariantViolation)."""
+
+    def host_repro(seed: int) -> dict:
+        try:
+            out = fuzz(seed, **kw)
+        except violation as e:
+            return {"violations": 1, "violation": str(e)}
+        out["violations"] = 0
+        return out
+
+    return host_repro
+
+
 def popcount_rows(bitmaps: np.ndarray) -> np.ndarray:
     """Per-row set-bit counts of a u32 bitmap array [..., COV_WORDS] (a
     copy of `madsim_tpu/explore.py:popcount_rows`)."""

@@ -339,22 +339,16 @@ def chain_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
     """Chain replication under loss + crash/restart chaos (the JAX face's
     config). A violating seed gets both microscopes: the device trace and
     the host twin (workloads/chain_host.py) through `host_repro`."""
-    from .batch import BatchWorkload
+    from ..workloads import chain_host
+    from .batch import BatchWorkload, twin_repro
 
     spec = make_chain_spec(n_nodes)
 
-    def host_repro(seed: int):
-        from ..workloads import chain_host
-
-        try:
-            out = chain_host.fuzz_one_seed(
-                seed, n_nodes=n_nodes, virtual_secs=virtual_secs,
-                loss_rate=loss_rate,
-            )
-            out["violations"] = 0
-            return out
-        except chain_host.InvariantViolation as e:
-            return {"violations": 1, "violation": str(e)}
+    host_repro = twin_repro(
+        chain_host.fuzz_one_seed, chain_host.InvariantViolation,
+        n_nodes=n_nodes, virtual_secs=virtual_secs,
+        loss_rate=loss_rate,
+    )
     cfg = SimConfig(
         horizon_us=int(virtual_secs * 1e6),
         **pool_kw_for(

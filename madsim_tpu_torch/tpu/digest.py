@@ -46,6 +46,10 @@ reproduce them on every dispatch path.
 fingerprint of the pinned island federation (`FEDERATION_RUN` for
 `FEDERATION_GENERATIONS` generations on `chip_smoke.explore_workload(
 FEDERATION_H_US)`); tests/test_torch_campaign.py computes it there.
+
+`PINNED_HOSTRT` is the JAX face's `hostrt_digest` of the generated host
+twins' result dicts on `HOSTRT_RUNS`; tests/test_torch_speclang_host.py
+computes it there, and `hostrt_runs(device)` must reproduce it.
 """
 
 from __future__ import annotations
@@ -366,3 +370,69 @@ PINNED_ORACLE = "534dd9df0d602eb6"
 def oracle_config() -> SimConfig:
     """The raft bench config with `ORACLE_PLAN` compiled onto it."""
     return compile_plan(ORACLE_PLAN, raft_bench_config(ORACLE_H_US / 1e6))
+
+
+# The generated host twins' pinned runs (the JAX suite's
+# tests/test_host_twins.py:707-755): backup seed 3, lease-gen seed 1 and
+# twopc-gen seed 3 under host-native chaos for 6 virtual seconds, and the
+# correct backup build on seed 0 under `HOSTRT_PLAN` (Duplicate + Reorder,
+# plan mode, no host-native chaos) for 8. Rows are (generated module, seed,
+# fuzz_one_seed kwargs); "plan": True stands for `HOSTRT_PLAN`. The buggy
+# backup build raises on the plan row. `PINNED_HOSTRT` is the JAX face's
+# `hostrt_digest` of the four result dicts (tests/test_torch_speclang_host.py
+# computes it there); the port must reproduce it on every device.
+HOSTRT_PLAN = nemesis.FaultPlan(name="backup-bug", clauses=(
+    nemesis.Duplicate(rate=0.15),
+    nemesis.Reorder(rate=0.3, window_us=250_000),
+))
+HOSTRT_RUNS = (
+    ("backup_host", 3, {"virtual_secs": 6.0}),
+    ("lease_host", 1, {"virtual_secs": 6.0}),
+    ("twopc_host", 3, {"virtual_secs": 6.0}),
+    ("backup_host", 0, {"virtual_secs": 8.0, "chaos": False, "plan": True}),
+)
+PINNED_HOSTRT = (
+    "9b5b07ccb1c3806b60aff1de62a884cb30d878f9354b56bd2c58e882123a281e"
+)
+
+
+def hostrt_kwargs(kw: dict, plan) -> dict:
+    """A `HOSTRT_RUNS` row's kwargs with `plan` (the face's copy of
+    `HOSTRT_PLAN`) in place of the marker."""
+    return {k: (plan if k == "plan" else v) for k, v in kw.items()}
+
+
+def hostrt_result(out: dict) -> dict:
+    """The JSON-able part of a generic twin's result dict: checks, events,
+    the per-node state digests and, in plan mode, the driver's applied
+    stream, fires, occurrence masks and coin draws."""
+    doc = {k: out[k] for k in ("checks", "events", "state")}
+    nem = out.get("nemesis")
+    if nem is not None:
+        doc["nemesis"] = {
+            "applied": [dataclasses.astuple(e) for e in nem["applied"]],
+            "occ_fired": nem["occ_fired"],
+            "fires": nem["fires"],
+            "draws": [list(d) for d in nem["coins"].draws],
+        }
+    return json.loads(json.dumps(doc))
+
+
+def hostrt_digest(results) -> str:
+    """sha256 of the `hostrt_result`s of the `HOSTRT_RUNS` dicts, in order."""
+    return hashlib.sha256(json.dumps(
+        [hostrt_result(r) for r in results], sort_keys=True
+    ).encode()).hexdigest()
+
+
+def hostrt_runs(device="cuda") -> list:
+    """The port's generated twins on `HOSTRT_RUNS`, handlers on `device`."""
+    import importlib
+
+    out = []
+    for mod, seed, kw in HOSTRT_RUNS:
+        twin = importlib.import_module(
+            f"madsim_tpu_torch.speclang.generated.{mod}")
+        out.append(twin.fuzz_one_seed(
+            seed, device=device, **hostrt_kwargs(kw, HOSTRT_PLAN)))
+    return out

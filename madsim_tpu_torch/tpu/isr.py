@@ -237,10 +237,19 @@ def make_isr_spec(
 def isr_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
                  loss_rate: float = 0.1, buggy: bool = False):
     """ISR replication under loss + crash + reconfig chaos (the JAX face's
-    config). The host-runtime reproducer is not ported (`host_repro=None`)."""
-    from .batch import BatchWorkload
+    config). A violating seed gets both microscopes: the device trace and
+    the host twin (workloads/isr_host.py) through `host_repro`."""
+    from ..workloads import isr_host
+    from .batch import BatchWorkload, twin_repro
 
     spec = make_isr_spec(n_nodes, buggy_stale_isr=buggy)
+
+    host_repro = twin_repro(
+        isr_host.fuzz_one_seed, isr_host.InvariantViolation,
+        n_nodes=n_nodes, virtual_secs=virtual_secs,
+        loss_rate=loss_rate, buggy=buggy,
+    )
+
     cfg = SimConfig(
         horizon_us=int(virtual_secs * 1e6),
         **pool_kw_for(
@@ -260,4 +269,4 @@ def isr_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
         nem_reconfig_down_lo_us=300_000,
         nem_reconfig_down_hi_us=900_000,
     )
-    return BatchWorkload(spec=spec, config=cfg, host_repro=None)
+    return BatchWorkload(spec=spec, config=cfg, host_repro=host_repro)

@@ -649,11 +649,14 @@ def kv_workload(
     partitions: bool = True,
     spec: "ProtocolSpec | None" = None,
     ops_capacity: "int | None" = None,
+    device="cuda",
 ):
     """The replicated-KV linearizability fuzz (the JAX face's config): the
     history ring sized to the horizon, partitions and loss, and the exact
     per-key linearizability check wired as the workload's `lane_check`.
-    The host-runtime reproducer is not ported (`host_repro=None`)."""
+    `host_repro` re-runs a seed as one engine lane on `device` (the card
+    unless the caller asks for the CPU) under the exact checker, then on
+    the host twin."""
     from .batch import BatchWorkload
 
     if ops_capacity is None:
@@ -683,10 +686,34 @@ def kv_workload(
 
         return linearize.check_lanes(state.node, lanes)
 
+    def host_repro(seed: int):
+        """Two microscopes for one seed: (a) re-run it as one engine lane
+        on `device` and hand the full history to the exact
+        linearizability checker; (b) run the host twin
+        (workloads/kv_host.py) under the same seed's chaos flavor,
+        verified by the same oracle."""
+        from . import linearize
+        from ..workloads import kv_host
+        from .engine import BatchedSim
+
+        sim = BatchedSim(the_spec, cfg, device=device)
+        state = sim.run([seed], max_steps=int(virtual_secs * 1200) + 2000)
+        out = {"device": linearize.check_lane(state.node, 0)}
+        try:
+            out["host_twin"] = kv_host.fuzz_one_seed(
+                seed, n_nodes=n_nodes, virtual_secs=virtual_secs,
+                loss_rate=loss_rate, partitions=partitions,
+            )
+        except Exception as e:  # noqa: BLE001 - the twin's failure IS the
+            # finding; it must never discard the computed device verdict
+            out["host_twin"] = e
+        out["violations"] = out["device"]["violations"]
+        return out
+
     return BatchWorkload(
         spec=the_spec,
         config=cfg,
-        host_repro=None,
+        host_repro=host_repro,
         lane_check=lane_check,
         lane_check_sample=64,
     )

@@ -299,10 +299,19 @@ def make_lease_spec(
 def lease_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
                    loss_rate: float = 0.1, buggy: bool = False):
     """Lease/watch under loss + crash + reconfig chaos (the JAX face's
-    config). The host-runtime reproducer is not ported (`host_repro=None`)."""
-    from .batch import BatchWorkload
+    config). A violating seed gets both microscopes: the device trace and
+    the host twin (workloads/lease_host.py) through `host_repro`."""
+    from ..workloads import lease_host
+    from .batch import BatchWorkload, twin_repro
 
     spec = make_lease_spec(n_nodes, buggy_zombie_lease=buggy)
+
+    host_repro = twin_repro(
+        lease_host.fuzz_one_seed, lease_host.InvariantViolation,
+        n_nodes=n_nodes, virtual_secs=virtual_secs,
+        loss_rate=loss_rate, buggy=buggy,
+    )
+
     cfg = SimConfig(
         horizon_us=int(virtual_secs * 1e6),
         **pool_kw_for(
@@ -322,4 +331,4 @@ def lease_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
         nem_reconfig_down_lo_us=300_000,
         nem_reconfig_down_hi_us=900_000,
     )
-    return BatchWorkload(spec=spec, config=cfg, host_repro=None)
+    return BatchWorkload(spec=spec, config=cfg, host_repro=host_repro)

@@ -289,8 +289,17 @@ def make_paxos_spec(
 def paxos_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
                    loss_rate: float = 0.1):
     """Single-decree consensus under the full chaos battery (the JAX face's
-    config). The host-runtime reproducer is not ported (`host_repro=None`)."""
-    from .batch import BatchWorkload
+    config). A violating seed gets both microscopes: the device trace and
+    the host twin (workloads/paxos_host.py, verified by the same agreement
+    oracle) through `host_repro`."""
+    from ..workloads import paxos_host
+    from .batch import BatchWorkload, twin_repro
+
+    host_repro = twin_repro(
+        paxos_host.fuzz_one_seed, paxos_host.InvariantViolation,
+        n_nodes=n_nodes, virtual_secs=virtual_secs,
+        loss_rate=loss_rate,
+    )
 
     the_spec = make_paxos_spec(n_nodes)
     pool_kw = pool_kw_for(
@@ -311,4 +320,4 @@ def paxos_workload(n_nodes: int = 5, virtual_secs: float = 10.0,
         partition_heal_lo_us=400_000,
         partition_heal_hi_us=1_500_000,
     )
-    return BatchWorkload(spec=the_spec, config=cfg, host_repro=None)
+    return BatchWorkload(spec=the_spec, config=cfg, host_repro=host_repro)

@@ -408,9 +408,18 @@ def twopc_workload(
     spec: "ProtocolSpec | None" = None,
 ):
     """The 2PC atomicity fuzz under loss, coordinator crashes and
-    partitions (the JAX face's config). The host-runtime reproducer is not
-    ported (`host_repro=None`)."""
-    from .batch import BatchWorkload
+    partitions (the JAX face's config). A violating seed gets both
+    microscopes: the device trace and the host twin
+    (workloads/twopc_host.py, verified by the same atomicity + vote-respect
+    oracle) through `host_repro`."""
+    from ..workloads import twopc_host
+    from .batch import BatchWorkload, twin_repro
+
+    host_repro = twin_repro(
+        twopc_host.fuzz_one_seed, twopc_host.InvariantViolation,
+        n_nodes=n_nodes, virtual_secs=virtual_secs,
+        loss_rate=loss_rate,
+    )
 
     cfg = SimConfig(
         horizon_us=int(virtual_secs * 1e6),
@@ -429,5 +438,5 @@ def twopc_workload(
     return BatchWorkload(
         spec=spec if spec is not None else make_twopc_spec(n_nodes),
         config=cfg,
-        host_repro=None,
+        host_repro=host_repro,
     )

@@ -273,11 +273,21 @@ def wal_workload(
 ):
     """The WAL lost-ack fuzz under DiskFault chaos (the JAX face's config).
     `disk=False` is the quiet-disk control leg: without the durability axis
-    even the buggy spec reports zero violations. The host-runtime
-    reproducer is not ported (`host_repro=None`)."""
-    from .batch import BatchWorkload
+    even the buggy spec reports zero violations. A violating seed gets
+    both microscopes: the device trace and the host twin
+    (workloads/wal_host.py: real fs.File appends, real fsync, real
+    torn-tail parse on recovery) through `host_repro`."""
+    from ..workloads import wal_host
+    from .batch import BatchWorkload, twin_repro
 
     spec = make_wal_spec(n_nodes, buggy_ack_before_fsync=buggy)
+
+    host_repro = twin_repro(
+        wal_host.fuzz_one_seed, wal_host.InvariantViolation,
+        n_nodes=n_nodes, virtual_secs=virtual_secs,
+        loss_rate=loss_rate, buggy=buggy, disk=disk,
+    )
+
     disk_kw = dict(
         nem_disk_interval_lo_us=300_000,
         nem_disk_interval_hi_us=1_200_000,
@@ -298,4 +308,4 @@ def wal_workload(
         loss_rate=loss_rate,
         **disk_kw,
     )
-    return BatchWorkload(spec=spec, config=cfg, host_repro=None)
+    return BatchWorkload(spec=spec, config=cfg, host_repro=host_repro)

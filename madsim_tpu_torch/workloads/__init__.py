@@ -7,15 +7,13 @@ factory; the explorer CLI (`python -m madsim_tpu_torch.explore
 keeping private lists.
 
 The port has the JAX registry's rows, field for field: the eight
-hand-written workloads, pointing at `madsim_tpu_torch.tpu.<x>`, and the
-three speclang-generated ones (`twopc-gen`, `lease-gen`, `backup`),
-pointing at the device modules that `python -m madsim_tpu_torch.speclang
-emit` writes into `madsim_tpu_torch/speclang/generated/`. raft and chain,
-the differential oracle's two standing twins, ship their host face
-(`madsim_tpu_torch.workloads.raft_host` / `chain_host`), so `host_fuzz`
-and `oracle_twins` answer for them; the other rows keep `host_module=None`
-until their host twins are ported (ROADMAP.md item 16). wal stays
-unexplorable, as there.
+hand-written workloads, pointing at `madsim_tpu_torch.tpu.<x>` and their
+host twins `madsim_tpu_torch.workloads.<x>_host`, and the three
+speclang-generated ones (`twopc-gen`, `lease-gen`, `backup`), pointing at
+the device and host modules that `python -m madsim_tpu_torch.speclang
+emit` writes into `madsim_tpu_torch/speclang/generated/`. `host_fuzz`
+answers for every row; raft and chain are the differential oracle's two
+standing twins (`oracle_twins`). wal stays unexplorable, as there.
 
 Entries hold dotted module paths and attribute names, resolved on first
 use, so importing this package imports no workload module.
@@ -65,31 +63,35 @@ ENTRIES: Tuple[WorkloadEntry, ...] = (
                   host_module=f"{_HOST}.raft_host",
                   oracle_twin=True, tunable=True),
     WorkloadEntry("kv", f"{_TPU}.kv", "make_kv_spec", "kv_workload",
-                  tunable=True),
+                  host_module=f"{_HOST}.kv_host", tunable=True),
     WorkloadEntry("twopc", f"{_TPU}.twopc", "make_twopc_spec",
-                  "twopc_workload", tunable=True),
+                  "twopc_workload", host_module=f"{_HOST}.twopc_host",
+                  tunable=True),
     WorkloadEntry("paxos", f"{_TPU}.paxos", "make_paxos_spec",
-                  "paxos_workload", tunable=True),
+                  "paxos_workload", host_module=f"{_HOST}.paxos_host",
+                  tunable=True),
     WorkloadEntry("chain", f"{_TPU}.chain", "make_chain_spec",
                   "chain_workload", host_module=f"{_HOST}.chain_host",
                   oracle_twin=True, tunable=True),
-    WorkloadEntry("isr", f"{_TPU}.isr", "make_isr_spec", "isr_workload"),
+    WorkloadEntry("isr", f"{_TPU}.isr", "make_isr_spec", "isr_workload",
+                  host_module=f"{_HOST}.isr_host"),
     WorkloadEntry("lease", f"{_TPU}.lease", "make_lease_spec",
-                  "lease_workload"),
+                  "lease_workload", host_module=f"{_HOST}.lease_host"),
     # wal is an analysis and twin-test workload, not an explore CLI target
     # (as on the JAX face)
     WorkloadEntry("wal", f"{_TPU}.wal", "make_wal_spec", "wal_workload",
-                  explorable=False),
-    # --- speclang-generated (one spec source, the device face emitted) ---
+                  host_module=f"{_HOST}.wal_host", explorable=False),
+    # --- speclang-generated (one spec source, both faces emitted) ---
     WorkloadEntry("twopc-gen", f"{_GEN}.twopc_device", "make_spec",
-                  "make_workload", generated=True,
-                  source_module=f"{_SRC}.twopc", knobs_attr="spec_knobs"),
+                  "make_workload", host_module=f"{_GEN}.twopc_host",
+                  generated=True, source_module=f"{_SRC}.twopc",
+                  knobs_attr="spec_knobs"),
     WorkloadEntry("lease-gen", f"{_GEN}.lease_device", "make_spec",
-                  "make_workload", generated=True,
-                  source_module=f"{_SRC}.lease"),
+                  "make_workload", host_module=f"{_GEN}.lease_host",
+                  generated=True, source_module=f"{_SRC}.lease"),
     WorkloadEntry("backup", f"{_GEN}.backup_device", "make_spec",
-                  "make_workload", generated=True,
-                  source_module=f"{_SRC}.backup"),
+                  "make_workload", host_module=f"{_GEN}.backup_host",
+                  generated=True, source_module=f"{_SRC}.backup"),
 )
 
 _BY_NAME: Dict[str, WorkloadEntry] = {e.name: e for e in ENTRIES}

@@ -346,8 +346,8 @@ def test_campaign_serve_cli_runs_its_oracle(tmp_path):
 
 def test_registry_rows_equal_the_jax_registry(capsys):
     """Every row of the JAX registry, the speclang-generated ones
-    included, field for field, with the port's module paths; raft and
-    chain carry their host face, the others none yet."""
+    included, field for field, with the port's module paths, host
+    faces included: `host_fuzz` answers for every row."""
     assert reg.names() == jreg.names()
     for flags in (dict(explorable=True), dict(tunable=True),
                   dict(oracle_twin=True), dict(analysis=True),
@@ -360,18 +360,15 @@ def test_registry_rows_equal_the_jax_registry(capsys):
 
     for name in jreg.names():
         e, je = reg.get(name), jreg.get(name)
-        hosted = name in ("raft", "chain")
         assert dataclasses.asdict(e) == dataclasses.asdict(je) | {
             "module": port(je.module),
-            "host_module": port(je.host_module) if hosted else None,
+            "host_module": port(je.host_module),
             "source_module": port(je.source_module),
         }, name
         assert reg.spec_factory(name).__module__ == e.module
-        if hosted:
-            assert reg.host_fuzz(name).__module__ == e.host_module
-        else:
-            with pytest.raises(KeyError, match="host twin"):
-                reg.host_fuzz(name)
+        assert e.host_module is not None
+        assert reg.host_fuzz(name).__module__ in (
+            e.host_module, "madsim_tpu_torch.speclang.hostrt")
     assert sorted(reg.oracle_twins()) == sorted(jreg.oracle_twins())
     with pytest.raises(KeyError, match="unknown workload"):
         reg.get("nonesuch")

@@ -67,7 +67,12 @@ def test_no_port_module_imports_jax_or_the_jax_package():
         os.path.join("net", "netsim.py"),
         os.path.join("workloads", "raft_host.py"),
         os.path.join("workloads", "chain_host.py"),
-    )} <= seen
+        os.path.join("speclang", "hostrt.py"),
+        os.path.join("speclang", "generated", "backup_host.py"),
+        os.path.join("speclang", "generated", "lease_host.py"),
+        os.path.join("speclang", "generated", "twopc_host.py"),
+    ) + tuple(os.path.join("workloads", f"{x}_host.py") for x in (
+        "kv", "twopc", "paxos", "isr", "lease", "wal"))} <= seen
 
 
 def test_importing_the_port_loads_no_jax():
@@ -79,9 +84,11 @@ def test_importing_the_port_loads_no_jax():
         "madsim_tpu_torch.speclang.emit, madsim_tpu_torch.core, "
         "madsim_tpu_torch.oracle, madsim_tpu_torch.repro, "
         "madsim_tpu_torch.workloads.raft_host, "
-        "madsim_tpu_torch.workloads.chain_host; "
+        "madsim_tpu_torch.workloads.chain_host, "
+        "madsim_tpu_torch.speclang.hostrt; "
         "from madsim_tpu_torch import workloads; "
         "[workloads.workload_factory(n) for n in workloads.names()]; "
+        "[workloads.host_fuzz(n) for n in workloads.names()]; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r}]; "
         "assert not bad, bad"

@@ -50,7 +50,7 @@ WORKLOADS = {
 def test_workload_leaf_equal(name):
     jfac, tfac, steps = WORKLOADS[name]
     jw, tw = jfac(virtual_secs=2.0), tfac(virtual_secs=2.0)
-    assert tw.host_repro is None
+    assert tw.host_repro is not None
     jst, pst = run_both(jw.spec, jw.config, tw.spec, tw.config,
                         list(range(16)), steps)
     got = state_to_numpy(pst)

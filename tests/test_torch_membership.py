@@ -58,7 +58,7 @@ def test_workload_leaf_equal(name, buggy):
     jfac, tfac, secs, steps, min_bad = WORKLOADS[name]
     jw, tw = jfac(virtual_secs=secs, buggy=buggy), tfac(virtual_secs=secs,
                                                          buggy=buggy)
-    assert tw.host_repro is None
+    assert tw.host_repro is not None
     jst, pst = run_both(jw.spec, jw.config, tw.spec, tw.config,
                         list(range(16)), steps)
     want, got = jax_leaves(jst), state_to_numpy(pst)

@@ -188,7 +188,8 @@ def test_derived_tables_equal_the_jax_face_and_the_hand_specs(name):
 def test_emit_check_clean_and_digests_pin_sources():
     clean, drifted = emit.emit(check=True)
     assert not drifted, drifted
-    assert clean == sorted(f"{n}_device.py" for n in PROTOCOLS)
+    assert clean == sorted(f"{n}_{face}.py" for n in PROTOCOLS
+                           for face in ("device", "host"))
     for name in SPECS:
         assert GEN[name].SPECLANG_DIGEST == emit.source_digest(name)
     out = subprocess.run(
@@ -212,7 +213,7 @@ def test_registry_generated_rows_and_refused_knobs(capsys):
     spec = registry.spec_factory("backup")()
     assert spec.name == "backup5" and spec.durable_fields
     wl = registry.workload_factory("twopc-gen")(virtual_secs=2.0)
-    assert wl.host_repro is None
+    assert wl.host_repro is not None
     jwl = j_twopc.make_workload(virtual_secs=2.0)
     assert wl.config.to_toml() == jwl.config.to_toml()
     # the tune SpecKnob rows (refused until tune came, item 12): the JAX
@@ -291,7 +292,7 @@ def test_backup_leaf_equal_to_the_jax_generated_backup(buggy):
     least the JAX test's 5 lanes; the correct build never violates."""
     jw = j_backup.make_workload(buggy=buggy)
     tw = backup_device.make_workload(buggy=buggy)
-    assert tw.host_repro is None
+    assert tw.host_repro is not None
     jst, pst = run_both(jw.spec, jw.config, tw.spec, tw.config,
                         list(range(64)), 2000)
     want, got = jax_leaves(jst), state_to_numpy(pst)

@@ -62,8 +62,8 @@ def violations(leaves):
 def test_workload_leaf_equal(name):
     jfac, tfac, steps = WORKLOADS[name]
     jw, tw = jfac(virtual_secs=2.0), tfac(virtual_secs=2.0)
-    # chain's host twin is ported (item 16), paxos's is not yet
-    assert (tw.host_repro is not None) == (name == "chain")
+    # every factory ships its host twin (item 16)
+    assert tw.host_repro is not None
     assert jw.host_repro is not None
     jst, pst = run_both(jw.spec, jw.config, tw.spec, tw.config,
                         list(range(16)), steps)
